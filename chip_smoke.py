@@ -6,17 +6,28 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 Phases, one output line each:
   1. device  — a CUDA device whose name contains H100 (and the nvidia-smi line);
   2. build   — nvcc builds the kernels in tensorkrylov_tpu_torch/ops/csrc;
-  3. kernels — each CUDA kernel against its plain PyTorch version on the card;
+  3. kernels — each CUDA kernel against its plain PyTorch version on the card
+               (the SpMV and the fused core in f64 and f32; the resident
+               multi-step Lanczos kernel in f32, 8 steps from β = 0);
   4. golden  — tests/golden_laplace_d4_n100.json reproduced on the card, and the
                dense-oracle residual at d=3, n=30;
   5. slice   — reaction_diffusion(d=10, n=131072), f64, kmax=200, tol=1e-8, with
                the default step and with the fused step; the kernel launch counts
                must equal the Krylov steps;
-  6. card_vs_cpu — the same two solves at d=10, n=4096 on the card and on the CPU.
-Then one JSON line of the kernels and, last, {"ok": true, "device": {...}}.
+  6. card_vs_cpu — the same two solves at d=10, n=4096 on the card and on the CPU;
+  7. host_projected — solve_host_projected on the slice's problem with plain f32
+               Lanczos, through the resident kernel (one launch per segment) and
+               through the unfused step; the resident route at n=4096 on the card
+               and on the CPU; the nonsymmetric path: conv_diff(3, 30) through
+               solve with Arnoldi (dense oracle), and conv_diff(d=10, n=16384)
+               through solve_host_projected at the JAX package's at-scale shape.
+Each path is driven with the launch counts set to 0 just before it and read
+just after. Then one JSON line of the kernels and, last,
+{"ok": true, "device": {...}}.
 Any failed check exits with code 1 and prints no result line; so do a machine
 without CUDA and a directory without the package.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -31,6 +42,12 @@ GOLDEN = os.path.join(REPO, "tests", "golden_laplace_d4_n100.json")
 LIMITS = {torch.float64: 1e-12, torch.float32: 1e-5}  # kernel vs plain, relative
 TRACE_RTOL = 1e-6       # golden / card-vs-CPU relative-residual traces
 SPECTRUM_RTOL = 1e-12   # card-vs-CPU λ_min, λ_max traces
+ROUTE_LAMBDA_RTOL = 1e-4  # resident vs unfused route: λ_min, λ_max traces (two f32 roundings)
+# resident vs unfused route: relative-residual traces. Plain f32 Lanczos floors near 1e-5 at k=24 on the
+# slice's problem; beyond that each route's rounding drives its own drift (0.51 apart at most in the
+# first run on the card), so the bound is 1.0: the same order of magnitude at every check
+ROUTE_TRACE_RTOL = 1.0
+STEPS = 8                 # resident kernel steps per call in phase 3
 
 
 class Failed(Exception):
@@ -121,6 +138,8 @@ def phase_build():
 def phase_kernels(tkt):
     from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
     from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
+    from tensorkrylov_tpu_torch.ops.resident_lanczos import (
+        ResidentSteps, lanczos_resident_steps, lanczos_resident_steps_reference)
 
     dev = torch.device("cuda")
     scaled_laplace = tkt.laplace(10, 131072, device=dev)
@@ -153,6 +172,21 @@ def phase_kernels(tkt):
                 require(err <= limit, f"fused_lanczos {case} {dtype} {name}: {err} > {limit}")
             if case.startswith("d10") and dtype == torch.float64:
                 worst["fused_lanczos"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        # the resident kernel takes f32 only: STEPS steps from a unit start, vpp = 0, β = 0
+        op = op64.astype(torch.float32)
+        vp = unit_rows(np.random.default_rng(13), (op.d, op.n), torch.float32, dev)
+        start = (vp, torch.zeros_like(vp), torch.zeros(op.d, dtype=torch.float32, device=dev))
+        got = lanczos_resident_steps(op, *start, STEPS)
+        ref = lanczos_resident_steps_reference(op, *start, STEPS)
+        torch.cuda.synchronize()
+        limit = LIMITS[torch.float32]
+        for name, g, r in zip(ResidentSteps._fields, got, ref):
+            err = rel_err(g, r)
+            checks.append(dict(kernel="resident_lanczos", case=case, dtype="float32", S=STEPS, out=name, err=err,
+                               limit=limit))
+            require(err <= limit, f"resident_lanczos {case} {name}: {err} > {limit}")
+        if case.startswith("d10"):
+            worst["resident_lanczos"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
 
     # times at the main path's shape and dtype: d=10, n=131072, tridiagonal, f64
     op = cases["d10_n131072_tridiag"]
@@ -164,12 +198,21 @@ def phase_kernels(tkt):
         "fused_lanczos": time_pair(lambda: fused_lanczos_core_reference(op, v, v_pprev, beta, b),
                                    lambda: fused_lanczos_core(op, v, v_pprev, beta, b)),
     }
+    # the resident kernel at the host-projected path's shape and dtype: f32, one segment of STEPS steps
+    op32 = op.astype(torch.float32)
+    start = (v.float(), torch.zeros_like(v, dtype=torch.float32), torch.zeros(10, dtype=torch.float32, device=dev))
+    times["resident_lanczos"] = time_pair(lambda: lanczos_resident_steps_reference(op32, *start, STEPS),
+                                          lambda: lanczos_resident_steps(op32, *start, STEPS), reps=50, warm=5)
     emit("kernels", ok=True, checks=checks,
-         ms_at_d10_n131072_f64={k: {"kernel": t[0], "plain": t[1]} for k, t in times.items()})
+         ms_at_d10_n131072={k: {"kernel": t[0], "plain": t[1], "dtype": "float32" if k == "resident_lanczos"
+                                else "float64"} for k, t in times.items()},
+         resident_steps_per_call=STEPS)
     return worst, times
 
 
-def run_solve(tkt, op, b, config):
+def run_solve(tkt, op, b, config, entry="solve"):
+    """One solve through the entry point tkt.<entry>, with the launch counts set to
+    0 just before it and read just after."""
     from tensorkrylov_tpu_torch.ops import _build
 
     if op.device.type == "cuda":
@@ -177,7 +220,7 @@ def run_solve(tkt, op, b, config):
         torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     t0 = time.perf_counter()
-    res = tkt.solve(op, b, config)
+    res = getattr(tkt, entry)(op, b, config)
     if op.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -274,6 +317,113 @@ def phase_card_vs_cpu(tkt):
     emit("card_vs_cpu", d=10, n=4096, trace_rtol=TRACE_RTOL, spectrum_rtol=SPECTRUM_RTOL, runs=out)
 
 
+HOST = dict(kmax=200, tol=1e-8, orth="lanczos", basis_dtype=torch.float32, check_every=8)
+NONSYM = dict(d=10, n=16384, kappa=1e4, seed=1234, config=dict(kmax=384, tol=1e-8, orth="arnoldi", tmax=801,
+                                                               check_every=16))
+
+
+def checked(res):
+    """The steps at which a check recorded a residual."""
+    r = res.relative_residual.cpu().numpy()
+    return np.flatnonzero(np.isfinite(r) & (r > 0))
+
+
+def host_run(tkt, op, b, step_impl):
+    """One solve_host_projected run of the HOST config; requires that it took
+    the requested route and launched its kernel as often as that route must."""
+    res, wall, counts = run_solve(tkt, op, b, tkt.SolverConfig(**HOST, step_impl=step_impl), "solve_host_projected")
+    k = res.niterations
+    segments = -(-k // HOST["check_every"])
+    require(res.config.step_impl == step_impl, f"host_projected {step_impl}: resolved to {res.config.step_impl}")
+    if op.device.type == "cuda":
+        kernel, want = ("resident_lanczos", segments) if step_impl == "resident" else ("banded_spmv", k)
+        require(counts.get(kernel, 0) == want,
+                f"host_projected {step_impl}: {kernel} launched {counts.get(kernel, 0)} times, want {want}")
+    else:
+        require(not counts, f"host_projected {step_impl} on the CPU launched kernels: {counts}")
+    idx = checked(res)
+    rr = res.relative_residual.numpy()
+    summary = dict(status=res.status, niterations=k, segments=segments, final_rel_residual=float(rr[idx[-1]]),
+                   best_rel_residual=float(rr[idx].min()), best_at=int(idx[np.argmin(rr[idx])]), wall_s=wall,
+                   iterations_per_s=k / wall, launches=counts, step_impl=res.config.step_impl)
+    if op.device.type == "cuda":
+        summary["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return res, summary
+
+
+def trace_errs(a, c, idx):
+    return {f: float(np.max(np.abs(getattr(a, f).numpy()[idx] - getattr(c, f).numpy()[idx])
+                            / np.abs(getattr(c, f).numpy()[idx])))
+            for f in ("relative_residual", "lambda_min", "lambda_max")}
+
+
+def phase_host_projected(tkt):
+    dev = torch.device("cuda")
+    # (a) the slice at full width, resident route against the unfused route
+    op, b = slice_problem(tkt, 131072, dev)
+    runs, traces = {}, {}
+    for impl in ("resident", "xla"):
+        res, runs[impl] = host_run(tkt, op, b, impl)
+        x = res.x.factors
+        require(tuple(x.shape) == (10, 131072, 63) and bool(torch.isfinite(x).all()),
+                f"host_projected {impl}: bad solution (shape {tuple(x.shape)})")
+        traces[impl] = dataclasses.replace(res, x=None)  # telemetry only: the CPU tensors
+        del res, x  # the next run's peak memory must not count this one's solution
+    a, c = traces["resident"], traces["xla"]
+    require(a.status == c.status, f"host_projected: resident status {a.status} vs xla {c.status}")
+    idx = np.intersect1d(checked(a), checked(c))
+    route = trace_errs(a, c, idx)
+    require(max(route["lambda_min"], route["lambda_max"]) <= ROUTE_LAMBDA_RTOL, f"host_projected routes: {route}")
+    require(route["relative_residual"] <= ROUTE_TRACE_RTOL, f"host_projected routes: {route}")
+    launches = runs["resident"]["launches"]["resident_lanczos"]
+
+    # (b) card against CPU on the resident route: the same recurrence, bit for bit
+    out = {}
+    for d_ in ("cuda", "cpu"):
+        op4, b4 = slice_problem(tkt, 4096, torch.device(d_))
+        out[d_] = host_run(tkt, op4, b4, "resident")
+    (gpu, gs), (cpu, _) = out["cuda"], out["cpu"]
+    require((gpu.status, gpu.niterations) == (cpu.status, cpu.niterations),
+            f"host_projected card {gpu.status}/{gpu.niterations} vs cpu {cpu.status}/{cpu.niterations}")
+    cvc = trace_errs(gpu, cpu, checked(cpu))
+    require(cvc["relative_residual"] <= TRACE_RTOL, f"host_projected card vs cpu: {cvc}")
+    require(max(cvc["lambda_min"], cvc["lambda_max"]) <= SPECTRUM_RTOL, f"host_projected card vs cpu: {cvc}")
+
+    # (c) the nonsymmetric path: the verify recipe through solve, then the at-scale shape
+    op3 = tkt.conv_diff(3, 30, device=dev)
+    b3 = tkt.random_rhs(3, 30, seed=7, device=dev)
+    res3, _, counts3 = run_solve(tkt, op3, b3, tkt.SolverConfig(kmax=30, tol=1e-8, orth="arnoldi", tmax=601))
+    dense3 = tkt.kron_residual_dense(op3, res3.x, b3)
+    require(res3.status == tkt.Status.CONVERGED and dense3 <= 1e-8,
+            f"conv_diff(3, 30) arnoldi: status {res3.status}, dense-oracle residual {dense3}")
+    require(counts3.get("banded_spmv", 0) == res3.niterations, f"conv_diff(3, 30): launches {counts3}")
+    ns = NONSYM
+    sigma = sigma_for_kappa(ns["n"], ns["kappa"])
+    opn = tkt.conv_diff(ns["d"], ns["n"], shift=sigma, device=dev)
+    bn = tkt.random_rhs(ns["d"], ns["n"], seed=ns["seed"], device=dev)
+    bn = bn / torch.linalg.vector_norm(bn, dim=1, keepdim=True)
+    resn, walln, countsn = run_solve(tkt, opn, bn, tkt.SolverConfig(**ns["config"]), "solve_host_projected")
+    kn = resn.niterations
+    idxn = checked(resn)
+    xn = resn.x.factors
+    require(tuple(xn.shape) == (ns["d"], ns["n"], ns["config"]["tmax"]) and bool(torch.isfinite(xn).all()),
+            f"conv_diff at scale: bad solution (shape {tuple(xn.shape)})")
+    require(resn.status == tkt.Status.CONVERGED, f"conv_diff at scale: status {resn.status} after {kn} steps")
+    require(countsn.get("banded_spmv", 0) == kn, f"conv_diff at scale: launches {countsn}")
+    nonsym = dict(d=ns["d"], n=ns["n"], kappa=ns["kappa"], sigma=sigma, config=ns["config"], status=resn.status,
+                  niterations=kn, last_rel_residual=float(resn.relative_residual[idxn[-1]]),
+                  expsum_rank=int(resn.expsum_rank[idxn[-1]]), wall_s=walln, iterations_per_s=kn / walln,
+                  max_memory_allocated=torch.cuda.max_memory_allocated(), launches=countsn)
+    emit("host_projected", d=10, n=131072, config={k: str(v) for k, v in HOST.items()}, runs=runs,
+         route_trace_max_rel_err=route, route_rtol=dict(lambda_=ROUTE_LAMBDA_RTOL, residual=ROUTE_TRACE_RTOL),
+         route_traces={"k": idx.tolist(), **{impl: r.relative_residual.numpy()[idx].tolist()
+                                             for impl, r in traces.items()}},
+         card_vs_cpu_n4096=dict(status=gpu.status, niterations=gpu.niterations, segments=gs["segments"], **cvc),
+         conv_diff_d3_n30=dict(status=res3.status, niterations=res3.niterations, dense_oracle_residual=dense3),
+         conv_diff_at_scale=nonsym)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -290,6 +440,7 @@ def main():
         phase_golden(tkt)
         launches = phase_slice(tkt)
         phase_card_vs_cpu(tkt)
+        launches["resident_lanczos"] = phase_host_projected(tkt)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -301,6 +452,10 @@ def main():
         dict(name="fused_lanczos", route="cuda", source=f"{pkg}/fused_lanczos.cu",
              replaces="tensorkrylov_tpu/ops/pallas/fused_lanczos.py:58", launches=launches["fused_lanczos"],
              max_abs_err=worst["fused_lanczos"], ms=times["fused_lanczos"][0], plain_ms=times["fused_lanczos"][1]),
+        dict(name="resident_lanczos", route="cuda", source=f"{pkg}/resident_lanczos.cu",
+             replaces="tensorkrylov_tpu/ops/pallas/resident_lanczos.py:51", launches=launches["resident_lanczos"],
+             max_abs_err=worst["resident_lanczos"], ms=times["resident_lanczos"][0],
+             plain_ms=times["resident_lanczos"][1]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's slice solve goes, on one CUDA card.
 
-Run from the repository root:  python3 scripts/profile_torch_slice.py [--n 131072] [--config default fused]
+Run from the repository root:
+  python3 scripts/profile_torch_slice.py [--n 131072] [--config default fused host_resident host_xla]
 
 For each config it solves reaction_diffusion(d=10, n, σ) with σ chosen for a
 factor condition number κ = 1e2 (the problem of chip_smoke.py's slice phase),
-in f64 with kmax=200, tol=1e-8, and prints one JSON line per measurement:
+with kmax=200, tol=1e-8, and prints one JSON line per measurement. 'default'
+and 'fused' run solve() with an f64 basis; 'host_resident' and 'host_xla' run
+solve_host_projected with plain f32 Lanczos, check_every=8, and the resident
+multi-step kernel or the unfused step (chip_smoke.py's host_projected phase):
 
   cold    — the first solve of the process (kernel build excluded);
   warm    — a second solve, host clock, synchronized at the end;
-  layers  — a third solve with a synchronize around every lanczos_step and
-            projected_step call, and the seconds spent in each;
+  layers  — a third solve with a synchronize around every Krylov step or
+            segment (lanczos_step; _resident_segment_update or _steps_segment)
+            and every projected_step call, and the seconds spent in each;
   profile — a fourth solve under torch.profiler: the host wall time of that
             solve and, from the same trace, the device busy time (the union of
             kernel, memcpy and memset intervals), so the idle share is
@@ -41,9 +46,14 @@ import tensorkrylov_tpu_torch as tkt  # noqa: E402
 from tensorkrylov_tpu_torch import solver  # noqa: E402
 from tensorkrylov_tpu_torch.ops import _build  # noqa: E402
 
-CONFIGS = {
-    "default": dict(kmax=200, tol=1e-8),
-    "fused": dict(kmax=200, tol=1e-8, orth="lanczos_reorth_auto", step_impl="fused"),
+_HOST = dict(kmax=200, tol=1e-8, orth="lanczos", basis_dtype=torch.float32, check_every=8)
+CONFIGS = {  # name: (entry, config fields, the solver functions the layer split times)
+    "default": ("solve", dict(kmax=200, tol=1e-8), ("lanczos_step", "projected_step")),
+    "fused": ("solve", dict(kmax=200, tol=1e-8, orth="lanczos_reorth_auto", step_impl="fused"),
+              ("lanczos_step", "projected_step")),
+    "host_resident": ("solve_host_projected", dict(_HOST, step_impl="resident"),
+                      ("_resident_segment_update", "projected_step")),
+    "host_xla": ("solve_host_projected", dict(_HOST, step_impl="xla"), ("_steps_segment", "projected_step")),
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -59,17 +69,17 @@ def sigma_for_kappa(n, kappa):
     return float((lmax - kappa * lmin) / (kappa - 1.0))
 
 
-def timed_solve(op, b, config):
+def timed_solve(op, b, config, entry):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = tkt.solve(op, b, config)
+    res = getattr(tkt, entry)(op, b, config)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
 
-def layer_split(op, b, config):
-    """Seconds in lanczos_step and projected_step, each call synchronized."""
-    spent = {"lanczos_step": 0.0, "projected_step": 0.0}
+def layer_split(op, b, config, entry, layers):
+    """Seconds in each of the solver functions named in layers, each call synchronized."""
+    spent = dict.fromkeys(layers, 0.0)
     calls = dict.fromkeys(spent, 0)
     originals = {name: getattr(solver, name) for name in spent}
 
@@ -87,7 +97,7 @@ def layer_split(op, b, config):
     for name in spent:
         setattr(solver, name, timed(name))
     try:
-        res, wall = timed_solve(op, b, config)
+        res, wall = timed_solve(op, b, config, entry)
     finally:
         for name, fn in originals.items():
             setattr(solver, name, fn)
@@ -108,10 +118,10 @@ def busy_us(trace_path):
     return total, len(spans)
 
 
-def profiled(op, b, config, trace_path):
+def profiled(op, b, config, entry, trace_path):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        res, wall = timed_solve(op, b, config)
+        res, wall = timed_solve(op, b, config, entry)
     prof.export_chrome_trace(trace_path)
     busy, spans = busy_us(trace_path)
     rows = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
@@ -144,7 +154,7 @@ def eigh_times(d, K, reps=10):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=131072)
-    ap.add_argument("--config", nargs="+", choices=sorted(CONFIGS), default=["default", "fused"])
+    ap.add_argument("--config", nargs="+", choices=sorted(CONFIGS), default=list(CONFIGS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
@@ -163,21 +173,23 @@ def main():
     trace_dir = os.path.join(REPO, "build", "profile")
     os.makedirs(trace_dir, exist_ok=True)
     for name in args.config:
-        config = tkt.SolverConfig(**CONFIGS[name])
-        res, wall = timed_solve(op, b, config)
+        entry, fields, layers = CONFIGS[name]
+        config = tkt.SolverConfig(**fields)
+        res, wall = timed_solve(op, b, config, entry)
         k = res.niterations
-        emit("cold", config=name, d=d, n=n, status=res.status, niterations=k, wall_s=wall, its=k / wall)
-        res, wall = timed_solve(op, b, config)
+        emit("cold", config=name, d=d, n=n, status=res.status, niterations=k, wall_s=wall, its=k / wall,
+             step_impl=res.config.step_impl)
+        res, wall = timed_solve(op, b, config, entry)
         emit("warm", config=name, niterations=res.niterations, wall_s=wall, its=res.niterations / wall)
-        res, wall, spent, calls = layer_split(op, b, config)
+        res, wall, spent, calls = layer_split(op, b, config, entry, layers)
         emit("layers", config=name, wall_s=wall, spent_s=spent, calls=calls,
              share={k_: v / wall for k_, v in spent.items()})
         trace = os.path.join(trace_dir, f"profile_torch_slice_{name}_n{n}.json")
-        res, wall, busy, spans, top = profiled(op, b, config, trace)
+        res, wall, busy, spans, top = profiled(op, b, config, entry, trace)
         emit("profile", config=name, niterations=res.niterations, wall_s=wall, device_busy_s=busy,
              idle_share=1.0 - busy / wall, device_spans=spans, device_spans_per_step=spans / res.niterations,
              trace=os.path.relpath(trace, REPO), top_self_device=top)
-    card_ms, cpu_ms = eigh_times(d, CONFIGS["default"]["kmax"] + 1)
+    card_ms, cpu_ms = eigh_times(d, CONFIGS["default"][1]["kmax"] + 1)
     emit("eigh", shape=[d, 201, 201], dtype="float64", card_ms=card_ms, host_cpu_ms=cpu_ms)
     return 0
 

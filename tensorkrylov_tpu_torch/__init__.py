@@ -1,17 +1,21 @@
 """tensorkrylov_tpu_torch — the PyTorch and CUDA port of tensorkrylov_tpu.
 
-Solves A x = b for SPD Kronecker sums A = Σ_s I⊗…⊗A_s⊗…⊗I with a rank-1
-right-hand side, in low-rank form. The JAX package ``tensorkrylov_tpu`` is the
-reference; this package mirrors its module and function names, imports torch
+Solves A x = b for Kronecker sums A = Σ_s I⊗…⊗A_s⊗…⊗I, SPD (Lanczos) or
+nonsymmetric (Arnoldi), with a rank-1 right-hand side, in low-rank form. The
+JAX package ``tensorkrylov_tpu`` is the reference; this package mirrors its
+module and function names, imports torch
 and numpy and never jax. On a CUDA device the Krylov step runs the CUDA
-kernels in ``ops/csrc`` (built with nvcc at first use).
+kernels in ``ops/csrc`` (built with nvcc at first use); ``solve_host_projected``
+runs the Krylov segments on the device and the projected stage on the host.
 """
 from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
-from .solver import solve
+from .solver import solve, solve_host_projected
 from .system import random_rhs
 from .models.gallery import (
     bands_to_dense,
+    conv_diff,
     dense_to_bands,
+    eigval_matrix,
     laplace,
     operator_from_dense_factors,
     rand_spd,
@@ -26,9 +30,12 @@ __all__ = [
     "SolverConfig",
     "Status",
     "solve",
+    "solve_host_projected",
     "random_rhs",
     "laplace",
     "reaction_diffusion",
+    "conv_diff",
+    "eigval_matrix",
     "rand_spd",
     "dense_to_bands",
     "bands_to_dense",

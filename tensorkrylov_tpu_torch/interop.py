@@ -9,9 +9,11 @@ import numpy as np
 import torch
 
 from .coeffs.tables import BHTables
+from .ops.orth import KrylovState
 from .types import KroneckerSumOperator, SolveResult, SolverConfig
 
-__all__ = ["operator_from_numpy", "tables_from_numpy", "config_from_fields", "result_to_numpy"]
+__all__ = ["operator_from_numpy", "tables_from_numpy", "config_from_fields", "result_to_numpy",
+           "krylov_state_from_numpy", "krylov_state_to_numpy"]
 
 _DTYPE_FIELDS = ("basis_dtype", "proj_dtype")
 
@@ -52,3 +54,15 @@ def result_to_numpy(res: SolveResult) -> dict:
     out["weights"] = res.x.weights.detach().cpu().numpy()
     out["factors"] = res.x.factors.detach().cpu().numpy()
     return out
+
+
+def krylov_state_from_numpy(V, H, btil, beta, device="cpu") -> KrylovState:
+    """KrylovState from numpy arrays in the JAX package's layout (V (K, d, n),
+    H (d, K, K), b̃ (d, K), β (d,)); keeps each array's dtype. A mid-solve
+    state of one package can so drive the other's next steps."""
+    return KrylovState(*(torch.tensor(np.ascontiguousarray(np.asarray(a)), device=device) for a in (V, H, btil, beta)))
+
+
+def krylov_state_to_numpy(state) -> KrylovState:
+    """The state's four arrays as numpy arrays, in the same layout."""
+    return KrylovState(*(np.asarray(a.detach().cpu().numpy() if torch.is_tensor(a) else a) for a in state))

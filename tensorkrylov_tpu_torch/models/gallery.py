@@ -15,6 +15,8 @@ from ..types import KroneckerSumOperator
 __all__ = [
     "laplace",
     "reaction_diffusion",
+    "conv_diff",
+    "eigval_matrix",
     "rand_spd",
     "dense_to_bands",
     "bands_to_dense",
@@ -58,6 +60,32 @@ def reaction_diffusion(d: int, n: int, sigma: float, dtype=torch.float64, device
     """σu − Δu factors: the Laplacian shifted by σ (one implicit-Euler step of
     a d-dimensional reaction–diffusion equation, κ ≈ (σ + 4(n+1)²)/(σ + π²))."""
     return laplace(d, n, dtype=dtype, shift=float(sigma), device=device)
+
+
+def conv_diff(d: int, n: int, c: float = 10.0, dtype=torch.float64, shift: float = 0.0,
+              device="cpu") -> KroneckerSumOperator:
+    """Convection–diffusion factors: the Laplacian plus (c/4h)·diags(+1 @ −1,
+    +3 @ 0, −5 @ +1, +1 @ +2), nonsymmetric with one lower and two upper
+    bands, plus an optional diagonal shift σ·I per factor (the reaction term
+    that sets the condition number of the at-scale nonsymmetric runs)."""
+    h = 1.0 / (n + 1)
+    h2inv = 1.0 / h**2
+    cv = c / (4.0 * h)
+    return _banded_operator(
+        {-1: -h2inv + cv, 0: 2.0 * h2inv + 3.0 * cv + shift, 1: -h2inv - 5.0 * cv, 2: cv},
+        d, n, dtype, False, device,
+    )
+
+
+def eigval_matrix(eigenvalues, d: Optional[int] = None, dtype=torch.float64, device="cpu") -> KroneckerSumOperator:
+    """Diagonal factors with a prescribed spectrum: one (n,) vector
+    (replicated over d, which must then be given) or a (d, n) array."""
+    ev = np.asarray(eigenvalues, dtype=np.float64)
+    if ev.ndim == 1:
+        if d is None:
+            raise ValueError("pass d when giving a single eigenvalue vector")
+        ev = np.broadcast_to(ev, (d, ev.shape[0]))
+    return _to_operator(ev[:, None, :], (0,), True, dtype, device)
 
 
 def rand_spd(d: int, n: int, seed: int = 0, dtype=torch.float64, device="cpu") -> KroneckerSumOperator:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``ops/csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, which ``ctypes`` loads. The
+The sources in ``ops/csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``),
+one process per source, all at once, and linked into one shared library with
+a plain C interface, which ``ctypes`` loads. The
 build happens at the first kernel launch of a process, into
 ``build/tk_torch_kernels/`` beside the package; the library's name carries a
 hash of the sources and flags, so an edited source is rebuilt and an unchanged
@@ -49,6 +50,8 @@ _SIGNATURES = {
     "tk_fused_lanczos_f32": [_P] * 9 + [_I, _I, _I, _P],
     "tk_fused_lanczos_f64": [_P] * 9 + [_I, _I, _I, _P],
     "tk_fused_lanczos_block_elems": [],
+    "tk_resident_lanczos_f32": [_P] * 10 + [_I] * 4 + [_P],
+    "tk_resident_lanczos_block_elems": [],
 }
 
 
@@ -78,19 +81,30 @@ def _build() -> Path:
         build_info.update(seconds=0.0, path=str(lib_path), log="(reused)")
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name and rename, so a parallel process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    build_info.update(seconds=seconds, path=str(lib_path), log=proc.stdout + proc.stderr)
+    log = []
+    # build under a temporary directory and name, and rename, so a parallel
+    # process never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        # one nvcc per source, all started together, then one link
+        objs = [os.path.join(tmpdir, p.stem + ".o") for p in cu]
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        cmds = [[nvcc, *compile_flags, "-c", "-o", o, str(p)] for p, o in zip(cu, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        tmp_lib = os.path.join(tmpdir, lib_path.name)
+        link = [nvcc, *NVCC_FLAGS, "-o", tmp_lib, *objs]
+        for cmd, proc, out in zip(cmds, procs, outs):
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log[-1]}")
+        os.replace(tmp_lib, lib_path)
+    build_info.update(seconds=time.perf_counter() - t0, path=str(lib_path), log="".join(log))
     return lib_path
 
 

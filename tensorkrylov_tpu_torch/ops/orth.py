@@ -23,7 +23,8 @@ from ..types import KroneckerSumOperator
 from .banded import spmv
 from .fused_lanczos import fixed_order_sum, fused_lanczos_core
 
-__all__ = ["KrylovState", "init_state", "lanczos_step", "orthogonality_loss", "lanczos_algorithm"]
+__all__ = ["KrylovState", "init_state", "lanczos_step", "arnoldi_step", "orthogonality_loss", "lanczos_algorithm",
+           "arnoldi_algorithm"]
 
 
 class KrylovState(NamedTuple):
@@ -186,14 +187,55 @@ def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, 
     return KrylovState(V, H, btil, beta_new), loss
 
 
-def lanczos_algorithm(op: KroneckerSumOperator, b, k: int, *, reorth: bool = False, proj_dtype=torch.float64) -> KrylovState:
-    """Run k Lanczos steps for every factor. b: (d, n) or (n,)."""
+def arnoldi_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, k: int, *, proj_dtype):
+    """One CGS2 Arnoldi step producing basis vector k for all factors: two
+    classical Gram–Schmidt sweeps over V[:k], then the lucky-breakdown
+    restart where the new vector vanished. Writes column k-1 of the
+    Hessenberg H (rows 0..k) and b̃_k in place. Returns (state, loss), the
+    loss estimate being the norm of the second sweep's coefficients."""
+    V, H, btil, _ = state
+    acc = _acc_dtype(V.dtype, proj_dtype)
+    u = spmv(op, V[k - 1].to(acc))
+    w1 = _project_coeffs(V, u, k, proj_dtype)
+    u = _subtract_span(V, u, w1, k)
+    w2 = _project_coeffs(V, u, k, proj_dtype)
+    u = _subtract_span(V, u, w2, k)
+    h = w1 + w2                                            # (d, k) column entries 0..k-1
+
+    h_new = _sqrt_rn(bdot(u, u).to(proj_dtype))
+    scale = torch.sum(torch.abs(h), dim=1) + 1e-300
+    lucky = h_new < 256.0 * torch.finfo(u.dtype).eps * scale
+    h_new = torch.where(lucky, 0.0, h_new)
+    safe = torch.where(h_new > 0, h_new, 1.0)
+    v_new = u / safe.to(u.dtype)[:, None]
+    if bool(lucky.any()):
+        v_new = _replace_lucky(V, v_new, lucky, k, proj_dtype)
+
+    V[k] = v_new.to(V.dtype)
+    H[:, :k, k - 1] = h
+    H[:, k, k - 1] = h_new
+    btil[:, k] = bdot(v_new, b.to(acc)).to(proj_dtype)
+    return KrylovState(V, H, btil, h_new), torch.linalg.vector_norm(w2)
+
+
+def _run_steps(op, b, k, proj_dtype, step):
     if b.dim() == 1:
         b = b[None, :]
     state, _ = init_state(op, b, k, proj_dtype)
     for j in range(1, k + 1):
-        state, _ = lanczos_step(op, state, b, j, reorth=reorth, proj_dtype=proj_dtype)
+        state, _ = step(op, state, b, j)
     return state
+
+
+def lanczos_algorithm(op: KroneckerSumOperator, b, k: int, *, reorth: bool = False, proj_dtype=torch.float64) -> KrylovState:
+    """Run k Lanczos steps for every factor. b: (d, n) or (n,)."""
+    return _run_steps(op, b, k, proj_dtype,
+                      lambda o, st, bb, j: lanczos_step(o, st, bb, j, reorth=reorth, proj_dtype=proj_dtype))
+
+
+def arnoldi_algorithm(op: KroneckerSumOperator, b, k: int, *, proj_dtype=torch.float64) -> KrylovState:
+    """Run k Arnoldi (CGS2) steps for every factor. b: (d, n) or (n,)."""
+    return _run_steps(op, b, k, proj_dtype, lambda o, st, bb, j: arnoldi_step(o, st, bb, j, proj_dtype=proj_dtype))
 
 
 def orthogonality_loss(V: torch.Tensor, k: int, proj_dtype=torch.float64) -> torch.Tensor:

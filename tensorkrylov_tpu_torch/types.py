@@ -123,8 +123,12 @@ class SolverConfig:
       'fused' — the two-pass fused Lanczos kernel (ops/fused_lanczos.py),
                 for orth='lanczos'/'lanczos_reorth_auto' in f32 and f64;
       'auto'  — 'xla' until a measurement on the card says otherwise;
-      'resident' — resolves to 'xla' in solve().
-    solve() records the resolved values on SolveResult.config.
+      'resident' — in solve_host_projected, the resident multi-step Lanczos
+                kernel (ops/resident_lanczos.py) for orth='lanczos', a
+                symmetric operator and an f32 basis; 'xla' otherwise, and
+                always in solve().
+    nonsym_solve_impl 'auto' resolves to 'eig' on every device.
+    Both entry points record the resolved values on SolveResult.config.
     """
 
     kmax: int = 128

@@ -13,6 +13,7 @@ import tensorkrylov_tpu_torch as tkt
 from tensorkrylov_tpu_torch.ops import _build
 from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
 from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
+from tensorkrylov_tpu_torch.ops.resident_lanczos import lanczos_resident_steps, lanczos_resident_steps_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -108,4 +109,94 @@ def test_solve_on_card_goes_through_kernel(cuda, fields, kernel):
     res = tkt.solve(op, b, tkt.SolverConfig(kmax=30, tol=1e-8, **fields))
     assert res.status == tkt.Status.CONVERGED
     assert _build.launches[kernel] == res.niterations
+    assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8
+
+
+def _unit_rows(d, n, seed, device):
+    v = torch.randn((d, n), dtype=torch.float64, generator=torch.Generator().manual_seed(seed))
+    return (v / torch.linalg.vector_norm(v, dim=1, keepdim=True)).float().to(device)
+
+
+@pytest.mark.parametrize("offsets", [(-1, 0, 1), (-5, -2, 0, 3, 5)], ids=["tri", "wide"])
+@pytest.mark.parametrize("n", [1001, 4099])
+def test_resident_kernel_equals_plain(cuda, n, offsets):
+    """Ragged n and offsets past the TPU kernel's rules: the kernel equals its
+    plain version, on the card and on the CPU, in all six outputs."""
+    d, S = 3, 8
+    op = _op(offsets, d, n, 6, torch.float32, cuda)
+    vp = _unit_rows(d, n, 7, cuda)
+    vpp, beta = torch.zeros_like(vp), torch.zeros(d, dtype=torch.float32, device=cuda)
+    before = _build.launches["resident_lanczos"]
+    got = lanczos_resident_steps(op, vp, vpp, beta, S)
+    torch.cuda.synchronize()
+    assert _build.launches["resident_lanczos"] == before + 1
+    ref = lanczos_resident_steps_reference(op, vp, vpp, beta, S)
+    assert all(torch.equal(a, r) for a, r in zip(got, ref))
+    cpu_op = tkt.KroneckerSumOperator(op.bands.cpu(), op.offsets)
+    on_cpu = lanczos_resident_steps(cpu_op, vp.cpu(), vpp.cpu(), beta.cpu(), S)
+    assert all(torch.equal(a.cpu(), c) for a, c in zip(got, on_cpu))
+
+
+def test_resident_recurrence_equals_cpu(cuda):
+    """30 steps in segments of 8, 8, 8 and 6 through the solver's segment
+    update: the f32 basis and H are the same bits on the card and the CPU."""
+    from tensorkrylov_tpu_torch.ops.orth import init_state
+    from tensorkrylov_tpu_torch.solver import _resident_segment_update
+
+    op = tkt.reaction_diffusion(3, 5000, 1e6, dtype=torch.float32)
+    b = tkt.random_rhs(3, 5000, seed=5, identical=False)
+    out = {}
+    for dev in ("cpu", cuda):
+        dop = tkt.KroneckerSumOperator(op.bands.to(dev), op.offsets)
+        st, _ = init_state(dop, b.to(dev), 30, torch.float64, torch.float32)
+        for k0 in (1, 9, 17, 25):
+            st = _resident_segment_update(dop, st, b.to(dev), k0, min(8, 31 - k0))
+        out[str(dev)] = [t.cpu() for t in st]
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert torch.equal(cpu[0], card[0]) and torch.equal(cpu[1], card[1]) and torch.equal(cpu[3], card[3])
+    # b̃ = ⟨v_j, b⟩ sums the f32 products in f64, in cuBLAS's order on the card
+    torch.testing.assert_close(card[2], cpu[2], rtol=0, atol=1e-13 * float(cpu[2].abs().max()))
+
+
+def test_resident_wrapper_rejects_bad_input(cuda):
+    op = _op((-1, 0, 1), 2, 64, 4, torch.float32, cuda)
+    v = torch.ones((2, 64), dtype=torch.float32, device=cuda)
+    beta = torch.zeros(2, dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        lanczos_resident_steps(op.astype(torch.float64), v, v, beta, 2)
+    with pytest.raises(TypeError):
+        lanczos_resident_steps(op, v.double(), v, beta, 2)
+    with pytest.raises(ValueError):
+        lanczos_resident_steps(op, torch.ones((2, 128), dtype=torch.float32, device=cuda)[:, ::2], v, beta, 2)
+    with pytest.raises(ValueError):
+        lanczos_resident_steps(op, v, v, torch.zeros(3, dtype=torch.float32, device=cuda), 2)
+    with pytest.raises(ValueError):
+        lanczos_resident_steps(op, v, v, beta, 2, out=torch.empty((3, 2, 64), dtype=torch.float32, device=cuda))
+
+
+@pytest.mark.parametrize("step_impl,kernel", [("resident", "resident_lanczos"), ("xla", "banded_spmv")])
+def test_host_projected_on_card_goes_through_kernel(cuda, step_impl, kernel):
+    """The resident route launches its kernel once per segment; the unfused
+    route launches the SpMV kernel once per step."""
+    op = tkt.reaction_diffusion(3, 300, 2e4, dtype=torch.float32, device=cuda)
+    b = tkt.random_rhs(3, 300, seed=7, device=cuda)
+    # plain f32 Lanczos: the estimate floors near 1e-5 here, so tol is 1e-4 (16 steps on the CPU)
+    cfg = tkt.SolverConfig(kmax=40, tol=1e-4, orth="lanczos", basis_dtype=torch.float32, check_every=8,
+                           step_impl=step_impl)
+    _build.launches.clear()
+    res = tkt.solve_host_projected(op, b, cfg)
+    assert res.config.step_impl == step_impl and res.status == tkt.Status.CONVERGED
+    segments = -(-res.niterations // 8)
+    assert _build.launches[kernel] == (segments if step_impl == "resident" else res.niterations)
+    assert res.x.factors.is_cuda and bool(torch.isfinite(res.x.factors).all())
+
+
+@pytest.mark.parametrize("entry", ["solve", "solve_host_projected"])
+def test_arnoldi_conv_diff_on_card(cuda, entry):
+    """The verify recipe on the card: the dense-oracle residual is ≤ 1e-8."""
+    op = tkt.conv_diff(3, 30, device=cuda)
+    b = tkt.random_rhs(3, 30, seed=7, device=cuda)
+    _build.launches.clear()
+    res = getattr(tkt, entry)(op, b, tkt.SolverConfig(kmax=30, tol=1e-8, orth="arnoldi", tmax=601))
+    assert res.status == tkt.Status.CONVERGED and _build.launches["banded_spmv"] == res.niterations
     assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8

@@ -170,7 +170,7 @@ def test_projected_step_matches_jax(fields):
     jstep = jax.jit(jax_projected_step, static_argnames=("config", "symmetric", "n"))
     ref = jstep(jnp.asarray(H), jnp.asarray(btil), jnp.asarray(H[:, k, k - 1]), k, jnp.asarray(bnp),
                 config=jcfg, tables=jtables.load_tables(), symmetric=True, n=n, W_A=jW)
-    got = projected_step(T(H), T(btil), T(H[:, k, k - 1]), k, T(bnp, dtype=torch.float64), cfg, tables.load_tables(), n, W)
+    got = projected_step(T(H), T(btil), T(H[:, k, k - 1]), k, T(bnp, dtype=torch.float64), cfg, tables.load_tables(), True, n, W)
     assert int(got.rank) == int(ref.rank) and bool(got.breakdown) == bool(ref.breakdown)
     for name in ("weights", "rel", "lmin", "lmax"):
         _close(getattr(got, name), getattr(ref, name), rtol=1e-10)

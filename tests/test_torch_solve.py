@@ -130,29 +130,34 @@ def test_wrong_shape_b_raises():
         tkt.solve(tkt.laplace(3, 10), torch.ones((3, 11), dtype=torch.float64))
 
 
-@pytest.mark.parametrize("orth,error", [("lanczos_reorth", ValueError), ("arnoldi", NotImplementedError)])
+@pytest.mark.parametrize("orth,error", [("lanczos_reorth", ValueError), ("lanczos", ValueError)])
 def test_nonsymmetric_operator_raises(orth, error):
+    """A nonsymmetric operator needs orth='arnoldi', in both entry points."""
     op = dataclasses.replace(tkt.laplace(2, 10), symmetric=False)
-    with pytest.raises(error):
-        tkt.solve(op, torch.ones((2, 10), dtype=torch.float64), tkt.SolverConfig(orth=orth))
+    for entry in (tkt.solve, tkt.solve_host_projected):
+        with pytest.raises(error, match="orth='arnoldi'"):
+            entry(op, torch.ones((2, 10), dtype=torch.float64), tkt.SolverConfig(orth=orth))
 
 
 @pytest.mark.parametrize("fields,error", [
-    (dict(orth="arnoldi"), NotImplementedError),
+    (dict(orth="lanczos_reorth_auto", symmetric=False), ValueError),  # nonsymmetric without Arnoldi
     (dict(eigh_impl="tridiag_mixed"), NotImplementedError),
     (dict(eigh_impl="host"), ValueError),
     (dict(identical_factors=True), ValueError),  # distinct RHS rows
     (dict(orth="bogus"), ValueError),
 ])
 def test_unsupported_options_raise(fields, error):
+    fields = dict(fields)
+    op = dataclasses.replace(tkt.laplace(2, 10), symmetric=fields.pop("symmetric", True))
     b = torch.tensor(np.random.default_rng(0).random((2, 10)))
     with pytest.raises(error):
-        tkt.solve(tkt.laplace(2, 10), b, tkt.SolverConfig(**fields))
+        tkt.solve(op, b, tkt.SolverConfig(**fields))
 
 
 @pytest.mark.parametrize("fields,resolved", [
     (dict(), dict(step_impl="xla", eigh_impl="dense")),
-    (dict(step_impl="resident"), dict(step_impl="xla")),
+    (dict(step_impl="resident"), dict(step_impl="xla")),  # resident segments: solve_host_projected only
+    (dict(step_impl="resident", orth="lanczos", basis_dtype=torch.float32), dict(step_impl="xla")),
     (dict(step_impl="fused", orth="lanczos"), dict(step_impl="fused")),
     (dict(step_impl="fused"), dict(step_impl="xla")),  # always-on sweep: unfused step
     (dict(step_impl="fused", orth="lanczos", basis_dtype=torch.float32), dict(step_impl="fused")),
@@ -180,7 +185,9 @@ def test_config_from_fields_maps_dtypes():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, tensorkrylov_tpu_torch, tensorkrylov_tpu_torch.interop, tensorkrylov_tpu_torch.ops.orth;"
+    code = ("import sys, tensorkrylov_tpu_torch, tensorkrylov_tpu_torch.interop, tensorkrylov_tpu_torch.ops.orth,"
+            " tensorkrylov_tpu_torch.ops.resident_lanczos, tensorkrylov_tpu_torch.ops.expsum,"
+            " tensorkrylov_tpu_torch.models.gallery, tensorkrylov_tpu_torch.solver;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tensorkrylov_tpu.'))"
             " or m == 'tensorkrylov_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
