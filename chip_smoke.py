@@ -8,7 +8,11 @@ Phases, one output line each:
   2. build   — nvcc builds the kernels in tensorkrylov_tpu_torch/ops/csrc;
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                (the SpMV and the fused core in f64 and f32; the resident
-               multi-step Lanczos kernel in f32, 8 steps from β = 0);
+               multi-step Lanczos kernel in f32, 8 steps from β = 0; the
+               SpMV and 32 resident steps on the bench's own d=8, n=2^20
+               f32 inputs, bit for bit; the multi-apply SpMV in f64 and f32,
+               200 applies, at the bench's d=8, n=2^20 and on distinct
+               pentadiagonal factors);
   4. golden  — tests/golden_laplace_d4_n100.json reproduced on the card, and the
                dense-oracle residual at d=3, n=30;
   5. slice   — reaction_diffusion(d=10, n=131072), f64, kmax=200, tol=1e-8, with
@@ -20,18 +24,29 @@ Phases, one output line each:
                through the unfused step; the resident route at n=4096 on the card
                and on the CPU; the nonsymmetric path: conv_diff(3, 30) through
                solve with Arnoldi (dense oracle), and conv_diff(d=10, n=16384)
-               through solve_host_projected at the JAX package's at-scale shape.
+               through solve_host_projected at the JAX package's at-scale shape;
+  8. entry_points — python -m tensorkrylov_tpu_torch.bench (every key, every
+               rate > 0, through the multi-apply kernel); the CLI's solve
+               (laplace d=5, n=200, tol 1e-9); solve_tensorized_system; the
+               reproduction runner (SPD d = 5, 10, 50, 100 and nonsymmetric
+               d = 5, n=200); solve_multi_rhs (R=2) and solve_resumable
+               (kmax=40, checkpointed and resumed) on the slice's problem,
+               each equal to solve() bit for bit.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels and, last,
 {"ok": true, "device": {...}}.
 Any failed check exits with code 1 and prints no result line; so do a machine
 without CUDA and a directory without the package.
 """
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +63,8 @@ ROUTE_LAMBDA_RTOL = 1e-4  # resident vs unfused route: λ_min, λ_max traces (tw
 # first run on the card), so the bound is 1.0: the same order of magnitude at every check
 ROUTE_TRACE_RTOL = 1.0
 STEPS = 8                 # resident kernel steps per call in phase 3
+BENCH_STEPS = 32          # resident kernel steps per call at the bench's shape: the bench's longest call
+RESIDENT_SPMV_APPLIES = 200  # applies per multi-apply call in phase 3: the bench's m1
 
 
 class Failed(Exception):
@@ -203,11 +220,91 @@ def phase_kernels(tkt):
     start = (v.float(), torch.zeros_like(v, dtype=torch.float32), torch.zeros(10, dtype=torch.float32, device=dev))
     times["resident_lanczos"] = time_pair(lambda: lanczos_resident_steps_reference(op32, *start, STEPS),
                                           lambda: lanczos_resident_steps(op32, *start, STEPS), reps=50, warm=5)
+    bench_shape = phase_kernels_bench_shape(checks)
+    resident_spmv = phase_kernels_resident_spmv(tkt, checks, worst, times)
     emit("kernels", ok=True, checks=checks,
          ms_at_d10_n131072={k: {"kernel": t[0], "plain": t[1], "dtype": "float32" if k == "resident_lanczos"
-                                else "float64"} for k, t in times.items()},
-         resident_steps_per_call=STEPS)
+                                else "float64"} for k, t in times.items() if k != "resident_spmv"},
+         resident_steps_per_call=STEPS, ms_at_bench_shape=bench_shape, resident_spmv=resident_spmv)
     return worst, times
+
+
+def phase_kernels_bench_shape(checks):
+    """The SpMV and the resident Lanczos kernel on the bench's own inputs
+    (d=8 tridiagonal laplace, n=2^20, f32): one SpMV of the bench's v, and
+    BENCH_STEPS resident steps from the bench's unit start, each against its
+    plain version bit for bit; timed there."""
+    from tensorkrylov_tpu_torch import bench
+    from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
+    from tensorkrylov_tpu_torch.ops.resident_lanczos import (
+        ResidentSteps, lanczos_resident_steps, lanczos_resident_steps_reference)
+
+    dev = torch.device("cuda")
+    op, v, _ = bench._spmv_problem(dev, bench.SPMV_D, bench.SPMV_N)
+    case = "d8_n1048576_tridiag_bench"
+    got, ref = spmv(op, v), spmv_reference(op, v)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    checks.append(dict(kernel="banded_spmv", case=case, dtype="float32", v=list(v.shape), max_abs_err=err,
+                       ref_max=float(ref.abs().max()), limit=0.0))
+    require(err == 0.0, f"banded_spmv {case}: error {err}")
+    vp = bench._unit_start(bench.SPMV_D, bench.SPMV_N, dev)
+    start = (vp, torch.zeros_like(vp), torch.zeros(bench.SPMV_D, dtype=torch.float32, device=dev))
+    got = lanczos_resident_steps(op, *start, BENCH_STEPS)
+    ref = lanczos_resident_steps_reference(op, *start, BENCH_STEPS)
+    torch.cuda.synchronize()
+    for name, g, r in zip(ResidentSteps._fields, got, ref):
+        err = float((g - r).abs().max())
+        checks.append(dict(kernel="resident_lanczos", case=case, dtype="float32", S=BENCH_STEPS, out=name,
+                           max_abs_err=err, limit=0.0))
+        require(err == 0.0 and bool(torch.isfinite(g).all()), f"resident_lanczos {case} {name}: error {err}")
+    del got, ref
+    spmv_ms = time_pair(lambda: spmv_reference(op, v), lambda: spmv(op, v))
+    res_ms = time_pair(lambda: lanczos_resident_steps_reference(op, *start, BENCH_STEPS),
+                       lambda: lanczos_resident_steps(op, *start, BENCH_STEPS), reps=3, warm=1)
+    return {"banded_spmv": {"kernel": spmv_ms[0], "plain": spmv_ms[1]},
+            f"resident_lanczos_S{BENCH_STEPS}": {"kernel": res_ms[0], "plain": res_ms[1]}}
+
+
+def phase_kernels_resident_spmv(tkt, checks, worst, times):
+    """The multi-apply kernel against its plain version, bit for bit: at the
+    bench's shape (d=8, n=2^20, tridiagonal, f32 and f64, m=200) and on
+    distinct pentadiagonal factors (d=3, n=1001) with m % M != 0; timed at
+    the bench's shape in f32."""
+    from tensorkrylov_tpu_torch.ops.resident_spmv import (
+        resident_spmv_plan, spmv_multi_apply, spmv_multi_apply_reference)
+
+    dev = torch.device("cuda")
+    bench_op = tkt.laplace(8, 1 << 20, device=dev)
+    scale = 1.0 / (4.0 * ((1 << 20) + 1) ** 2)
+    cases = {"d8_n1048576_tridiag": (bench_op, scale, RESIDENT_SPMV_APPLIES),
+             "d3_n1001_penta_distinct": (penta_operator(tkt, 3, 1001, 5, dev), 0.125, RESIDENT_SPMV_APPLIES)}
+    plans = {}
+    for case, (op64, c, m) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            op = op64.astype(dtype)
+            M, T = resident_spmv_plan(op)
+            if case.startswith("d3"):
+                require(m % M != 0, f"resident_spmv {case} {dtype}: m={m} is a multiple of M={M}")
+            v = unit_rows(np.random.default_rng(14), (op.d, op.n), dtype, dev)
+            got, ref = spmv_multi_apply(op, v, m, c), spmv_multi_apply_reference(op, v, m, c)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            plans[f"{case}_{str(dtype)[6:]}"] = dict(M=M, T=T, launches=-(-m // M), m=m)
+            checks.append(dict(kernel="resident_spmv", case=case, dtype=str(dtype)[6:], m=m, M=M, T=T,
+                               max_abs_err=err, ref_max=float(ref.abs().max()), limit=0.0))
+            require(err == 0.0 and bool(ref.abs().max() > 0), f"resident_spmv {case} {dtype}: error {err}")
+            if case.startswith("d8") and dtype == torch.float32:
+                worst["resident_spmv"] = err
+    m = RESIDENT_SPMV_APPLIES
+    ms = {}
+    for dtype in (torch.float32, torch.float64):
+        op = bench_op.astype(dtype)
+        v = unit_rows(np.random.default_rng(15), (8, 1 << 20), dtype, dev)
+        ms[str(dtype)[6:]] = time_pair(lambda: spmv_multi_apply_reference(op, v, m, scale),
+                                       lambda: spmv_multi_apply(op, v, m, scale), reps=3, warm=1)
+    times["resident_spmv"] = ms["float32"]
+    return dict(plans=plans, ms_d8_n1048576_m200={k: {"kernel": t[0], "plain": t[1]} for k, t in ms.items()})
 
 
 def run_solve(tkt, op, b, config, entry="solve"):
@@ -271,7 +368,7 @@ def slice_problem(tkt, n, device):
 def phase_slice(tkt):
     dev = torch.device("cuda")
     op, b = slice_problem(tkt, 131072, dev)
-    runs, launches = {}, {}
+    runs, launches, traces = {}, {}, {}
     for name, fields in CONFIGS.items():
         res, wall, counts = run_solve(tkt, op, b, tkt.SolverConfig(**fields))
         k = res.niterations
@@ -284,12 +381,13 @@ def phase_slice(tkt):
         require(res.config.step_impl == ("fused" if name == "fused" else "xla"), f"slice {name}: step_impl {res.config.step_impl}")
         require(counts.get(kernel, 0) == k, f"slice {name}: {kernel} launched {counts.get(kernel, 0)} times in {k} steps")
         launches[kernel] = counts[kernel]
+        traces[name] = res.relative_residual.cpu()
         runs[name] = dict(status=res.status, niterations=k, final_rel_residual=final, wall_s=wall,
                           iterations_per_s=k / wall, max_memory_allocated=torch.cuda.max_memory_allocated(),
                           launches=counts, step_impl=res.config.step_impl, orth=res.config.orth)
         del res, x  # the next run's peak memory must not count this one's solution
     emit("slice", d=10, n=131072, sigma=sigma_for_kappa(131072, 1e2), runs=runs)
-    return launches
+    return launches, traces["default"]
 
 
 def phase_card_vs_cpu(tkt):
@@ -424,6 +522,142 @@ def phase_host_projected(tkt):
     return launches
 
 
+BENCH_RATES = ("xla_scan_gnnz_s", "resident_pallas_gnnz_s", "cpu_numpy_gnnz_s", "solver_iters_per_s_f64",
+               "solver_loop_xla_gnnz_s", "solver_loop_resident_gnnz_s", "solve_resident_gnnz_s",
+               "solve_xla_segment_gnnz_s")
+REPRO_DIMS = (5, 10, 50, 100)  # the reference's SPD configuration, n=200, tol=1e-9
+RESUME_KMAX = 40               # solve_resumable on the slice: V alone is (kmax+1)·d·n·8 B, 430 MB here
+
+
+def entry(fn, *args, **kwargs):
+    """Call an entry point with the launch counts set to 0 just before it and
+    read just after; its standard output is captured and returned."""
+    from tensorkrylov_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_build.launches), buf.getvalue()
+
+
+def same_bits(a, b):
+    fields = ("relative_residual", "projected_residual", "orthogonality", "lambda_min", "lambda_max", "expsum_rank")
+    return ((a.status, a.niterations) == (b.status, b.niterations)
+            and all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+            and torch.equal(a.x.weights, b.x.weights) and torch.equal(a.x.factors, b.x.factors))
+
+
+def phase_entry_points(tkt, slice_trace):
+    """The entry points a user calls: the bench, the CLI, the system API, the
+    reproduction runner, solve_multi_rhs and solve_resumable. Returns the
+    bench run's resident_spmv launches (the kernel's only caller)."""
+    from tensorkrylov_tpu_torch import bench
+    from tensorkrylov_tpu_torch.__main__ import main as cli
+    from tensorkrylov_tpu_torch.experiments.reproduction import run_reproduction
+    from tensorkrylov_tpu_torch.solver import _segment, _setup
+    from tensorkrylov_tpu_torch.utils.checkpoint import save_carry
+
+    dev = torch.device("cuda")
+    out = {}
+    # (a) python -m tensorkrylov_tpu_torch.bench
+    rc, wall, counts, stdout = entry(bench.main, [])
+    line = json.loads(stdout.strip().splitlines()[-1])
+    extra = line.get("extra", {})
+    missing = ([k for k in ("metric", "value", "unit", "vs_baseline") if k not in line]
+               + [k for k in BENCH_RATES + ("platform", "spmv_config", "roofline_3350GBps") if k not in extra])
+    require(rc == 0 and not missing, f"bench: rc {rc}, missing keys {missing}")
+    bad = {k: extra[k] for k in BENCH_RATES if not (math.isfinite(extra[k]) and extra[k] > 0)}
+    require(not bad, f"bench: rates not positive: {bad}")
+    require(counts.get("resident_spmv", 0) > 0, f"bench: launches {counts}")
+    out["bench"] = dict(wall_s=wall, launches=counts, line=line)
+    resident_spmv_launches = counts["resident_spmv"]
+
+    # (b) python -m tensorkrylov_tpu_torch solve --gallery laplace --d 5 --n 200 --tol 1e-9
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "traces.json")
+        rc, wall, counts, stdout = entry(cli, ["solve", "--gallery", "laplace", "--d", "5", "--n", "200",
+                                               "--tol", "1e-9", "--json", path])
+        with open(path) as f:
+            traces = json.load(f)
+    require(rc == 0 and traces["status"] == "CONVERGED" and "CONVERGED" in stdout, f"cli solve: rc {rc}")
+    require(counts.get("banded_spmv", 0) == traces["niterations"], f"cli solve: launches {counts}")
+    out["cli_solve"] = dict(rc=rc, wall_s=wall, niterations=traces["niterations"],
+                            final_rel_residual=traces["relative_residual"][-1], launches=counts)
+
+    # (c) TensorizedSystem and solve_tensorized_system, with the dense oracle
+    op3 = tkt.laplace(3, 30, device=dev)
+    system = tkt.TensorizedSystem.create(op3, tkt.random_rhs(3, 30, seed=7, device=dev))
+    res, wall, counts, _ = entry(tkt.solve_tensorized_system, system, nmax=30, tol=1e-8)
+    dense = tkt.kron_residual_dense(op3, res.x, system.b)
+    require(res.status == tkt.Status.CONVERGED and dense <= 1e-8 and counts.get("banded_spmv", 0) == res.niterations,
+            f"solve_tensorized_system: status {res.status}, dense-oracle residual {dense}, launches {counts}")
+    out["tensorized_system"] = dict(system=repr(system), status=res.status, niterations=res.niterations,
+                                    dense_oracle_residual=dense, wall_s=wall)
+
+    # (d) the reproduction runner: the reference's SPD configuration, then the nonsymmetric one at d=5
+    with tempfile.TemporaryDirectory() as tmp:
+        spd, wall, counts, _ = entry(run_reproduction, REPRO_DIMS, 200, device=dev, out_dir=tmp, verbose=False)
+        with open(os.path.join(tmp, "reproduction_laplace_n200.json")) as f:
+            saved = json.load(f)
+    require(sorted(saved) == sorted(str(d) for d in REPRO_DIMS), f"reproduction: saved {sorted(saved)}")
+    require(all(spd[d]["status"] == tkt.Status.CONVERGED and spd[d]["final_relative_residual"] < 1e-9
+                for d in REPRO_DIMS), f"reproduction: {[(d, spd[d]['status']) for d in REPRO_DIMS]}")
+    require(counts.get("banded_spmv", 0) == sum(spd[d]["niterations"] for d in REPRO_DIMS),
+            f"reproduction: launches {counts}")
+    ns, wall_ns, counts_ns, _ = entry(run_reproduction, (5,), 200, symmetric=False, device=dev, verbose=False)
+    require(math.isfinite(ns[5]["final_relative_residual"]) and ns[5]["final_relative_residual"] < 1e-6
+            and counts_ns.get("banded_spmv", 0) == ns[5]["niterations"],
+            f"reproduction nonsym: {ns[5]['status']}, {ns[5]['final_relative_residual']}, launches {counts_ns}")
+    out["reproduction"] = {"spd_wall_s": wall, "nonsym_wall_s": wall_ns, **{
+        f"{'spd' if sym else 'nonsym'}_d{d}": {k: r[d][k] for k in ("status", "niterations", "final_relative_residual",
+                                                                     "wall_s")}
+        for sym, r, dims in ((True, spd, REPRO_DIMS), (False, ns, (5,))) for d in dims}}
+
+    # (e) solve_multi_rhs, R=2, on the slice's problem: lane 0 is phase 5's default solve
+    op, b = slice_problem(tkt, 131072, dev)
+    b2 = tkt.random_rhs(10, 131072, seed=1235)
+    b2 = (b2 / torch.linalg.vector_norm(b2, dim=1, keepdim=True)).to(dev)
+    mr, wall, counts, _ = entry(tkt.solve_multi_rhs, op, torch.stack([b, b2]), tkt.SolverConfig(**CONFIGS["default"]))
+    x, res = mr
+    require(mr.converged and torch.equal(res.relative_residual[0].cpu(), slice_trace),
+            f"solve_multi_rhs: statuses {res.status.tolist()}, lane 0 equals solve: "
+            f"{torch.equal(res.relative_residual[0].cpu(), slice_trace)}")
+    require(tuple(x.factors.shape) == (10, 131072, 126) and bool(torch.isfinite(x.factors).all()),
+            f"solve_multi_rhs: bad solution (shape {tuple(x.factors.shape)})")
+    require(counts.get("banded_spmv", 0) == int(res.niterations.sum()), f"solve_multi_rhs: launches {counts}")
+    out["multi_rhs"] = dict(statuses=res.status.tolist(), niterations=res.niterations.tolist(), wall_s=wall,
+                            launches=counts, lane0_equals_solve=True)
+    del mr, x, res
+
+    # (f) solve_resumable on the slice's problem with kmax=40: segmented with a checkpoint after
+    # each chunk, and resumed from a checkpoint written after 14 steps; both equal solve()
+    cfg = tkt.SolverConfig(kmax=RESUME_KMAX, tol=1e-8)
+    ref, wall_ref, _, _ = entry(tkt.solve, op, b, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "carry.pt")
+        seg, wall_seg, counts_seg, _ = entry(tkt.solve_resumable, op, b, cfg, chunk=16, checkpoint_path=ckpt)
+        ckpt_bytes = os.path.getsize(ckpt)
+        p, carry = _setup(op, b, cfg, None)
+        save_carry(ckpt, _segment(p, carry, 14))
+        del p, carry
+        resumed, wall_res, counts_res, _ = entry(tkt.solve_resumable, op, b, cfg, checkpoint_path=ckpt, resume=True,
+                                                 chunk=9)
+    require(ref.status == tkt.Status.CONVERGED, f"solve kmax={RESUME_KMAX}: status {ref.status}")
+    require(same_bits(seg, ref) and same_bits(resumed, ref), "solve_resumable differs from solve")
+    require(counts_seg.get("banded_spmv", 0) == ref.niterations
+            and counts_res.get("banded_spmv", 0) == ref.niterations - 14,
+            f"solve_resumable: launches {counts_seg}, {counts_res}")
+    out["resumable"] = dict(kmax=RESUME_KMAX, status=ref.status, niterations=ref.niterations, bit_equal=True,
+                            checkpoint_bytes=ckpt_bytes, wall_s=dict(solve=wall_ref, segmented=wall_seg,
+                                                                      resumed=wall_res))
+    emit("entry_points", **out)
+    return resident_spmv_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -438,9 +672,10 @@ def main():
         phase_build()
         worst, times = phase_kernels(tkt)
         phase_golden(tkt)
-        launches = phase_slice(tkt)
+        launches, slice_trace = phase_slice(tkt)
         phase_card_vs_cpu(tkt)
         launches["resident_lanczos"] = phase_host_projected(tkt)
+        launches["resident_spmv"] = phase_entry_points(tkt, slice_trace)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -456,6 +691,9 @@ def main():
              replaces="tensorkrylov_tpu/ops/pallas/resident_lanczos.py:51", launches=launches["resident_lanczos"],
              max_abs_err=worst["resident_lanczos"], ms=times["resident_lanczos"][0],
              plain_ms=times["resident_lanczos"][1]),
+        dict(name="resident_spmv", route="cuda", source=f"{pkg}/resident_spmv.cu",
+             replaces="tensorkrylov_tpu/ops/pallas/resident_spmv.py:42", launches=launches["resident_spmv"],
+             max_abs_err=worst["resident_spmv"], ms=times["resident_spmv"][0], plain_ms=times["resident_spmv"][1]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -7,10 +7,15 @@ module and function names, imports torch
 and numpy and never jax. On a CUDA device the Krylov step runs the CUDA
 kernels in ``ops/csrc`` (built with nvcc at first use); ``solve_host_projected``
 runs the Krylov segments on the device and the projected stage on the host.
+
+Entry points: ``solve``, ``solve_host_projected``, ``solve_resumable``,
+``solve_multi_rhs``, ``solve_tensorized_system``; the CLI
+``python -m tensorkrylov_tpu_torch solve|reproduce|info`` and the bench
+``python -m tensorkrylov_tpu_torch.bench``.
 """
 from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
-from .solver import solve, solve_host_projected
-from .system import random_rhs
+from .solver import MultiRhsResult, solve, solve_host_projected, solve_multi_rhs, solve_resumable
+from .system import TensorizedSystem, multiple_rhs, random_rhs, solve_tensorized_system
 from .models.gallery import (
     bands_to_dense,
     conv_diff,
@@ -31,7 +36,13 @@ __all__ = [
     "Status",
     "solve",
     "solve_host_projected",
+    "solve_resumable",
+    "solve_multi_rhs",
+    "MultiRhsResult",
+    "TensorizedSystem",
+    "solve_tensorized_system",
     "random_rhs",
+    "multiple_rhs",
     "laplace",
     "reaction_diffusion",
     "conv_diff",
@@ -46,3 +57,5 @@ __all__ = [
     "kron_matvec_dense",
     "kron_residual_dense",
 ]
+
+__version__ = "0.1.0"

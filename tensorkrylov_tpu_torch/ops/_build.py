@@ -4,9 +4,9 @@ The sources in ``ops/csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``),
 one process per source, all at once, and linked into one shared library with
 a plain C interface, which ``ctypes`` loads. The
 build happens at the first kernel launch of a process, into
-``build/tk_torch_kernels/`` beside the package; the library's name carries a
-hash of the sources and flags, so an edited source is rebuilt and an unchanged
-one is reused. Nothing here runs when the module is imported.
+``build/tk_torch_kernels/`` beside the package, through ``build_shared``, which
+also builds the host library of ``native.py``. Nothing here runs when the
+module is imported.
 """
 from __future__ import annotations
 
@@ -20,10 +20,11 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Tuple
 
 import torch
 
-__all__ = ["kernels", "launches", "build_info", "check", "stream_of", "NVCC_FLAGS"]
+__all__ = ["kernels", "launches", "build_info", "build_shared", "load_shared", "check", "stream_of", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tk_torch_kernels"
@@ -52,6 +53,9 @@ _SIGNATURES = {
     "tk_fused_lanczos_block_elems": [],
     "tk_resident_lanczos_f32": [_P] * 10 + [_I] * 4 + [_P],
     "tk_resident_lanczos_block_elems": [],
+    "tk_resident_spmv_plan": [_I, _I, _I, _I, _P],
+    "tk_resident_spmv_f32": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
+    "tk_resident_spmv_f64": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
 }
 
 
@@ -70,42 +74,58 @@ def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
 
-def _build() -> Path:
-    cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
+def build_shared(stem: str, inputs, flags, build_dir: Path, compile_into) -> Tuple[Path, str]:
+    """The shared library ``build_dir/lib<stem>_<hash>.so``, where the hash
+    covers the flags and each input's name and bytes: an edited input is
+    rebuilt and an unchanged one reused. ``compile_into(tmpdir, out)`` builds
+    it at ``out`` and returns the compiler's log; it runs under a temporary
+    directory and the result is renamed into place, so a parallel process
+    never loads a half-written library. Returns the path and the log
+    (``"(reused)"`` when nothing was built)."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in inputs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    lib_path = BUILD_DIR / f"libtk_kernels_{h.hexdigest()[:16]}.so"
+    lib_path = build_dir / f"lib{stem}_{h.hexdigest()[:16]}.so"
     if lib_path.exists():
-        build_info.update(seconds=0.0, path=str(lib_path), log="(reused)")
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return lib_path, "(reused)"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmpdir:
+        out = os.path.join(tmpdir, lib_path.name)
+        log = compile_into(tmpdir, out)
+        os.replace(out, lib_path)
+    return lib_path, log
+
+
+def load_shared(path: Path, signatures: dict, restype) -> ctypes.CDLL:
+    """Load a library with ctypes and declare each entry point's argument
+    types and its return type ``restype(name)``."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype(name)
+    return lib
+
+
+def _compile_kernels(tmpdir: str, out: str) -> str:
+    """One nvcc per source, all started together, then one link."""
+    cu, _ = _sources()
     nvcc = _nvcc()
-    t0 = time.perf_counter()
-    log = []
-    # build under a temporary directory and name, and rename, so a parallel
-    # process never loads a half-written library
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
-        # one nvcc per source, all started together, then one link
-        objs = [os.path.join(tmpdir, p.stem + ".o") for p in cu]
-        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-        cmds = [[nvcc, *compile_flags, "-c", "-o", o, str(p)] for p, o in zip(cu, objs)]
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
-        outs = [p.communicate()[0] for p in procs]
-        tmp_lib = os.path.join(tmpdir, lib_path.name)
-        link = [nvcc, *NVCC_FLAGS, "-o", tmp_lib, *objs]
-        for cmd, proc, out in zip(cmds, procs, outs):
-            log.append(out)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
-        proc = subprocess.run(link, capture_output=True, text=True)
-        log.append(proc.stdout + proc.stderr)
+    objs = [os.path.join(tmpdir, p.stem + ".o") for p in cu]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    cmds = [[nvcc, *compile_flags, "-c", "-o", o, str(p)] for p, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    log = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, log):
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log[-1]}")
-        os.replace(tmp_lib, lib_path)
-    build_info.update(seconds=time.perf_counter() - t0, path=str(lib_path), log="".join(log))
-    return lib_path
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+    link = [nvcc, *NVCC_FLAGS, "-o", out, *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    log.append(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log[-1]}")
+    return "".join(log)
 
 
 def kernels() -> ctypes.CDLL:
@@ -113,12 +133,12 @@ def kernels() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int64 if name.endswith("block_elems") else ctypes.c_int
-            _lib = lib
+            cu, cuh = _sources()
+            t0 = time.perf_counter()
+            path, log = build_shared("tk_kernels", cu + cuh, NVCC_FLAGS, BUILD_DIR, _compile_kernels)
+            build_info.update(seconds=time.perf_counter() - t0, path=str(path), log=log)
+            _lib = load_shared(path, _SIGNATURES,
+                               lambda name: ctypes.c_int64 if name.endswith("block_elems") else ctypes.c_int)
         return _lib
 
 

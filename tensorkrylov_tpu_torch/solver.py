@@ -7,7 +7,11 @@ The JAX package runs the whole iteration in one jitted ``lax.while_loop``.
 each iteration runs one batched Krylov step, and every ``check_every`` steps
 the projected stage (spectral estimate, exp-sum coefficients, CP solve,
 Lemma-3.4 residual); the host reads the status after each check. The
-projected stage stays on the device, in f64.
+projected stage stays on the device, in f64. The loop is split into setup,
+segment and finalize, as the JAX package's is: ``solve`` is one segment to
+kmax, ``solve_resumable`` the same segment in chunks with a checkpoint
+between them. ``solve_multi_rhs`` solves a rank-R right-hand side as R
+rank-1 solves.
 
 ``solve_host_projected`` runs the Krylov recurrences on the operator's device
 in ``check_every``-step segments and the projected stage on the host CPU in
@@ -30,8 +34,10 @@ from .ops.gram import residual_norm_sq
 from .ops.orth import KrylovState, _acc_dtype, arnoldi_step, init_state, lanczos_step
 from .ops.resident_lanczos import lanczos_resident_steps
 from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
+from .utils.checkpoint import load_carry, save_carry
 
-__all__ = ["solve", "solve_host_projected", "projected_step", "SolverConfig"]
+__all__ = ["solve", "solve_host_projected", "solve_resumable", "solve_multi_rhs", "MultiRhsResult", "projected_step",
+           "SolverConfig"]
 
 _REORTH = {"lanczos": False, "lanczos_reorth": True, "lanczos_reorth_auto": "auto"}
 
@@ -223,9 +229,42 @@ def _lift(V, Y, niter):
     return torch.bmm(V[:m].to(Y.dtype).permute(1, 2, 0), Y[:, :m].to(V.device))
 
 
-def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None) -> SolveResult:
-    """Solve the Kronecker-sum system A x = b, b = b_1⊗…⊗b_d given as (d, n),
-    on the operator's device. Returns the CP solution and the telemetry."""
+class _Problem(NamedTuple):
+    """What a solve's segments share and never change."""
+
+    op: KroneckerSumOperator    # bands in the Krylov step's compute dtype
+    b: torch.Tensor
+    config: SolverConfig         # resolved
+    tables: Optional[BHTables]
+    step: object                 # _step_fn(config)
+    b_norm_prod: torch.Tensor
+    W_A: Optional[torch.Tensor]
+    symmetric: bool
+
+
+class _Carry(NamedTuple):
+    """A solve's state between segments: the Krylov state, the next step k,
+    the status, the last projected solution and the histories. Everything a
+    resumed solve needs, so save_carry/load_carry round-trips it exactly."""
+
+    V: torch.Tensor
+    H: torch.Tensor
+    btil: torch.Tensor
+    beta: torch.Tensor
+    k: int
+    status: int
+    weights: torch.Tensor
+    Y: torch.Tensor
+    rel_res: torch.Tensor
+    r_comp: torch.Tensor
+    orth: torch.Tensor
+    lmin_h: torch.Tensor
+    lmax_h: torch.Tensor
+    rank_h: torch.Tensor
+
+
+def _setup(op: KroneckerSumOperator, b, config: Optional[SolverConfig], tables: Optional[BHTables]):
+    """Check the problem, resolve the config, and make the initial carry."""
     config = config or SolverConfig()
     b = _check_problem(op, b, config)
     config = _resolve_config(config, op)
@@ -237,31 +276,39 @@ def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, ta
     K = config.kmax + 1
     pdt = config.proj_dtype
     dev = op.device
-    symmetric = op.symmetric
-    op = op.astype(_acc_dtype(config.basis_dtype, pdt))
-    step = _step_fn(config)
-    state, b_norms = init_state(op, b, config.kmax, pdt, config.basis_dtype)
-    b_norm_prod = torch.prod(b_norms)
-    W_A = dense_minor_window(op, K).to(pdt) if config.spectral_source == "A_minor" else None
+    op_c = op.astype(_acc_dtype(config.basis_dtype, pdt))
+    state, b_norms = init_state(op_c, b, config.kmax, pdt, config.basis_dtype)
+    W_A = dense_minor_window(op_c, K).to(pdt) if config.spectral_source == "A_minor" else None
+    problem = _Problem(op_c, b, config, tables, _step_fn(config), torch.prod(b_norms), W_A, op.symmetric)
+    carry = _Carry(
+        *state, k=1, status=int(Status.RUNNING),
+        weights=torch.zeros((config.tmax,), dtype=pdt, device=dev),
+        Y=torch.zeros((d, K, config.tmax), dtype=pdt, device=dev),
+        rel_res=torch.full((K,), float("inf"), dtype=pdt, device=dev),
+        r_comp=torch.full((K,), float("inf"), dtype=pdt, device=dev),
+        orth=torch.zeros((K,), dtype=pdt, device=dev),
+        lmin_h=torch.zeros((K,), dtype=pdt, device=dev),
+        lmax_h=torch.zeros((K,), dtype=pdt, device=dev),
+        rank_h=torch.zeros((K,), dtype=torch.int32, device=dev),
+    )
+    return problem, carry
 
-    rel_res = torch.full((K,), float("inf"), dtype=pdt, device=dev)
-    r_comp = torch.full((K,), float("inf"), dtype=pdt, device=dev)
-    orth = torch.zeros((K,), dtype=pdt, device=dev)
-    lmin_h = torch.zeros((K,), dtype=pdt, device=dev)
-    lmax_h = torch.zeros((K,), dtype=pdt, device=dev)
-    rank_h = torch.zeros((K,), dtype=torch.int32, device=dev)
-    weights = torch.zeros((config.tmax,), dtype=pdt, device=dev)
-    Y = torch.zeros((d, K, config.tmax), dtype=pdt, device=dev)
 
-    status = Status.RUNNING
-    k = 1
-    while k <= config.kmax and status == Status.RUNNING:
-        state, loss = step(op, state, b, k)
-        orth[k] = loss
+def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
+    """Steps c.k..min(k_end, kmax), each followed by the projected stage when
+    the check cadence falls on it, until the status leaves RUNNING. The
+    histories are written in place."""
+    config = p.config
+    state = KrylovState(c.V, c.H, c.btil, c.beta)
+    k, status, weights, Y = c.k, Status(c.status), c.weights, c.Y
+    while k <= min(k_end, config.kmax) and status == Status.RUNNING:
+        state, loss = p.step(p.op, state, p.b, k)
+        c.orth[k] = loss
         if k % config.check_every == 0 or k >= config.kmax:
-            ev = projected_step(state.H, state.btil, state.H[:, k, k - 1], k, b_norm_prod,
-                                config, tables, symmetric, n, W_A)
-            rel_res[k], r_comp[k], lmin_h[k], lmax_h[k], rank_h[k] = ev.rel, ev.r_comp, ev.lmin, ev.lmax, ev.rank
+            ev = projected_step(state.H, state.btil, state.H[:, k, k - 1], k, p.b_norm_prod,
+                                config, p.tables, p.symmetric, p.op.n, p.W_A)
+            c.rel_res[k], c.r_comp[k], c.lmin_h[k], c.lmax_h[k], c.rank_h[k] = (
+                ev.rel, ev.r_comp, ev.lmin, ev.lmax, ev.rank)
             code = torch.where(ev.breakdown, int(Status.BREAKDOWN),
                                torch.where(ev.rel < config.tol, int(Status.CONVERGED), int(Status.RUNNING)))
             status = Status(int(code))
@@ -272,22 +319,114 @@ def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, ta
             if status != Status.BREAKDOWN:
                 weights, Y = ev.weights, ev.Y
         k += 1
-    niter = k - 1
-    if status == Status.RUNNING:
-        status = Status.MAXITER
+    return c._replace(V=state.V, H=state.H, btil=state.btil, beta=state.beta, k=k, status=int(status),
+                      weights=weights, Y=Y)
 
+
+def _finalize(p: _Problem, c: _Carry) -> SolveResult:
+    niter = c.k - 1
+    status = Status.MAXITER if c.status == Status.RUNNING else Status(c.status)
     return SolveResult(
-        x=CPTensor(weights, _lift(state.V, Y, niter)),
+        x=CPTensor(c.weights, _lift(c.V, c.Y, niter)),
         status=int(status),
         niterations=niter,
-        relative_residual=rel_res,
-        projected_residual=r_comp,
-        orthogonality=orth,
-        lambda_min=lmin_h,
-        lambda_max=lmax_h,
-        expsum_rank=rank_h,
-        config=config,
+        relative_residual=c.rel_res,
+        projected_residual=c.r_comp,
+        orthogonality=c.orth,
+        lambda_min=c.lmin_h,
+        lambda_max=c.lmax_h,
+        expsum_rank=c.rank_h,
+        config=p.config,
     )
+
+
+def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None) -> SolveResult:
+    """Solve the Kronecker-sum system A x = b, b = b_1⊗…⊗b_d given as (d, n),
+    on the operator's device. Returns the CP solution and the telemetry.
+
+    One segment from step 1 to kmax: solve_resumable runs the same segment
+    in chunks and gives the same bits."""
+    p, carry = _setup(op, b, config, tables)
+    return _finalize(p, _segment(p, carry, p.config.kmax))
+
+
+def solve_resumable(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None,
+                    tables: Optional[BHTables] = None, chunk: int = 32, checkpoint_path: Optional[str] = None,
+                    resume: bool = False) -> SolveResult:
+    """solve() in chunk-step segments, with the whole carry (basis, projected
+    matrices, histories, status, k) written to checkpoint_path after each
+    segment when it is given. resume=True starts from the carry at
+    checkpoint_path. Segments and a restore are exact, so the result equals
+    solve()'s bit for bit."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    p, carry = _setup(op, b, config, tables)
+    if resume and checkpoint_path:
+        carry = load_carry(checkpoint_path, carry)
+    while carry.k <= p.config.kmax and carry.status == Status.RUNNING:
+        carry = _segment(p, carry, carry.k + chunk - 1)
+        if checkpoint_path:
+            save_carry(checkpoint_path, carry)
+    return _finalize(p, carry)
+
+
+class MultiRhsResult(NamedTuple):
+    """(x, results): the combined CP solution and the per-term results, whose
+    telemetry tensors (and status, niterations, x) have a leading (R,).
+    status and converged aggregate the R statuses: CONVERGED when all
+    converged, else BREAKDOWN when any broke down, else MAXITER."""
+
+    x: CPTensor
+    results: SolveResult
+
+    @property
+    def status(self) -> int:
+        st = self.results.status
+        if bool(torch.all(st == Status.CONVERGED)):
+            return int(Status.CONVERGED)
+        return int(Status.BREAKDOWN if bool(torch.any(st == Status.BREAKDOWN)) else Status.MAXITER)
+
+    @property
+    def converged(self) -> bool:
+        return self.status == Status.CONVERGED
+
+
+def solve_multi_rhs(op: KroneckerSumOperator, B, config: Optional[SolverConfig] = None,
+                    tables: Optional[BHTables] = None) -> MultiRhsResult:
+    """Solve A x = b for a rank-R tensor-product RHS b = Σ_r ⊗_s B[r, s],
+    B (R, d, n). By linearity x is the sum of the R rank-1 solutions.
+
+    The JAX package vmaps its whole while-loop over r, and a finished lane
+    freezes, so each lane equals a rank-1 solve; here the R rank-1 solves run
+    in turn and their results are stacked. The step is the unfused one
+    ('xla'), as in the JAX package. x has rank Σ_r t_r: the terms' weights and
+    factor columns concatenated."""
+    config = _resolve_config(config or SolverConfig(), op)
+    if config.step_impl != "xla":
+        config = dataclasses.replace(config, step_impl="xla")
+    B = torch.as_tensor(B, device=op.device)
+    if B.dim() != 3 or B.shape[1] != op.d or B.shape[2] != op.n:
+        raise ValueError(f"B must be (R, d, n) = (R, {op.d}, {op.n}), got {tuple(B.shape)}")
+    _check_identical_factors(config, op, B)
+    if op.symmetric and tables is None:
+        tables = load_tables(dtype=config.proj_dtype, device=op.device)
+
+    runs = [solve(op, B[r], config, tables) for r in range(B.shape[0])]
+    stacked = {f: torch.stack([getattr(r, f) for r in runs])
+               for f in ("relative_residual", "projected_residual", "orthogonality", "lambda_min", "lambda_max",
+                         "expsum_rank")}
+    res = SolveResult(
+        x=CPTensor(torch.stack([r.x.weights for r in runs]), torch.stack([r.x.factors for r in runs])),
+        status=torch.tensor([r.status for r in runs], dtype=torch.int32),
+        niterations=torch.tensor([r.niterations for r in runs], dtype=torch.int32),
+        config=runs[0].config,
+        **stacked,
+    )
+    R, tmax = B.shape[0], config.tmax
+    # combine: concatenate the CP terms of the rank-1 solves
+    weights = res.x.weights.reshape(R * tmax)
+    factors = torch.movedim(res.x.factors, 0, 2).reshape(op.d, op.n, R * tmax)
+    return MultiRhsResult(CPTensor(weights, factors), res)
 
 
 def _resident_segment_update(op32: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, k0: int, S: int) -> KrylovState:

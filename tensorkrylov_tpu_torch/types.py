@@ -47,6 +47,11 @@ class KroneckerSumOperator:
         return self.bands.shape[2]
 
     @property
+    def nnz_per_factor(self) -> int:
+        """Nonzeros of one factor (band lengths, exact for DIA storage)."""
+        return sum(self.n - abs(o) for o in self.offsets)
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.bands.dtype
 

@@ -14,6 +14,7 @@ from tensorkrylov_tpu_torch.ops import _build
 from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
 from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
 from tensorkrylov_tpu_torch.ops.resident_lanczos import lanczos_resident_steps, lanczos_resident_steps_reference
+from tensorkrylov_tpu_torch.ops.resident_spmv import resident_spmv_plan, spmv_multi_apply, spmv_multi_apply_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -200,3 +201,68 @@ def test_arnoldi_conv_diff_on_card(cuda, entry):
     res = getattr(tkt, entry)(op, b, tkt.SolverConfig(kmax=30, tol=1e-8, orth="arnoldi", tmax=601))
     assert res.status == tkt.Status.CONVERGED and _build.launches["banded_spmv"] == res.niterations
     assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8
+
+
+def _dominant_op(offsets, d, n, seed, dtype, device):
+    """Distinct random factors with a dominant diagonal (offset 0 in offsets):
+    the spectral radius stays near the largest row sum, so hundreds of scaled
+    applies neither vanish nor blow up."""
+    op = _op(offsets, d, n, seed, torch.float64, "cpu")
+    bands = op.bands.clone()
+    bands[:, offsets.index(0)] = 16.0 + bands[:, offsets.index(0)].abs()
+    return tkt.KroneckerSumOperator(bands.to(dtype).to(device), offsets, False)
+
+
+RESIDENT_OPS = {
+    "laplace": lambda d, n, dtype, dev: tkt.laplace(d, n, dtype=dtype, device=dev),
+    "conv_diff": lambda d, n, dtype, dev: tkt.conv_diff(d, n, dtype=dtype, device=dev),
+    "wide_distinct": lambda d, n, dtype, dev: _dominant_op((-3, -1, 0, 2, 5), d, n, 8, dtype, dev),
+}
+
+
+@pytest.mark.parametrize("m_case", ["1", "M-1", "M", "2M+3"])
+@pytest.mark.parametrize("gallery", sorted(RESIDENT_OPS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_spmv_equals_plain(cuda, dtype, gallery, m_case):
+    """Bit-equal to its plain version for m below, at and past the applies per
+    launch M, with n = 2T + 333 (tile seams and a ragged last tile), launched
+    ceil(m/M) times."""
+    make = RESIDENT_OPS[gallery]
+    M, T = resident_spmv_plan(make(3, 64, dtype, cuda))
+    n = 2 * T + 333
+    op = make(3, n, dtype, cuda)
+    assert resident_spmv_plan(op) == (M, T)
+    m = {"1": 1, "M-1": M - 1, "M": M, "2M+3": 2 * M + 3}[m_case]
+    scale = float(1.0 / op.bands.abs().sum(1).max())
+    v = torch.randn((3, n), dtype=dtype, device=cuda, generator=torch.Generator(cuda).manual_seed(9))
+    before = _build.launches["resident_spmv"]
+    got = spmv_multi_apply(op, v, m, scale)
+    torch.cuda.synchronize()
+    assert _build.launches["resident_spmv"] == before + -(-m // M)
+    ref = spmv_multi_apply_reference(op, v, m, scale)
+    assert bool(ref.abs().max() > 1e-20)  # the applies did not vanish
+    assert torch.equal(got, ref)
+
+
+def test_resident_spmv_small_n_and_zero_applies(cuda):
+    """n below one tile and below the halo; m = 0 launches nothing."""
+    op = _dominant_op((-3, 0, 4), 2, 5, 10, torch.float32, cuda)
+    v = torch.randn((2, 5), device=cuda, generator=torch.Generator(cuda).manual_seed(11))
+    assert torch.equal(spmv_multi_apply(op, v, 7, 0.125), spmv_multi_apply_reference(op, v, 7, 0.125))
+    before = _build.launches["resident_spmv"]
+    assert torch.equal(spmv_multi_apply(op, v, 0), v) and _build.launches["resident_spmv"] == before
+
+
+def test_resident_spmv_rejects_bad_input(cuda):
+    op = _op((-1, 0, 1), 2, 64, 4, torch.float32, cuda)
+    v = torch.ones((2, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        spmv_multi_apply(op, v.double(), 2)
+    with pytest.raises(TypeError):
+        spmv_multi_apply(op.astype(torch.float16), v.half(), 2)
+    with pytest.raises(ValueError):
+        spmv_multi_apply(op, torch.ones((3, 64), dtype=torch.float32, device=cuda), 2)
+    with pytest.raises(ValueError):
+        spmv_multi_apply(op, torch.ones((2, 128), dtype=torch.float32, device=cuda)[:, ::2], 2)
+    with pytest.raises(ValueError):
+        spmv_multi_apply(op, v, -1)

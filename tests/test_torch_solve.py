@@ -187,7 +187,11 @@ def test_config_from_fields_maps_dtypes():
 def test_import_leaves_jax_out():
     code = ("import sys, tensorkrylov_tpu_torch, tensorkrylov_tpu_torch.interop, tensorkrylov_tpu_torch.ops.orth,"
             " tensorkrylov_tpu_torch.ops.resident_lanczos, tensorkrylov_tpu_torch.ops.expsum,"
-            " tensorkrylov_tpu_torch.models.gallery, tensorkrylov_tpu_torch.solver;"
+            " tensorkrylov_tpu_torch.models.gallery, tensorkrylov_tpu_torch.solver,"
+            " tensorkrylov_tpu_torch.bench, tensorkrylov_tpu_torch.native, tensorkrylov_tpu_torch.__main__,"
+            " tensorkrylov_tpu_torch.convergence, tensorkrylov_tpu_torch.system,"
+            " tensorkrylov_tpu_torch.experiments.reproduction, tensorkrylov_tpu_torch.ops.resident_spmv,"
+            " tensorkrylov_tpu_torch.utils.checkpoint;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tensorkrylov_tpu.'))"
             " or m == 'tensorkrylov_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
