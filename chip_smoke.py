@@ -31,10 +31,19 @@ Phases, one output line each:
                reproduction runner (SPD d = 5, 10, 50, 100 and nonsymmetric
                d = 5, n=200); solve_multi_rhs (R=2) and solve_resumable
                (kmax=40, checkpointed and resumed) on the slice's problem,
-               each equal to solve() bit for bit.
+               each equal to solve() bit for bit;
+  9. sharded — the ring kernel against its plain version on reaction_diffusion(d=10,
+               n=131072) split into 4 mode shards on the card (f64 and f32, (d, n)
+               and (d, m, n), limit 0.0), timed beside the interior launches alone,
+               the unsharded banded_spmv and a torch.sparse CSR matvec; then
+               solve_sharded on the slice's problem four ways (4 mode shards with
+               comm='ring' and 'gspmd', a 2 x 2 factor-parallel mesh, Arnoldi), each
+               held against the unsharded solve on the card, with the launch counts.
 Each path is driven with the launch counts set to 0 just before it and read
-just after. Then one JSON line of the kernels and, last,
-{"ok": true, "device": {...}}.
+just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
+over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
+and 34 TFLOP/s f64 outside the tensor cores, NVIDIA's H100 SXM data sheet) and,
+last, {"ok": true, "device": {...}}.
 Any failed check exits with code 1 and prints no result line; so do a machine
 without CUDA and a directory without the package.
 """
@@ -48,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -65,6 +75,10 @@ ROUTE_TRACE_RTOL = 1.0
 STEPS = 8                 # resident kernel steps per call in phase 3
 BENCH_STEPS = 32          # resident kernel steps per call at the bench's shape: the bench's longest call
 RESIDENT_SPMV_APPLIES = 200  # applies per multi-apply call in phase 3: the bench's m1
+SHARDS = 4                # mode shards of phase 9, all on cuda:0
+SHARDED_TRACE_RTOL, SHARDED_TRACE_ATOL = 1e-8, 1e-12  # sharded vs unsharded solve (tests/test_sharding.py:42-46)
+HBM_BYTES_PER_S = 3.35e12                                     # H100 SXM device memory
+PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}    # outside the tensor cores
 
 
 class Failed(Exception):
@@ -121,6 +135,66 @@ def time_pair(fn_plain, fn_kernel, reps=200, warm=20):
         return start.elapsed_time(end) / reps
     p1, k1, k2, p2 = one(fn_plain), one(fn_kernel), one(fn_kernel), one(fn_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def time_one(fn, reps=200, warm=20):
+    """ms per call of fn, timed with CUDA events after warm-up."""
+    for _ in range(warm):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, flops, dtype):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of dtype, in ms."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOP_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def spmv_work(op, v):
+    """Bytes (bands and v read once, u written once) and operations (a
+    multiply and an add per in-range band entry) of one SpMV of v."""
+    e = v.element_size()
+    rows = v.numel() // op.n
+    return op.bands.numel() * e + 2 * v.numel() * e, 2 * rows * op.nnz_per_factor
+
+
+def csr_block_diagonal(op):
+    """The d factors as one block-diagonal (d·n) × (d·n) CSR matrix: one
+    torch.sparse matvec computes the factor SpMV (the library yardstick; the
+    port never calls it)."""
+    d, nb, n = op.bands.shape
+    dev = op.device
+    cols = torch.arange(n, device=dev)[:, None] + op.offsets_tensor[None, :]        # (n, nb)
+    valid = (cols >= 0) & (cols < n)
+    crow = torch.zeros(d * n + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.cumsum(valid.sum(1).repeat(d), 0)
+    col = cols[None] + (torch.arange(d, device=dev) * n)[:, None, None]            # (d, n, nb)
+    keep = valid[None].expand(d, n, nb)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return torch.sparse_csr_tensor(crow, col[keep], op.bands.permute(0, 2, 1)[keep], size=(d * n, d * n),
+                                       check_invariants=False)
+
+
+def library_spmv_ms(op, v, ref):
+    """ms of one torch.sparse CSR matvec of the block-diagonal operator, after
+    checking that it computes ref."""
+    A, x = csr_block_diagonal(op), v.reshape(-1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        u = (A @ x).reshape(v.shape)
+        torch.cuda.synchronize()
+        err = rel_err(u, ref)
+        require(err <= LIMITS[v.dtype], f"torch.sparse CSR matvec differs from the SpMV by {err}")
+        return time_one(lambda: A @ x)
 
 
 def rel_err(a, b):
@@ -220,13 +294,26 @@ def phase_kernels(tkt):
     start = (v.float(), torch.zeros_like(v, dtype=torch.float32), torch.zeros(10, dtype=torch.float32, device=dev))
     times["resident_lanczos"] = time_pair(lambda: lanczos_resident_steps_reference(op32, *start, STEPS),
                                           lambda: lanczos_resident_steps(op32, *start, STEPS), reps=50, warm=5)
+    e, d, n, nb = 8, 10, 131072, len(op.offsets)
+    sp_bytes, sp_flops = spmv_work(op, v)
+    nnz = op.nnz_per_factor
+    extra = {
+        "banded_spmv": dict(bound(sp_bytes, sp_flops, torch.float64),
+                            library_ms=library_spmv_ms(op, v, spmv_reference(op, v))),
+        # reads bands, v_prev, v_pprev, b, β; writes u, α, β², ⟨u, b⟩
+        "fused_lanczos": dict(bound((nb + 4) * d * n * e + 4 * d * e, d * (2 * nnz + 10 * n), torch.float64),
+                              library_ms=None),
+        # f32, STEPS steps: reads bands, vp, vpp, β; writes V (S, d, n), α, β (d, S), β_last
+        "resident_lanczos": dict(bound(((nb + 2 + STEPS) * d * n + (2 * STEPS + 2) * d) * 4,
+                                       STEPS * d * (2 * nnz + 9 * n), torch.float32), library_ms=None),
+    }
     bench_shape = phase_kernels_bench_shape(checks)
-    resident_spmv = phase_kernels_resident_spmv(tkt, checks, worst, times)
+    resident_spmv = phase_kernels_resident_spmv(tkt, checks, worst, times, extra)
     emit("kernels", ok=True, checks=checks,
          ms_at_d10_n131072={k: {"kernel": t[0], "plain": t[1], "dtype": "float32" if k == "resident_lanczos"
                                 else "float64"} for k, t in times.items() if k != "resident_spmv"},
-         resident_steps_per_call=STEPS, ms_at_bench_shape=bench_shape, resident_spmv=resident_spmv)
-    return worst, times
+         resident_steps_per_call=STEPS, ms_at_bench_shape=bench_shape, resident_spmv=resident_spmv, bounds=extra)
+    return worst, times, extra
 
 
 def phase_kernels_bench_shape(checks):
@@ -266,7 +353,7 @@ def phase_kernels_bench_shape(checks):
             f"resident_lanczos_S{BENCH_STEPS}": {"kernel": res_ms[0], "plain": res_ms[1]}}
 
 
-def phase_kernels_resident_spmv(tkt, checks, worst, times):
+def phase_kernels_resident_spmv(tkt, checks, worst, times, extra):
     """The multi-apply kernel against its plain version, bit for bit: at the
     bench's shape (d=8, n=2^20, tridiagonal, f32 and f64, m=200) and on
     distinct pentadiagonal factors (d=3, n=1001) with m % M != 0; timed at
@@ -304,6 +391,10 @@ def phase_kernels_resident_spmv(tkt, checks, worst, times):
         ms[str(dtype)[6:]] = time_pair(lambda: spmv_multi_apply_reference(op, v, m, scale),
                                        lambda: spmv_multi_apply(op, v, m, scale), reps=3, warm=1)
     times["resident_spmv"] = ms["float32"]
+    # f32: reads bands and v once, writes u once; m applies of the SpMV and the scaling
+    nb, d, n = len(bench_op.offsets), 8, 1 << 20
+    extra["resident_spmv"] = dict(bound((nb + 2) * d * n * 4, m * d * (2 * bench_op.nnz_per_factor + n),
+                                        torch.float32), library_ms=None)
     return dict(plans=plans, ms_d8_n1048576_m200={k: {"kernel": t[0], "plain": t[1]} for k, t in ms.items()})
 
 
@@ -359,7 +450,7 @@ CONFIGS = {
 def slice_problem(tkt, n, device):
     """The slice's operator and unit-norm b, made on the CPU and copied, so
     that every device gets the same bits."""
-    op = tkt.reaction_diffusion(10, n, sigma_for_kappa(n, 1e2))
+    op = tkt.reaction_diffusion(10, n, sigma_for_kappa(n, 1e2), device="cpu")
     b = tkt.random_rhs(10, n, seed=1234)
     b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
     return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), b.to(device)
@@ -658,6 +749,133 @@ def phase_entry_points(tkt, slice_trace):
     return resident_spmv_launches
 
 
+SHARDED_SOLVES = {  # name: (factor_parallel, comm, extra SolverConfig fields)
+    "ring": (1, "ring", {}),
+    "gspmd": (1, "gspmd", {}),
+    "ring_factor2x2": (2, "ring", {}),
+    "ring_arnoldi": (1, "ring", dict(orth="arnoldi")),
+}
+
+
+def plain_sharded(sop, vs):
+    """The ring route's plain version on the card: the same exchange, then
+    ring_spmv_reference on every shard once its halos have arrived."""
+    from tensorkrylov_tpu_torch.ops.ring_spmv import ring_spmv_reference
+    from tensorkrylov_tpu_torch.parallel.halo import exchange_halos
+
+    halos, events = exchange_halos(sop, vs)
+    out = []
+    for sh, v, (lh, rh), ev in zip(sop.shards, vs, halos, events):
+        torch.cuda.current_stream(sh.device).wait_event(ev)
+        out.append(ring_spmv_reference(sh.op, v, lh, rh))
+    return out
+
+
+def phase_sharded(tkt):
+    """The mode-sharded solve on 4 shards of cuda:0: the ring kernel against
+    its plain version and timed; then solve_sharded four ways against the
+    unsharded solve, each with the launch counts set to 0 just before it."""
+    from tensorkrylov_tpu_torch.ops import _build
+    from tensorkrylov_tpu_torch.ops.banded import spmv
+    from tensorkrylov_tpu_torch.parallel import gather, make_mesh, shard_operator, shard_rhs, solve_sharded
+    from tensorkrylov_tpu_torch.parallel.halo import spmv_sharded
+
+    t_phase = time.perf_counter()
+    dev, n = torch.device("cuda", 0), 131072
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    op64, b = slice_problem(tkt, n, dev)
+    checks = []
+    rng = np.random.default_rng(16)
+    for dtype in (torch.float64, torch.float32):
+        op = op64.astype(dtype)
+        sop = shard_operator(op, mesh, "ring")
+        for shape in ((10, n), (10, 4, n)):
+            v = unit_rows(rng, shape, dtype, dev)
+            vs = shard_rhs(v, mesh)
+            got, ref = spmv_sharded(sop, vs), plain_sharded(sop, vs)
+            torch.cuda.synchronize()
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            whole = rel_err(gather(got, mesh), spmv(op, v))
+            checks.append(dict(kernel="ring_spmv", dtype=str(dtype)[6:], v=list(shape), shards=SHARDS,
+                               max_abs_err=err, limit=0.0, vs_unsharded_rel=whole, unsharded_limit=LIMITS[dtype]))
+            require(err == 0.0, f"ring_spmv {dtype} {shape}: error {err} against its plain version")
+            require(whole <= LIMITS[dtype], f"ring_spmv {dtype} {shape}: {whole} from the unsharded SpMV")
+
+    # times at the main path's shape and dtype: f64, (d, n), 4 shards
+    lib = _build.kernels()
+    sop = shard_operator(op64, mesh, "ring")
+    v = unit_rows(rng, (10, n), torch.float64, dev)
+    vs = shard_rhs(v, mesh)
+    outs = [torch.empty_like(x) for x in vs]
+
+    def interiors():  # the interior launches alone, no exchange and no edge
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for sh, x, o in zip(sop.shards, vs, outs):
+            lib.tk_ring_spmv_interior_f64(sh.op.bands.data_ptr(), sh.op.offsets_tensor.data_ptr(), x.data_ptr(),
+                                          o.data_ptr(), sh.op.d, len(sh.op.offsets), 1, x.shape[-1], stream)
+
+    ring_ms, plain_ms = time_pair(lambda: plain_sharded(sop, vs), lambda: spmv_sharded(sop, vs))
+    gspmd = shard_operator(op64, mesh, "gspmd")
+    nbytes, flops = spmv_work(op64, v)
+    H = sop.halo
+    nbytes += 2 * 2 * (SHARDS - 1) * 10 * H * 8     # each halo column read from a neighbour and written
+    times = dict(ring_ms=ring_ms, plain_ms=plain_ms, interior_only_ms=time_one(interiors),
+                 gspmd_route_ms=time_one(lambda: spmv_sharded(gspmd, vs)),
+                 unsharded_banded_spmv_ms=time_one(lambda: spmv(op64, v)),
+                 library_ms=library_spmv_ms(op64, v, spmv(op64, v)), **bound(nbytes, flops, torch.float64))
+    times["exchange_and_edges_ms"] = times["ring_ms"] - times["interior_only_ms"]
+    del outs
+
+    # the slice's problem through solve_sharded, each held against the unsharded solve
+    refs, unsharded = {}, {}
+    for orth in ("lanczos_reorth", "arnoldi"):
+        res, wall, counts = run_solve(tkt, op64, b, tkt.SolverConfig(**CONFIGS["default"], orth=orth))
+        refs[orth] = dataclasses.replace(res, x=None)
+        unsharded[orth] = dict(status=res.status, niterations=res.niterations, wall_s=wall,
+                               iterations_per_s=res.niterations / wall,
+                               max_memory_allocated=torch.cuda.max_memory_allocated(), launches=counts)
+        del res
+    runs, launches = {}, {}
+    for name, (fp, comm, fields) in SHARDED_SOLVES.items():
+        cfg = tkt.SolverConfig(**CONFIGS["default"], **fields)
+        m = make_mesh(devices=[dev] * SHARDS, factor_parallel=fp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        res = solve_sharded(op64, b, cfg, m, comm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        ref, k = refs[cfg.orth], res.niterations
+        require((res.status, k) == (ref.status, ref.niterations) and res.status == tkt.Status.CONVERGED,
+                f"sharded {name}: {res.status}/{k} vs unsharded {ref.status}/{ref.niterations}")
+        a, r = res.relative_residual[1:k + 1].cpu().numpy(), ref.relative_residual[1:k + 1].cpu().numpy()
+        trace = float(np.max(np.abs(a - r) / np.abs(r)))
+        require(bool(np.all(np.abs(a - r) <= SHARDED_TRACE_ATOL + SHARDED_TRACE_RTOL * np.abs(r))),
+                f"sharded {name}: traces differ by {trace} (rtol {SHARDED_TRACE_RTOL}, atol {SHARDED_TRACE_ATOL})")
+        x = res.x.factors
+        require(tuple(x.shape) == (10, n, cfg.tmax) and bool(torch.isfinite(x).all()) and x.device == dev,
+                f"sharded {name}: bad solution (shape {tuple(x.shape)}, device {x.device})")
+        kernel, other = ("ring_spmv", "banded_spmv") if comm == "ring" else ("banded_spmv", "ring_spmv")
+        require(counts.get(kernel, 0) == SHARDS * k and counts.get(other, 0) == 0,
+                f"sharded {name}: launches {counts} in {k} steps on {SHARDS} shards")
+        require(res.config.step_impl == "xla", f"sharded {name}: step_impl {res.config.step_impl}")
+        runs[name] = dict(factor_parallel=fp, comm=comm, orth=cfg.orth, status=res.status, niterations=k,
+                          trace_max_rel_err=trace, final_rel_residual=float(a[-1]), wall_s=wall,
+                          iterations_per_s=k / wall, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                          launches=counts)
+        if name == "ring":
+            launches["ring_spmv"] = counts["ring_spmv"]
+        del res, x
+    emit("sharded", d=10, n=n, shards=SHARDS, devices=[str(dev)] * SHARDS, checks=checks,
+         ms_f64_d10_n131072=times, trace_rtol=SHARDED_TRACE_RTOL, trace_atol=SHARDED_TRACE_ATOL, runs=runs,
+         unsharded=unsharded,
+         note="all shards share one card: the path and the kernel, not scaling across cards",
+         seconds=time.perf_counter() - t_phase)
+    return launches, times, max(c["max_abs_err"] for c in checks if c["dtype"] == "float64" and len(c["v"]) == 2)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -670,31 +888,30 @@ def main():
     try:
         name, _ = phase_device()
         phase_build()
-        worst, times = phase_kernels(tkt)
+        worst, times, extra = phase_kernels(tkt)
         phase_golden(tkt)
         launches, slice_trace = phase_slice(tkt)
         phase_card_vs_cpu(tkt)
         launches["resident_lanczos"] = phase_host_projected(tkt)
         launches["resident_spmv"] = phase_entry_points(tkt, slice_trace)
+        ring_launches, ring_times, worst["ring_spmv"] = phase_sharded(tkt)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     pkg = "tensorkrylov_tpu_torch/ops/csrc"
-    kernels = [
-        dict(name="banded_spmv", route="cuda", source=f"{pkg}/banded_spmv.cu",
-             replaces="tensorkrylov_tpu/ops/pallas/banded_spmv.py:36", launches=launches["banded_spmv"],
-             max_abs_err=worst["banded_spmv"], ms=times["banded_spmv"][0], plain_ms=times["banded_spmv"][1]),
-        dict(name="fused_lanczos", route="cuda", source=f"{pkg}/fused_lanczos.cu",
-             replaces="tensorkrylov_tpu/ops/pallas/fused_lanczos.py:58", launches=launches["fused_lanczos"],
-             max_abs_err=worst["fused_lanczos"], ms=times["fused_lanczos"][0], plain_ms=times["fused_lanczos"][1]),
-        dict(name="resident_lanczos", route="cuda", source=f"{pkg}/resident_lanczos.cu",
-             replaces="tensorkrylov_tpu/ops/pallas/resident_lanczos.py:51", launches=launches["resident_lanczos"],
-             max_abs_err=worst["resident_lanczos"], ms=times["resident_lanczos"][0],
-             plain_ms=times["resident_lanczos"][1]),
-        dict(name="resident_spmv", route="cuda", source=f"{pkg}/resident_spmv.cu",
-             replaces="tensorkrylov_tpu/ops/pallas/resident_spmv.py:42", launches=launches["resident_spmv"],
-             max_abs_err=worst["resident_spmv"], ms=times["resident_spmv"][0], plain_ms=times["resident_spmv"][1]),
-    ]
+    replaces = {"banded_spmv": "banded_spmv.py:36", "fused_lanczos": "fused_lanczos.py:58",
+                "resident_lanczos": "resident_lanczos.py:51", "resident_spmv": "resident_spmv.py:42"}
+    kernels = [dict(name=name, route="cuda", source=f"{pkg}/{name}.cu",
+                    replaces=f"tensorkrylov_tpu/ops/pallas/{where}", launches=launches[name],
+                    max_abs_err=worst[name], ms=times[name][0], plain_ms=times[name][1],
+                    bound_ms=extra[name]["bound_ms"], bound_by=extra[name]["bound_by"],
+                    library_ms=extra[name]["library_ms"])
+               for name, where in replaces.items()]
+    kernels.append(dict(name="ring_spmv", route="cuda", source=f"{pkg}/ring_spmv.cu",
+                        replaces="tensorkrylov_tpu/ops/pallas/ring_spmv.py:45", launches=ring_launches["ring_spmv"],
+                        max_abs_err=worst["ring_spmv"], ms=ring_times["ring_ms"], plain_ms=ring_times["plain_ms"],
+                        bound_ms=ring_times["bound_ms"], bound_by=ring_times["bound_by"],
+                        library_ms=ring_times["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -9,7 +9,8 @@ kernels in ``ops/csrc`` (built with nvcc at first use); ``solve_host_projected``
 runs the Krylov segments on the device and the projected stage on the host.
 
 Entry points: ``solve``, ``solve_host_projected``, ``solve_resumable``,
-``solve_multi_rhs``, ``solve_tensorized_system``; the CLI
+``solve_multi_rhs``, ``solve_tensorized_system``,
+``parallel.solve_sharded`` (the solve split over a mesh of shard slots); the CLI
 ``python -m tensorkrylov_tpu_torch solve|reproduce|info`` and the bench
 ``python -m tensorkrylov_tpu_torch.bench``.
 """

@@ -37,11 +37,13 @@ def run_reproduction(
     out_dir: Optional[str] = None,
     verbose: bool = True,
     tmax: int = 601,
-    device="cpu",
+    device=None,
 ):
-    """One solve per d in dims on `device`; returns {d: summary} and, with
-    out_dir, rewrites reproduction_{laplace|convdiff}_n{n}.json after each d
-    (an interrupted sweep keeps the finished dimensions)."""
+    """One solve per d in dims on `device`, by default the CUDA device (the
+    gallery's default: without a card it raises, naming device="cpu");
+    returns {d: summary} and, with out_dir, rewrites
+    reproduction_{laplace|convdiff}_n{n}.json after each d (an interrupted
+    sweep keeps the finished dimensions)."""
     nmax = nmax or n
     results = {}
     for d in dims:
@@ -53,7 +55,7 @@ def run_reproduction(
             op = conv_diff(d, n, device=device)
             # the rank-~400 sinc quadrature is what reaches tol=1e-9
             cfg = SolverConfig(kmax=nmax, tol=tol, orth="arnoldi", tmax=tmax, identical_factors=True)
-        b = random_rhs(d, n, seed=seed, device=device)
+        b = random_rhs(d, n, seed=seed, device=op.device)
         b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
         t0 = time.perf_counter()
         res = solve(op, b, cfg)

@@ -13,7 +13,8 @@ from .ops.orth import KrylovState
 from .types import KroneckerSumOperator, SolveResult, SolverConfig
 
 __all__ = ["operator_from_numpy", "tables_from_numpy", "config_from_fields", "result_to_numpy",
-           "krylov_state_from_numpy", "krylov_state_to_numpy"]
+           "krylov_state_from_numpy", "krylov_state_to_numpy", "sharded_operator_from_numpy",
+           "sharded_state_from_numpy", "sharded_state_to_numpy"]
 
 _DTYPE_FIELDS = ("basis_dtype", "proj_dtype")
 
@@ -66,3 +67,30 @@ def krylov_state_from_numpy(V, H, btil, beta, device="cpu") -> KrylovState:
 def krylov_state_to_numpy(state) -> KrylovState:
     """The state's four arrays as numpy arrays, in the same layout."""
     return KrylovState(*(np.asarray(a.detach().cpu().numpy() if torch.is_tensor(a) else a) for a in state))
+
+
+def sharded_operator_from_numpy(bands, offsets, mesh, symmetric: bool = True, comm: str = "gspmd"):
+    """operator_from_numpy split over mesh (parallel/sharding.py:shard_operator)."""
+    from .parallel.sharding import shard_operator
+
+    op = operator_from_numpy(bands, offsets, symmetric)
+    return shard_operator(op, mesh, comm)
+
+
+def sharded_state_from_numpy(V, H, btil, beta, sop) -> KrylovState:
+    """A KrylovState in the JAX package's layout split as the sharded steps
+    keep it: V (K, d, n) into per-shard slabs (K, d_f, n_local), H, b̃ and β
+    on the lead device."""
+    from .parallel.sharding import _split
+
+    V = torch.tensor(np.ascontiguousarray(np.asarray(V)))
+    rest = (torch.tensor(np.ascontiguousarray(np.asarray(a)), device=sop.device) for a in (H, btil, beta))
+    return KrylovState(_split(V, sop.mesh, sop.d, factor_axis=1), *rest)
+
+
+def sharded_state_to_numpy(state, sop) -> KrylovState:
+    """The inverse of sharded_state_from_numpy: numpy arrays, V gathered to (K, d, n)."""
+    from .parallel.sharding import gather
+
+    V = gather(state.V, sop.mesh, axis=-1, factor_axis=1)
+    return krylov_state_to_numpy(KrylovState(V, *state[1:]))

@@ -1,7 +1,9 @@
 """Problem gallery: counterparts of ``tensorkrylov_tpu/models/gallery.py``.
 
 Matrices are assembled on the host in numpy float64 and moved to the
-requested device once.
+requested device once. ``device=None``, the default, is the CUDA device: the
+operators are made on the card unless the caller asks for the CPU with
+``device="cpu"``, and without a card the default raises.
 """
 from __future__ import annotations
 
@@ -24,9 +26,18 @@ __all__ = [
 ]
 
 
+def _device(device) -> torch.device:
+    """The requested device; None is the CUDA device and raises without one."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to make the operator on the CPU')
+    return torch.device("cuda")
+
+
 def _to_operator(bands: np.ndarray, offsets, symmetric: bool, dtype, device) -> KroneckerSumOperator:
     return KroneckerSumOperator(
-        torch.as_tensor(np.ascontiguousarray(bands), dtype=dtype, device=device),
+        torch.as_tensor(np.ascontiguousarray(bands), dtype=dtype, device=_device(device)),
         tuple(int(o) for o in offsets),
         symmetric,
     )
@@ -47,7 +58,7 @@ def _banded_operator(diags: dict, d: int, n: int, dtype, symmetric: bool, device
     return _to_operator(stacked, offsets, symmetric, dtype, device)
 
 
-def laplace(d: int, n: int, dtype=torch.float64, shift: float = 0.0, device="cpu") -> KroneckerSumOperator:
+def laplace(d: int, n: int, dtype=torch.float64, shift: float = 0.0, device=None) -> KroneckerSumOperator:
     """1-D Dirichlet Laplacian factors (1/h²)·tridiag(-1, 2, -1), h = 1/(n+1),
     plus an optional diagonal shift σ·I per factor."""
     h2inv = float((n + 1) ** 2)
@@ -56,14 +67,14 @@ def laplace(d: int, n: int, dtype=torch.float64, shift: float = 0.0, device="cpu
     )
 
 
-def reaction_diffusion(d: int, n: int, sigma: float, dtype=torch.float64, device="cpu") -> KroneckerSumOperator:
+def reaction_diffusion(d: int, n: int, sigma: float, dtype=torch.float64, device=None) -> KroneckerSumOperator:
     """σu − Δu factors: the Laplacian shifted by σ (one implicit-Euler step of
     a d-dimensional reaction–diffusion equation, κ ≈ (σ + 4(n+1)²)/(σ + π²))."""
     return laplace(d, n, dtype=dtype, shift=float(sigma), device=device)
 
 
 def conv_diff(d: int, n: int, c: float = 10.0, dtype=torch.float64, shift: float = 0.0,
-              device="cpu") -> KroneckerSumOperator:
+              device=None) -> KroneckerSumOperator:
     """Convection–diffusion factors: the Laplacian plus (c/4h)·diags(+1 @ −1,
     +3 @ 0, −5 @ +1, +1 @ +2), nonsymmetric with one lower and two upper
     bands, plus an optional diagonal shift σ·I per factor (the reaction term
@@ -77,7 +88,7 @@ def conv_diff(d: int, n: int, c: float = 10.0, dtype=torch.float64, shift: float
     )
 
 
-def eigval_matrix(eigenvalues, d: Optional[int] = None, dtype=torch.float64, device="cpu") -> KroneckerSumOperator:
+def eigval_matrix(eigenvalues, d: Optional[int] = None, dtype=torch.float64, device=None) -> KroneckerSumOperator:
     """Diagonal factors with a prescribed spectrum: one (n,) vector
     (replicated over d, which must then be given) or a (d, n) array."""
     ev = np.asarray(eigenvalues, dtype=np.float64)
@@ -88,7 +99,7 @@ def eigval_matrix(eigenvalues, d: Optional[int] = None, dtype=torch.float64, dev
     return _to_operator(ev[:, None, :], (0,), True, dtype, device)
 
 
-def rand_spd(d: int, n: int, seed: int = 0, dtype=torch.float64, device="cpu") -> KroneckerSumOperator:
+def rand_spd(d: int, n: int, seed: int = 0, dtype=torch.float64, device=None) -> KroneckerSumOperator:
     """Random dense SPD factors A_s = R_sᵀ R_s, distinct per factor, drawn
     with numpy exactly as the JAX package draws them."""
     rng = np.random.default_rng(seed)
@@ -140,7 +151,7 @@ def bands_to_dense(op: KroneckerSumOperator) -> np.ndarray:
     return out
 
 
-def operator_from_dense_factors(mats, symmetric: bool, dtype=torch.float64, device="cpu") -> KroneckerSumOperator:
+def operator_from_dense_factors(mats, symmetric: bool, dtype=torch.float64, device=None) -> KroneckerSumOperator:
     if isinstance(mats, (list, tuple)):
         shapes = {np.asarray(A).shape for A in mats}
         if len(shapes) > 1:

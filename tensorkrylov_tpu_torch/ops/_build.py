@@ -56,6 +56,10 @@ _SIGNATURES = {
     "tk_resident_spmv_plan": [_I, _I, _I, _I, _P],
     "tk_resident_spmv_f32": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
     "tk_resident_spmv_f64": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
+    "tk_ring_spmv_interior_f32": [_P] * 4 + [_I] * 4 + [_P],
+    "tk_ring_spmv_interior_f64": [_P] * 4 + [_I] * 4 + [_P],
+    "tk_ring_spmv_edge_f32": [_P] * 5 + [_I] * 5 + [_P],
+    "tk_ring_spmv_edge_f64": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

@@ -42,6 +42,11 @@ class KrylovState(NamedTuple):
     beta: torch.Tensor
 
 
+# config.orth of a Lanczos step → its reorth argument
+_REORTH = {"lanczos": False, "lanczos_reorth": True, "lanczos_reorth_auto": "auto"}
+_TINY = 1e-300
+
+
 def _acc_dtype(basis_dtype, proj_dtype):
     """Compute dtype of length-n work: the projected dtype when the basis is
     f64, else f32 (a narrower basis is promoted to f32 for arithmetic)."""
@@ -96,22 +101,55 @@ def _subtract_span(V, u, w, k):
     return u - torch.bmm(Vk, w.to(u.dtype)[:, :, None])[:, :, 0]
 
 
+def _reorth_mode(reorth) -> str:
+    return "auto" if reorth == "auto" else ("always" if reorth else "plain")
+
+
+def _restart_direction(cols: Tuple[int, int], factors: Tuple[int, int], k: int, dtype, device) -> torch.Tensor:
+    """cos((i + 0.7)(1 + 0.01 s) + 0.37 k) at columns i ∈ [c0, c1) and factors
+    s ∈ [s0, s1): the lucky-breakdown restart's direction, the same at a
+    column whether the basis is whole or split over shards."""
+    i = torch.arange(*cols, dtype=dtype, device=device)
+    s = torch.arange(*factors, dtype=dtype, device=device)[:, None]
+    return torch.cos((i[None, :] + 0.7) * (1.0 + 0.01 * s) + 0.37 * float(k))
+
+
+def _restart_ok(nrm: torch.Tensor, nrm0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(whether the twice-orthogonalized restart direction kept more than
+    2^-12 of its norm, the divisor that normalizes it)."""
+    return nrm > 2.0**-12 * nrm0, torch.where(nrm > 0, nrm, 1.0)
+
+
+def _breakdown(h_new: torch.Tensor, scale: torch.Tensor, dtype):
+    """Lucky breakdown where the new vector's norm is below 256 eps·scale:
+    (the norm, zero there; the mask; the divisor, one there)."""
+    lucky = h_new < 256.0 * torch.finfo(dtype).eps * scale
+    h_new = torch.where(lucky, 0.0, h_new)
+    return h_new, lucky, torch.where(h_new > 0, h_new, 1.0)
+
+
+def _drift_probe(ub: torch.Tensor, b_norm: torch.Tensor, beta_sq: torch.Tensor) -> torch.Tensor:
+    """v_0-drift probe |⟨u, b⟩|/(β‖b_s‖) = |⟨v_k, v_0⟩| (b̃[:, 0] = ‖b_s‖)."""
+    beta_pre = torch.sqrt(torch.clamp(beta_sq, min=_TINY))
+    return torch.max(torch.abs(ub) / (b_norm * beta_pre + _TINY))
+
+
+def _auto_threshold(reorth_tol: float, dtype) -> float:
+    return reorth_tol if reorth_tol > 0.0 else math.sqrt(torch.finfo(dtype).eps)
+
+
 def _replace_lucky(V, v_new, lucky, k, proj_dtype):
     """Lucky-breakdown restart: for factors whose new Krylov vector vanished
     (the space is A-invariant), continue with a fixed pseudo-random direction
     orthogonalized twice against the basis; an exhausted space gets a zero
     column (A·0 = 0 and ⟨·,0⟩ = 0 keep it inert)."""
     K, d, n = V.shape
-    cdt = _acc_dtype(V.dtype, proj_dtype)
-    i = torch.arange(n, dtype=cdt, device=V.device)
-    s = torch.arange(d, dtype=cdt, device=V.device)[:, None]
-    vr = torch.cos((i[None, :] + 0.7) * (1.0 + 0.01 * s) + 0.37 * float(k))
+    vr = _restart_direction((0, n), (0, d), k, _acc_dtype(V.dtype, proj_dtype), V.device)
     nrm0 = torch.sqrt(torch.sum(vr.to(proj_dtype) ** 2, dim=1))
     for _ in range(2):
         vr = _subtract_span(V, vr, _project_coeffs(V, vr, k, proj_dtype), k)
-    nrm = torch.sqrt(torch.sum(vr.to(proj_dtype) ** 2, dim=1))
-    ok = nrm > 2.0**-12 * nrm0
-    vr = torch.where(ok[:, None], vr / torch.where(nrm > 0, nrm, 1.0).to(vr.dtype)[:, None], 0.0)
+    ok, den = _restart_ok(torch.sqrt(torch.sum(vr.to(proj_dtype) ** 2, dim=1)), nrm0)
+    vr = torch.where(ok[:, None], vr / den.to(vr.dtype)[:, None], 0.0)
     return torch.where(lucky[:, None], vr.to(v_new.dtype), v_new)
 
 
@@ -130,7 +168,7 @@ def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, 
     """
     V, H, btil, beta = state
     acc = _acc_dtype(V.dtype, proj_dtype)
-    mode = "auto" if reorth == "auto" else ("always" if reorth else "plain")
+    mode = _reorth_mode(reorth)
     v_prev = V[k - 1].to(acc)
     v_pprev = V[max(k - 2, 0)].to(acc)
     b = b.to(acc)
@@ -152,26 +190,19 @@ def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, 
         beta_sq = bdot(u, u).to(proj_dtype)
         ub = bdot(u, b).to(proj_dtype)
 
-    # v_0-drift probe |⟨u, b⟩|/(β‖b_s‖) = |⟨v_k, v_0⟩| (b̃[:, 0] = ‖b_s‖)
-    tiny = 1e-300
-    beta_pre = torch.sqrt(torch.clamp(beta_sq, min=tiny))
-    probe = torch.max(torch.abs(ub) / (btil[:, 0] * beta_pre + tiny))
+    probe = _drift_probe(ub, btil[:, 0], beta_sq)
     if loss is None:
         loss = probe
 
     if mode == "auto":
-        thresh = reorth_tol if reorth_tol > 0.0 else math.sqrt(torch.finfo(acc).eps)
-        if bool(probe > thresh):
+        if bool(probe > _auto_threshold(reorth_tol, acc)):
             u = _subtract_span(V, u, _project_coeffs(V, u, k, proj_dtype), k)
             beta_sq = bdot(u, u).to(proj_dtype)
             ub = bdot(u, b).to(proj_dtype)
 
     beta_new = _sqrt_rn(torch.clamp(beta_sq, min=0.0))
     # lucky breakdown: the factor's Krylov space is invariant; β stays 0 in H
-    scale = torch.abs(alpha) + beta + tiny
-    lucky = beta_new < 256.0 * torch.finfo(u.dtype).eps * scale
-    beta_new = torch.where(lucky, 0.0, beta_new)
-    safe = torch.where(beta_new > 0, beta_new, 1.0)
+    beta_new, lucky, safe = _breakdown(beta_new, torch.abs(alpha) + beta + _TINY, u.dtype)
     v_new = u / safe.to(u.dtype)[:, None]
     # b̃_k = ⟨u/β, b⟩ = ub/β; a restart replaced v_new, so recompute it then
     bt_new = ub / safe
@@ -203,10 +234,7 @@ def arnoldi_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, 
     h = w1 + w2                                            # (d, k) column entries 0..k-1
 
     h_new = _sqrt_rn(bdot(u, u).to(proj_dtype))
-    scale = torch.sum(torch.abs(h), dim=1) + 1e-300
-    lucky = h_new < 256.0 * torch.finfo(u.dtype).eps * scale
-    h_new = torch.where(lucky, 0.0, h_new)
-    safe = torch.where(h_new > 0, h_new, 1.0)
+    h_new, lucky, safe = _breakdown(h_new, torch.sum(torch.abs(h), dim=1) + _TINY, u.dtype)
     v_new = u / safe.to(u.dtype)[:, None]
     if bool(lucky.any()):
         v_new = _replace_lucky(V, v_new, lucky, k, proj_dtype)

@@ -31,16 +31,13 @@ from .coeffs.tables import TMAX, BHTables, ExpSumCoeffs, load_tables, select_bh,
 from .ops.eigen import analytic_laplace_extremes, dense_minor_window, masked_eigh, sym_extremes_from_eigs
 from .ops.expsum import cp_solve_nonsym, cp_solve_nonsym_eig, cp_solve_sym
 from .ops.gram import residual_norm_sq
-from .ops.orth import KrylovState, _acc_dtype, arnoldi_step, init_state, lanczos_step
+from .ops.orth import _REORTH, KrylovState, _acc_dtype, arnoldi_step, init_state, lanczos_step
 from .ops.resident_lanczos import lanczos_resident_steps
 from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
 from .utils.checkpoint import load_carry, save_carry
 
-__all__ = ["solve", "solve_host_projected", "solve_resumable", "solve_multi_rhs", "MultiRhsResult", "projected_step",
-           "SolverConfig"]
-
-_REORTH = {"lanczos": False, "lanczos_reorth": True, "lanczos_reorth_auto": "auto"}
-
+__all__ = ["solve", "solve_host_projected", "solve_resumable", "solve_multi_rhs", "solve_on_mesh", "MultiRhsResult",
+           "projected_step", "SolverConfig"]
 
 def _step_fn(config: SolverConfig):
     """The Krylov step of config.orth: (op, state, b, k) → (state, loss)."""
@@ -280,7 +277,13 @@ def _setup(op: KroneckerSumOperator, b, config: Optional[SolverConfig], tables: 
     state, b_norms = init_state(op_c, b, config.kmax, pdt, config.basis_dtype)
     W_A = dense_minor_window(op_c, K).to(pdt) if config.spectral_source == "A_minor" else None
     problem = _Problem(op_c, b, config, tables, _step_fn(config), torch.prod(b_norms), W_A, op.symmetric)
-    carry = _Carry(
+    return problem, _initial_carry(state, config, d, dev)
+
+
+def _initial_carry(state: KrylovState, config: SolverConfig, d: int, dev) -> _Carry:
+    """The carry before step 1: the initial Krylov state and empty histories on dev."""
+    K, pdt = config.kmax + 1, config.proj_dtype
+    return _Carry(
         *state, k=1, status=int(Status.RUNNING),
         weights=torch.zeros((config.tmax,), dtype=pdt, device=dev),
         Y=torch.zeros((d, K, config.tmax), dtype=pdt, device=dev),
@@ -291,7 +294,6 @@ def _setup(op: KroneckerSumOperator, b, config: Optional[SolverConfig], tables: 
         lmax_h=torch.zeros((K,), dtype=pdt, device=dev),
         rank_h=torch.zeros((K,), dtype=torch.int32, device=dev),
     )
-    return problem, carry
 
 
 def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
@@ -323,11 +325,11 @@ def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
                       weights=weights, Y=Y)
 
 
-def _finalize(p: _Problem, c: _Carry) -> SolveResult:
+def _finalize(p: _Problem, c: _Carry, lift=_lift) -> SolveResult:
     niter = c.k - 1
     status = Status.MAXITER if c.status == Status.RUNNING else Status(c.status)
     return SolveResult(
-        x=CPTensor(c.weights, _lift(c.V, c.Y, niter)),
+        x=CPTensor(c.weights, lift(c.V, c.Y, niter)),
         status=int(status),
         niterations=niter,
         relative_residual=c.rel_res,
@@ -348,6 +350,37 @@ def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, ta
     in chunks and gives the same bits."""
     p, carry = _setup(op, b, config, tables)
     return _finalize(p, _segment(p, carry, p.config.kmax))
+
+
+def solve_on_mesh(op: KroneckerSumOperator, b, config: SolverConfig, mesh, comm: str,
+                  tables: Optional[BHTables] = None) -> SolveResult:
+    """solve() with the operator, b and the Krylov bases split over mesh
+    (parallel/sharding.py:solve_sharded checks comm and forces the step).
+    The same _segment loop runs the sharded Krylov step of parallel/krylov.py
+    and projected_step on the lead device; the lift x_s = V_sᵀ Y_s runs on
+    each shard and is gathered to the lead device."""
+    from .parallel import krylov
+    from .parallel.sharding import gather, shard_operator, shard_rhs
+
+    b = _check_problem(op, b, config)
+    config = _resolve_config(config, op)
+    _check_identical_factors(config, op, b)
+    lead, pdt = mesh.lead, config.proj_dtype
+    if op.symmetric and tables is None:
+        tables = load_tables(dtype=pdt, device=lead)
+    d = op.d
+    op_c = op.astype(_acc_dtype(config.basis_dtype, pdt))
+    sop = shard_operator(op_c, mesh, comm)
+    bs = shard_rhs(b, mesh, d)
+    state, b_norms = krylov.init_state(sop, bs, config.kmax, pdt, config.basis_dtype)
+    W_A = dense_minor_window(op_c, config.kmax + 1).to(pdt).to(lead) if config.spectral_source == "A_minor" else None
+    problem = _Problem(sop, bs, config, tables, krylov.step_fn(config), torch.prod(b_norms), W_A, op.symmetric)
+    carry = _initial_carry(state, config, d, lead)
+
+    def lift(V, Y, niter):
+        return gather([_lift(Vi, Yi, niter) for Vi, Yi in zip(V, krylov.scatter(sop, Y))], mesh, axis=1)
+
+    return _finalize(problem, _segment(problem, carry, config.kmax), lift)
 
 
 def solve_resumable(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None,

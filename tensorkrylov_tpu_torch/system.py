@@ -16,7 +16,9 @@ __all__ = ["random_rhs", "multiple_rhs", "TensorizedSystem", "solve_tensorized_s
 def random_rhs(d: int, n: int, seed: int = 0, identical: bool = True, dtype=torch.float64, device="cpu"):
     """Random rank-1 RHS factors (d, n), uniform [0, 1), drawn with numpy's
     generator exactly as the JAX package draws them, so both packages get the
-    identical b. identical=True replicates one draw across the d factors."""
+    identical b. identical=True replicates one draw across the d factors.
+    b is made on the CPU unless device says otherwise: the solvers move it to
+    the operator's device."""
     rng = np.random.default_rng(seed)
     if identical:
         b = np.broadcast_to(rng.random(n), (d, n)).copy()
@@ -27,7 +29,7 @@ def random_rhs(d: int, n: int, seed: int = 0, identical: bool = True, dtype=torc
 
 def multiple_rhs(dims, n: int, seed: int = 0, dtype=torch.float64, device="cpu"):
     """One random rank-1 RHS per problem dimension d in dims (the experiment
-    sweep helper)."""
+    sweep helper), on the CPU unless device says otherwise, as random_rhs."""
     return [random_rhs(d, n, seed=seed, dtype=dtype, device=device) for d in dims]
 
 

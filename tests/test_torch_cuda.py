@@ -15,6 +15,9 @@ from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
 from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
 from tensorkrylov_tpu_torch.ops.resident_lanczos import lanczos_resident_steps, lanczos_resident_steps_reference
 from tensorkrylov_tpu_torch.ops.resident_spmv import resident_spmv_plan, spmv_multi_apply, spmv_multi_apply_reference
+from tensorkrylov_tpu_torch.ops.ring_spmv import make_ring_spmv, ring_spmv_local, ring_spmv_reference
+from tensorkrylov_tpu_torch.parallel import gather, make_mesh, shard_operator, shard_rhs, solve_sharded
+from tensorkrylov_tpu_torch.parallel.halo import exchange_halos, spmv_sharded
 
 pytestmark = pytest.mark.cuda
 
@@ -76,7 +79,7 @@ def test_fused_recurrence_equals_cpu(cuda, basis_dtype):
     fused recurrence must give the same bits on the card as on the CPU."""
     from tensorkrylov_tpu_torch.ops.orth import init_state, lanczos_step
 
-    op = tkt.reaction_diffusion(3, 5000, 1e6)
+    op = tkt.reaction_diffusion(3, 5000, 1e6, device="cpu")
     b = tkt.random_rhs(3, 5000, seed=5, identical=False)
     out = {}
     for dev in ("cpu", cuda):
@@ -144,7 +147,7 @@ def test_resident_recurrence_equals_cpu(cuda):
     from tensorkrylov_tpu_torch.ops.orth import init_state
     from tensorkrylov_tpu_torch.solver import _resident_segment_update
 
-    op = tkt.reaction_diffusion(3, 5000, 1e6, dtype=torch.float32)
+    op = tkt.reaction_diffusion(3, 5000, 1e6, dtype=torch.float32, device="cpu")
     b = tkt.random_rhs(3, 5000, seed=5, identical=False)
     out = {}
     for dev in ("cpu", cuda):
@@ -266,3 +269,142 @@ def test_resident_spmv_rejects_bad_input(cuda):
         spmv_multi_apply(op, torch.ones((2, 128), dtype=torch.float32, device=cuda)[:, ::2], 2)
     with pytest.raises(ValueError):
         spmv_multi_apply(op, v, -1)
+
+
+RING_OFFSETS = {"tri": (-1, 0, 1), "penta": (-2, -1, 0, 1, 2), "wide": (-7, -2, 0, 3, 5)}
+
+
+def _ring_on(devices, op, v):
+    """The sharded ring SpMV of v over a mode mesh of the given devices:
+    (per-shard results, the sharded operator, the per-shard inputs)."""
+    mesh = make_mesh(devices=devices)
+    sop = shard_operator(op, mesh, "ring")
+    vs = shard_rhs(v, mesh)
+    return spmv_sharded(sop, vs), sop, vs
+
+
+@pytest.mark.parametrize("shape", ["dn", "dmn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("band", sorted(RING_OFFSETS))
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+def test_ring_kernel_equals_plain(cuda, P, band, dtype, shape):
+    """P shards of 1003 columns on cuda:0: one count per shard, and each
+    shard's result equals the plain version on the same halos, on the card
+    and on the CPU, bit for bit."""
+    offsets, d = RING_OFFSETS[band], 3
+    n = 1003 * P
+    op = _op(offsets, d, n, 21, dtype, cuda)
+    v = torch.randn((d, n) if shape == "dn" else (d, 4, n), dtype=dtype, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(22))
+    before = _build.launches["ring_spmv"]
+    got, sop, vs = _ring_on([cuda] * P, op, v)
+    torch.cuda.synchronize()
+    assert _build.launches["ring_spmv"] == before + P
+    halos, _ = exchange_halos(sop, vs)
+    torch.cuda.synchronize()
+    for sh, vi, (lh, rh), g in zip(sop.shards, vs, halos, got):
+        assert torch.equal(g, ring_spmv_reference(sh.op, vi, lh, rh))
+    on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * P), offsets)(op.bands.cpu(), v.cpu())
+    assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
+
+
+def test_ring_interiors_launch_before_edges(cuda, monkeypatch):
+    """The kernel's entry points are called as P interiors, then P edges, so
+    no interior is queued behind another shard's halo copies; one count per
+    shard."""
+    calls = []
+    lib = _build.kernels()
+
+    class Recorder:
+        def __getattr__(self, name):
+            if name.startswith("tk_ring_spmv_"):
+                calls.append(name.split("_")[3])
+            return getattr(lib, name)
+
+    monkeypatch.setattr(_build, "kernels", lambda: Recorder())
+    op = _op(RING_OFFSETS["penta"], 3, 4 * 1000, 29, torch.float64, cuda)
+    v = torch.randn((3, 4 * 1000), dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(30))
+    before = _build.launches["ring_spmv"]
+    got, sop, _ = _ring_on([cuda] * 4, op, v)
+    torch.cuda.synchronize()
+    assert calls == ["interior"] * 4 + ["edge"] * 4
+    assert _build.launches["ring_spmv"] == before + 4
+    on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * 4), RING_OFFSETS["penta"])(op.bands.cpu(),
+                                                                                               v.cpu())
+    assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ring_kernel_shard_exactly_halo_wide(cuda, dtype):
+    """8 shards of 7 columns with H = 7: every column is an edge column."""
+    offsets = RING_OFFSETS["wide"]
+    op = _op(offsets, 2, 56, 23, dtype, cuda)
+    v = torch.randn((2, 56), dtype=dtype, device=cuda, generator=torch.Generator(cuda).manual_seed(24))
+    got, sop, _ = _ring_on([cuda] * 8, op, v)
+    on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * 8), offsets)(op.bands.cpu(), v.cpu())
+    assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
+
+
+def test_ring_kernel_across_two_cards(cuda):
+    """4 shards alternating over two cards: the halos are peer copies."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    offsets = RING_OFFSETS["penta"]
+    op = _op(offsets, 3, 4 * 5000, 25, torch.float64, cuda)
+    v = torch.randn((3, 4 * 5000), dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(26))
+    devices = [torch.device("cuda", i % 2) for i in range(4)]
+    got, sop, _ = _ring_on(devices, op, v)
+    assert [g.device for g in got] == devices
+    on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * 4), offsets)(op.bands.cpu(), v.cpu())
+    assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("shape", [(4, 8000), (4, 3, 8000)])
+def test_gspmd_route_equals_unsharded_spmv(cuda, shape):
+    """Each shard's banded_spmv launch on its halo-extended slab gives the
+    unsharded kernel's bits."""
+    op = _op(RING_OFFSETS["penta"], 4, 8000, 27, torch.float64, cuda)
+    v = torch.randn(shape, dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(28))
+    mesh = make_mesh(devices=[cuda] * 4)
+    sop = shard_operator(op, mesh)
+    before = dict(_build.launches)
+    got = gather(spmv_sharded(sop, shard_rhs(v, mesh)), mesh)
+    torch.cuda.synchronize()
+    assert _build.launches["banded_spmv"] == before.get("banded_spmv", 0) + 4
+    assert _build.launches["ring_spmv"] == before.get("ring_spmv", 0)
+    assert torch.equal(got, spmv(op, v))
+
+
+@pytest.mark.parametrize("fp,comm,orth", [(1, "ring", "lanczos_reorth"), (1, "gspmd", "lanczos_reorth"),
+                                          (2, "ring", "lanczos_reorth"), (1, "ring", "arnoldi")])
+def test_solve_sharded_on_card_goes_through_kernel(cuda, fp, comm, orth):
+    """4 shards on the card: every SpMV of the ring route is 4 ring launches
+    and none of banded_spmv, and the reverse for gspmd; the traces agree
+    with the unsharded solve on the card."""
+    op = tkt.laplace(4, 400, shift=2e4, device=cuda)
+    b = tkt.random_rhs(4, 400, seed=7, device=cuda)
+    cfg = tkt.SolverConfig(kmax=60, tol=1e-8, orth=orth)
+    ref = tkt.solve(op, b, cfg)
+    _build.launches.clear()
+    res = solve_sharded(op, b, cfg, make_mesh(devices=[cuda] * 4, factor_parallel=fp), comm)
+    torch.cuda.synchronize()
+    k = res.niterations
+    kernel, other = ("ring_spmv", "banded_spmv") if comm == "ring" else ("banded_spmv", "ring_spmv")
+    assert _build.launches[kernel] == 4 * k and _build.launches[other] == 0
+    assert (res.status, k) == (ref.status, ref.niterations) and res.status == tkt.Status.CONVERGED
+    torch.testing.assert_close(res.relative_residual[1:k + 1], ref.relative_residual[1:k + 1], rtol=1e-8, atol=1e-12)
+    assert res.x.factors.device == ref.x.factors.device
+
+
+def test_ring_wrapper_rejects_bad_input(cuda):
+    op = _op((-1, 0, 1), 2, 64, 4, torch.float64, cuda)
+    v = torch.ones((2, 64), dtype=torch.float64, device=cuda)
+    halo = torch.zeros((2, 1), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        ring_spmv_local(op, v.float(), halo.float(), halo.float())
+    with pytest.raises(ValueError):
+        ring_spmv_local(op, v, torch.zeros((2, 2), dtype=torch.float64, device=cuda), halo)
+    with pytest.raises(ValueError):
+        ring_spmv_local(op, torch.ones((2, 128), dtype=torch.float64, device=cuda)[:, ::2], halo, halo)
+    with pytest.raises(ValueError):
+        ring_spmv_local(op, v, halo.cpu(), halo)

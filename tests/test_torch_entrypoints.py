@@ -29,7 +29,7 @@ def _solves(check_every):
     jb = tk.random_rhs(3, 30, seed=7)
     jb = jb / jnp.linalg.norm(jb, axis=1, keepdims=True)
     ref = tk.solve(tk.laplace(3, 30), jb, tk.SolverConfig(kmax=30, tol=1e-8, check_every=check_every))
-    res = tkt.solve(tkt.laplace(3, 30), torch.tensor(np.asarray(jb)),
+    res = tkt.solve(tkt.laplace(3, 30, device="cpu"), torch.tensor(np.asarray(jb)),
                     tkt.SolverConfig(kmax=30, tol=1e-8, check_every=check_every))
     return ref, res
 
@@ -72,14 +72,14 @@ def test_summarize_and_to_json_match_jax():
 def test_tensorized_system_matches_jax():
     b = tk.random_rhs(3, 30, seed=11)
     jsys = tk.TensorizedSystem.create(tk.laplace(3, 30), b)
-    sys_ = tkt.TensorizedSystem.create(tkt.laplace(3, 30), torch.tensor(np.asarray(b)))
+    sys_ = tkt.TensorizedSystem.create(tkt.laplace(3, 30, device="cpu"), torch.tensor(np.asarray(b)))
     assert repr(sys_) == repr(jsys) and (sys_.d, sys_.n) == (3, 30)
     np.testing.assert_allclose(sys_.b.numpy(), np.asarray(jsys.b), rtol=1e-15)
-    raw = tkt.TensorizedSystem.create(tkt.laplace(3, 30), torch.tensor(np.asarray(b)), normalize_rhs=False)
+    raw = tkt.TensorizedSystem.create(tkt.laplace(3, 30, device="cpu"), torch.tensor(np.asarray(b)), normalize_rhs=False)
     np.testing.assert_array_equal(raw.b.numpy(), np.asarray(b))
-    assert "nonsymmetric" in repr(tkt.TensorizedSystem.create(tkt.conv_diff(2, 8), torch.ones((2, 8))))
+    assert "nonsymmetric" in repr(tkt.TensorizedSystem.create(tkt.conv_diff(2, 8, device="cpu"), torch.ones((2, 8))))
     with pytest.raises(ValueError, match=r"b must be \(d, n\)"):
-        tkt.TensorizedSystem.create(tkt.laplace(3, 30), torch.ones((3, 29)))
+        tkt.TensorizedSystem.create(tkt.laplace(3, 30, device="cpu"), torch.ones((3, 29)))
 
     ref = tk.solve_tensorized_system(jsys, nmax=30, tol=1e-8)
     res = tkt.solve_tensorized_system(sys_, nmax=30, tol=1e-8)
@@ -189,7 +189,7 @@ def test_native_matches_plain_and_reuses_its_build(monkeypatch):
     from tensorkrylov_tpu_torch import native
     from tensorkrylov_tpu_torch.ops.banded import spmv_reference
 
-    op = tkt.conv_diff(3, 50)
+    op = tkt.conv_diff(3, 50, device="cpu")
     v = np.random.default_rng(3).standard_normal((3, 50))
     ref = spmv_reference(op, torch.tensor(v)).numpy()
     assert native.runtime() == "native", native.build_info
@@ -211,7 +211,7 @@ def test_reproduction_matches_jax(tmp_path, symmetric):
     """run_reproduction at dims (3,), n=30: same status and steps, traces to
     1e-10, ranks equal, and the JSON file written where out_dir says."""
     ref = jax_reproduction((3,), 30, symmetric=symmetric, verbose=False)[3]
-    res = run_reproduction((3,), 30, symmetric=symmetric, out_dir=str(tmp_path), verbose=False)[3]
+    res = run_reproduction((3,), 30, symmetric=symmetric, out_dir=str(tmp_path), verbose=False, device="cpu")[3]
     assert (res["status"], res["niterations"]) == (ref["status"], ref["niterations"]) == (1, 30)
     np.testing.assert_allclose(res["relative_residual"], ref["relative_residual"], rtol=TRACE_RTOL)
     assert res["expsum_rank"] == ref["expsum_rank"]
@@ -222,5 +222,13 @@ def test_reproduction_matches_jax(tmp_path, symmetric):
 
 def test_reproduction_writes_nothing_by_default(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    res = run_reproduction((2,), 12, verbose=False)
+    res = run_reproduction((2,), 12, verbose=False, device="cpu")
     assert res[2]["status"] == 1 and not list(tmp_path.iterdir())
+
+
+def test_reproduction_default_device_is_the_card(monkeypatch):
+    """Without device, the sweep runs on the CUDA device; without a card it
+    raises and names device="cpu" instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        run_reproduction(dims=(2,), n=8, verbose=False)

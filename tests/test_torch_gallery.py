@@ -18,7 +18,7 @@ from tensorkrylov_tpu.utils import cp as jcp
 ])
 def test_gallery_matches_jax(name, args):
     jop = getattr(tk, name)(*args)
-    op = getattr(tkt, name)(*args)
+    op = getattr(tkt, name)(*args, device="cpu")
     assert op.offsets == jop.offsets and op.symmetric == jop.symmetric
     assert op.bands.dtype == torch.float64
     np.testing.assert_array_equal(op.bands.numpy(), np.asarray(jop.bands))
@@ -30,10 +30,21 @@ def test_dense_bands_round_trip_matches_jax():
     jbands, joffsets = jgallery.dense_to_bands(mats)
     assert offsets == joffsets
     np.testing.assert_array_equal(bands, jbands)
-    op = tkt.operator_from_dense_factors(mats, symmetric=False)
+    op = tkt.operator_from_dense_factors(mats, symmetric=False, device="cpu")
     np.testing.assert_array_equal(tkt.bands_to_dense(op), mats)
     with pytest.raises(ValueError, match="different sizes"):
-        tkt.operator_from_dense_factors([np.eye(3), np.eye(4)], symmetric=True)
+        tkt.operator_from_dense_factors([np.eye(3), np.eye(4)], symmetric=True, device="cpu")
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """The constructors make their operator on the CUDA device unless asked
+    for the CPU; without a card the default raises and names device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda **kw: tkt.laplace(3, 8, **kw), lambda **kw: tkt.conv_diff(2, 8, **kw),
+                 lambda **kw: tkt.eigval_matrix(np.arange(1.0, 9.0), d=2, **kw)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+        assert make(device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("identical", [True, False])
@@ -51,7 +62,7 @@ def test_cp_oracles_match_jax():
     np.testing.assert_allclose(float(tkt.cp_dot(x, y)), float(jcp.cp_dot(jx, jy)), rtol=1e-13)
     np.testing.assert_allclose(float(tkt.cp_norm(x)), float(jcp.cp_norm(jx)), rtol=1e-13)
     np.testing.assert_allclose(tkt.cp_full(x), jcp.cp_full(jx), rtol=1e-13)
-    op, jop = tkt.laplace(3, 5), tk.laplace(3, 5)
+    op, jop = tkt.laplace(3, 5, device="cpu"), tk.laplace(3, 5)
     v = rng.standard_normal(125)
     np.testing.assert_allclose(tkt.kron_matvec_dense(op, v), jcp.kron_matvec_dense(jop, v), rtol=1e-13)
     b = rng.random((3, 5))

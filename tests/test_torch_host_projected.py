@@ -146,7 +146,7 @@ def test_resident_fallbacks_recorded(fields, n, resolved):
     expects 'xla' at n=100, since its TPU kernel needs n % 128 == 0), the port
     runs the kernel: the CUDA kernel masks its loads and takes any n. An f64
     basis or a reorthogonalized recurrence still falls back, recorded."""
-    op = tkt.laplace(2, n, shift=100.0)
+    op = tkt.laplace(2, n, shift=100.0, device="cpu")
     b = tkt.random_rhs(2, n, seed=3)
     r = tkt.solve_host_projected(op, b, tkt.SolverConfig(kmax=4, tol=1e-30, check_every=2, step_impl="resident",
                                                          spectral_source="H", **fields))

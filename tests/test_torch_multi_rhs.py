@@ -25,7 +25,7 @@ FIELDS = ("relative_residual", "projected_residual", "lambda_min", "lambda_max")
 def _rank2():
     d, n, R = 3, 20, 2
     B = np.random.default_rng(21).standard_normal((R, d, n))
-    return tkt.laplace(d, n), B
+    return tkt.laplace(d, n, device="cpu"), B
 
 
 @pytest.fixture(scope="module")
@@ -92,12 +92,12 @@ def test_multi_rhs_rejects_bad_input():
     with pytest.raises(ValueError, match=r"B must be \(R, d, n\)"):
         tkt.solve_multi_rhs(op, torch.tensor(B[0]))
     with pytest.raises(ValueError, match="orth='arnoldi'"):
-        tkt.solve_multi_rhs(tkt.conv_diff(3, 20), torch.tensor(B))
+        tkt.solve_multi_rhs(tkt.conv_diff(3, 20, device="cpu"), torch.tensor(B))
 
 
 def _problem():
     b = tkt.random_rhs(3, 30, seed=17)
-    return tkt.laplace(3, 30), b / torch.linalg.vector_norm(b, dim=1, keepdim=True), tkt.SolverConfig(kmax=30, tol=1e-8)
+    return tkt.laplace(3, 30, device="cpu"), b / torch.linalg.vector_norm(b, dim=1, keepdim=True), tkt.SolverConfig(kmax=30, tol=1e-8)
 
 
 def _assert_same_bits(a, b):
@@ -136,7 +136,7 @@ def test_resumable_matches_jax():
     jb = tk.random_rhs(3, 30, seed=17)
     jb = jb / jnp.linalg.norm(jb, axis=1, keepdims=True)
     ref = jax_solve_resumable(tk.laplace(3, 30), jb, tk.SolverConfig(kmax=30, tol=1e-8), chunk=7)
-    res = tkt.solve_resumable(tkt.laplace(3, 30), torch.tensor(np.asarray(jb)), tkt.SolverConfig(kmax=30, tol=1e-8),
+    res = tkt.solve_resumable(tkt.laplace(3, 30, device="cpu"), torch.tensor(np.asarray(jb)), tkt.SolverConfig(kmax=30, tol=1e-8),
                               chunk=7)
     assert (res.status, res.niterations) == (int(ref.status), int(ref.niterations))
     for f in FIELDS:

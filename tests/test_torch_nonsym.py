@@ -73,7 +73,7 @@ def test_arnoldi_lucky_restart_matches_jax():
 @pytest.mark.parametrize("fields", [dict(), dict(c=3.0, shift=17.5)], ids=["default", "c3_shift"])
 def test_conv_diff_bands_equal_jax(fields):
     jop = tk.conv_diff(3, 17, **fields)
-    op = tkt.conv_diff(3, 17, **fields)
+    op = tkt.conv_diff(3, 17, **fields, device="cpu")
     assert op.offsets == jop.offsets and not op.symmetric and not jop.symmetric
     np.testing.assert_array_equal(op.bands.numpy(), np.asarray(jop.bands))
 
@@ -81,11 +81,11 @@ def test_conv_diff_bands_equal_jax(fields):
 def test_eigval_matrix_equals_jax():
     ev = np.linspace(0.5, 4.0, 11)
     for args in ((ev, 3), (np.stack([ev, 2 * ev]), None)):
-        jop, op = tk.eigval_matrix(*args), tkt.eigval_matrix(*args)
+        jop, op = tk.eigval_matrix(*args), tkt.eigval_matrix(*args, device="cpu")
         assert op.offsets == jop.offsets == (0,) and op.symmetric
         np.testing.assert_array_equal(op.bands.numpy(), np.asarray(jop.bands))
     with pytest.raises(ValueError, match="pass d"):
-        tkt.eigval_matrix(ev)
+        tkt.eigval_matrix(ev, device="cpu")
 
 
 @functools.lru_cache(maxsize=1)

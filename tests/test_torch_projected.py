@@ -61,7 +61,7 @@ def test_masked_eigh_matches_jax(k):
 
 
 def test_dense_minor_window_and_analytic_extremes_match_jax():
-    op = rand_spd(2, 9, seed=1)  # the port's gallery draws as the JAX package's does
+    op = rand_spd(2, 9, seed=1, device="cpu")  # the port's gallery draws as the JAX package's does
     jop = tk.KroneckerSumOperator(jnp.asarray(op.bands.numpy()), op.offsets, True)
     jwindow = jax.jit(jeigen.dense_minor_window, static_argnums=1)
     for K in (4, 9, 12):

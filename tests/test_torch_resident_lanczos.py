@@ -88,7 +88,7 @@ def test_freeze_below_threshold():
     diagonal factor) gives u = 0 exactly: a zero column, β' = 0, and every
     later step stays zero; the other factor runs on."""
     d, n = 2, 16
-    op = tkt.eigval_matrix(np.stack([np.arange(1.0, n + 1), np.linspace(1.0, 3.0, n)]), dtype=F32)
+    op = tkt.eigval_matrix(np.stack([np.arange(1.0, n + 1), np.linspace(1.0, 3.0, n)]), dtype=F32, device="cpu")
     vp = torch.zeros((d, n), dtype=F32)
     vp[0, 3] = 1.0
     vp[1] = 1.0 / np.sqrt(n)
@@ -100,7 +100,7 @@ def test_freeze_below_threshold():
 
 
 def test_out_argument_writes_in_place():
-    op = tkt.laplace(2, 64, shift=3.0, dtype=F32)
+    op = tkt.laplace(2, 64, shift=3.0, dtype=F32, device="cpu")
     vp, vpp, beta = (torch.tensor(x) for x in _start(2, 64, 6))
     V = torch.zeros((6, 2, 64), dtype=F32)
     got = lanczos_resident_steps(op, vp, vpp, beta, 4, out=V[1:5])
@@ -110,7 +110,7 @@ def test_out_argument_writes_in_place():
 
 
 def test_other_devices_raise_and_cpu_counts_no_launch():
-    op = tkt.laplace(2, 8, dtype=F32)
+    op = tkt.laplace(2, 8, dtype=F32, device="cpu")
     meta = torch.empty((2, 8), dtype=F32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         lanczos_resident_steps(op, meta, meta, torch.empty(2, dtype=F32, device="meta"), 2)
@@ -129,8 +129,8 @@ def test_other_devices_raise_and_cpu_counts_no_launch():
     (dict(orth="arnoldi", basis_dtype=F32), "conv_diff", False),
 ])
 def test_eligibility_rules(fields, op_kind, eligible):
-    op = {"laplace": tkt.laplace(2, 128), "laplace_n100": tkt.laplace(2, 100),
-          "conv_diff": tkt.conv_diff(2, 128)}[op_kind]
+    op = {"laplace": tkt.laplace(2, 128, device="cpu"), "laplace_n100": tkt.laplace(2, 100, device="cpu"),
+          "conv_diff": tkt.conv_diff(2, 128, device="cpu")}[op_kind]
     cfg = tkt.SolverConfig(step_impl="resident", **fields)
     assert _resident_eligible(cfg, op) == eligible
     assert _resolve_config(cfg, op, host_projected=True).step_impl == ("resident" if eligible else "xla")

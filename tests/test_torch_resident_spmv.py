@@ -80,7 +80,7 @@ def test_zero_applies_copy_v():
 def test_plain_version_is_m_plain_spmvs(dtype):
     """Bit for bit: m calls of spmv_reference, each product times the scale
     rounded to v's dtype first (0.1 is not exact in either type)."""
-    op = tkt.conv_diff(3, 97, dtype=dtype)
+    op = tkt.conv_diff(3, 97, dtype=dtype, device="cpu")
     v = torch.tensor(np.random.default_rng(4).standard_normal((3, 97)), dtype=dtype)
     c = float(torch.tensor(0.1 / 97**2, dtype=dtype))
     x = v
@@ -93,6 +93,6 @@ def test_plain_version_is_m_plain_spmvs(dtype):
 
 
 def test_other_devices_raise():
-    op = tkt.laplace(2, 16)
+    op = tkt.laplace(2, 16, device="cpu")
     with pytest.raises(ValueError, match="cuda or cpu"):
         spmv_multi_apply(op, torch.empty((2, 16), dtype=torch.float64, device="meta"), 2)

@@ -34,7 +34,7 @@ def test_golden_trace():
     """Same checks as tests/test_golden.py: status, niterations, trace to rtol 1e-6."""
     with open(GOLDEN) as f:
         g = json.load(f)
-    op = tkt.laplace(g["d"], g["n"])
+    op = tkt.laplace(g["d"], g["n"], device="cpu")
     b = tkt.random_rhs(g["d"], g["n"], seed=g["seed"])
     b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
     res = tkt.solve(op, b, tkt.SolverConfig(kmax=g["n"], tol=g["tol"], orth=g["orth"]))
@@ -96,7 +96,7 @@ def test_fused_trace_depends_on_sum_order(monkeypatch):
     29, while the spectra still agree."""
     n = 4096
     lmin, lmax = (4.0 * (n + 1) ** 2 * np.sin(j * np.pi / (2 * (n + 1))) ** 2 for j in (1, n))
-    op = tkt.reaction_diffusion(10, n, (lmax - 1e2 * lmin) / (1e2 - 1.0))  # factor κ = 1e2
+    op = tkt.reaction_diffusion(10, n, (lmax - 1e2 * lmin) / (1e2 - 1.0), device="cpu")  # factor κ = 1e2
     b = tkt.random_rhs(10, n, seed=1234)
     b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
     cfg = tkt.SolverConfig(kmax=40, tol=1e-8, orth="lanczos_reorth_auto", step_impl="fused")
@@ -113,7 +113,7 @@ def test_fused_trace_depends_on_sum_order(monkeypatch):
 
 
 def test_dense_oracle_residual():
-    op = tkt.laplace(3, 30)
+    op = tkt.laplace(3, 30, device="cpu")
     b = tkt.random_rhs(3, 30, seed=7)
     b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
     launches = dict(_build.launches)
@@ -127,13 +127,13 @@ def test_dense_oracle_residual():
 
 def test_wrong_shape_b_raises():
     with pytest.raises(ValueError, match=r"b must be \(d, n\)"):
-        tkt.solve(tkt.laplace(3, 10), torch.ones((3, 11), dtype=torch.float64))
+        tkt.solve(tkt.laplace(3, 10, device="cpu"), torch.ones((3, 11), dtype=torch.float64))
 
 
 @pytest.mark.parametrize("orth,error", [("lanczos_reorth", ValueError), ("lanczos", ValueError)])
 def test_nonsymmetric_operator_raises(orth, error):
     """A nonsymmetric operator needs orth='arnoldi', in both entry points."""
-    op = dataclasses.replace(tkt.laplace(2, 10), symmetric=False)
+    op = dataclasses.replace(tkt.laplace(2, 10, device="cpu"), symmetric=False)
     for entry in (tkt.solve, tkt.solve_host_projected):
         with pytest.raises(error, match="orth='arnoldi'"):
             entry(op, torch.ones((2, 10), dtype=torch.float64), tkt.SolverConfig(orth=orth))
@@ -148,7 +148,7 @@ def test_nonsymmetric_operator_raises(orth, error):
 ])
 def test_unsupported_options_raise(fields, error):
     fields = dict(fields)
-    op = dataclasses.replace(tkt.laplace(2, 10), symmetric=fields.pop("symmetric", True))
+    op = dataclasses.replace(tkt.laplace(2, 10, device="cpu"), symmetric=fields.pop("symmetric", True))
     b = torch.tensor(np.random.default_rng(0).random((2, 10)))
     with pytest.raises(error):
         tkt.solve(op, b, tkt.SolverConfig(**fields))
@@ -164,14 +164,14 @@ def test_unsupported_options_raise(fields, error):
     (dict(kmax=50), dict(kmax=12)),
 ])
 def test_resolved_config_is_recorded(fields, resolved):
-    op = tkt.laplace(2, 12)
+    op = tkt.laplace(2, 12, device="cpu")
     res = tkt.solve(op, tkt.random_rhs(2, 12, seed=1), tkt.SolverConfig(tol=1e-8, **fields))
     for f, v in resolved.items():
         assert getattr(res.config, f) == v
 
 
 def test_debug_prints_each_check(capsys):
-    res = tkt.solve(tkt.laplace(2, 12), tkt.random_rhs(2, 12, seed=1),
+    res = tkt.solve(tkt.laplace(2, 12, device="cpu"), tkt.random_rhs(2, 12, seed=1),
                     tkt.SolverConfig(tol=1e-8, check_every=2, debug=True))
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("k=")]
     assert len(lines) == (res.niterations + 1) // 2 and "rel_res=" in lines[-1]
@@ -191,7 +191,9 @@ def test_import_leaves_jax_out():
             " tensorkrylov_tpu_torch.bench, tensorkrylov_tpu_torch.native, tensorkrylov_tpu_torch.__main__,"
             " tensorkrylov_tpu_torch.convergence, tensorkrylov_tpu_torch.system,"
             " tensorkrylov_tpu_torch.experiments.reproduction, tensorkrylov_tpu_torch.ops.resident_spmv,"
-            " tensorkrylov_tpu_torch.utils.checkpoint;"
+            " tensorkrylov_tpu_torch.utils.checkpoint, tensorkrylov_tpu_torch.ops.ring_spmv,"
+            " tensorkrylov_tpu_torch.parallel, tensorkrylov_tpu_torch.parallel.sharding,"
+            " tensorkrylov_tpu_torch.parallel.halo, tensorkrylov_tpu_torch.parallel.krylov;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tensorkrylov_tpu.'))"
             " or m == 'tensorkrylov_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
