@@ -8,10 +8,12 @@ Phases, one output line each:
   2. build   — nvcc builds the kernels in tensorkrylov_tpu_torch/ops/csrc;
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                (the SpMV and the fused core in f64 and f32; the resident
-               multi-step Lanczos kernel in f32, 8 steps from β = 0; the
-               SpMV and 32 resident steps on the bench's own d=8, n=2^20
-               f32 inputs, bit for bit; the multi-apply SpMV in f64 and f32,
-               200 applies, at the bench's d=8, n=2^20 and on distinct
+               multi-step Lanczos kernel in f32, 8 steps from β = 0, bit for
+               bit, at the cluster size G its plan picks and at every G of
+               1, 2, 4, 8, 16, each timed; the SpMV and 32 resident steps on
+               the bench's own d=8, n=2^20 f32 inputs, bit for bit, with the
+               same G sweep; the multi-apply SpMV in f64 and f32, 200
+               applies, at the bench's d=8, n=2^20 and on distinct
                pentadiagonal factors);
   4. golden  — tests/golden_laplace_d4_n100.json reproduced on the card, and the
                dense-oracle residual at d=3, n=30;
@@ -32,13 +34,18 @@ Phases, one output line each:
                d = 5, n=200); solve_multi_rhs (R=2) and solve_resumable
                (kmax=40, checkpointed and resumed) on the slice's problem,
                each equal to solve() bit for bit;
-  9. sharded — the ring kernel against its plain version on reaction_diffusion(d=10,
-               n=131072) split into 4 mode shards on the card (f64 and f32, (d, n)
-               and (d, m, n), limit 0.0), timed beside the interior launches alone,
-               the unsharded banded_spmv and a torch.sparse CSR matvec; then
+  9. sharded — the ring kernel, one launch for the 4 mode shards of
+               reaction_diffusion(d=10, n=131072) on the card, against its plain
+               version (the halo exchange, then ring_spmv_reference per shard; f64
+               and f32, (d, n) and (d, m, n), limit 0.0), timed beside the same call
+               captured in a CUDA graph and replayed (its launch without the host's
+               Python), the gspmd route, the unsharded banded_spmv and a
+               torch.sparse CSR matvec; then
                solve_sharded on the slice's problem four ways (4 mode shards with
                comm='ring' and 'gspmd', a 2 x 2 factor-parallel mesh, Arnoldi), each
-               held against the unsharded solve on the card, with the launch counts.
+               held against the unsharded solve on the card, with the launch counts:
+               one ring launch per step (all shards share the card), or 4
+               banded_spmv launches per step on the gspmd route.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -73,6 +80,7 @@ ROUTE_LAMBDA_RTOL = 1e-4  # resident vs unfused route: λ_min, λ_max traces (tw
 # first run on the card), so the bound is 1.0: the same order of magnitude at every check
 ROUTE_TRACE_RTOL = 1.0
 STEPS = 8                 # resident kernel steps per call in phase 3
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the resident kernel's blocks per factor, swept in phase 3
 BENCH_STEPS = 32          # resident kernel steps per call at the bench's shape: the bench's longest call
 RESIDENT_SPMV_APPLIES = 200  # applies per multi-apply call in phase 3: the bench's m1
 SHARDS = 4                # mode shards of phase 9, all on cuda:0
@@ -226,11 +234,31 @@ def phase_build():
          library=os.path.relpath(_build.build_info["path"], REPO), ptxas=report)
 
 
+@contextlib.contextmanager
+def resident_setting(G=None, u_shared_bytes=None):
+    """Within the block, the resident kernel launches with G blocks per factor
+    whatever its plan says, and/or keeps u in shared memory only where it fits
+    in u_shared_bytes (0: never): module settings of ops/resident_lanczos.py,
+    restored after."""
+    from tensorkrylov_tpu_torch.ops import resident_lanczos as rl
+
+    saved = rl.resident_lanczos_plan, rl.U_SHARED_BYTES
+    if G is not None:
+        rl.resident_lanczos_plan = lambda d, n, device=None: G
+    if u_shared_bytes is not None:
+        rl.U_SHARED_BYTES = u_shared_bytes
+    try:
+        yield
+    finally:
+        rl.resident_lanczos_plan, rl.U_SHARED_BYTES = saved
+
+
 def phase_kernels(tkt):
     from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
     from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
+    from tensorkrylov_tpu_torch.ops import resident_lanczos
     from tensorkrylov_tpu_torch.ops.resident_lanczos import (
-        ResidentSteps, lanczos_resident_steps, lanczos_resident_steps_reference)
+        ResidentSteps, lanczos_resident_steps, lanczos_resident_steps_reference, resident_lanczos_plan)
 
     dev = torch.device("cuda")
     scaled_laplace = tkt.laplace(10, 131072, device=dev)
@@ -263,21 +291,23 @@ def phase_kernels(tkt):
                 require(err <= limit, f"fused_lanczos {case} {dtype} {name}: {err} > {limit}")
             if case.startswith("d10") and dtype == torch.float64:
                 worst["fused_lanczos"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-        # the resident kernel takes f32 only: STEPS steps from a unit start, vpp = 0, β = 0
+        # the resident kernel takes f32 only: STEPS steps from a unit start, vpp = 0, β = 0,
+        # bit for bit at the plan's cluster size and at every other
         op = op64.astype(torch.float32)
         vp = unit_rows(np.random.default_rng(13), (op.d, op.n), torch.float32, dev)
         start = (vp, torch.zeros_like(vp), torch.zeros(op.d, dtype=torch.float32, device=dev))
-        got = lanczos_resident_steps(op, *start, STEPS)
         ref = lanczos_resident_steps_reference(op, *start, STEPS)
-        torch.cuda.synchronize()
-        limit = LIMITS[torch.float32]
-        for name, g, r in zip(ResidentSteps._fields, got, ref):
-            err = rel_err(g, r)
-            checks.append(dict(kernel="resident_lanczos", case=case, dtype="float32", S=STEPS, out=name, err=err,
-                               limit=limit))
-            require(err <= limit, f"resident_lanczos {case} {name}: {err} > {limit}")
-        if case.startswith("d10"):
-            worst["resident_lanczos"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        plan = resident_lanczos_plan(op.d, op.n, dev)
+        for G in (None,) + CLUSTER_SIZES:
+            with resident_setting(G):
+                got = lanczos_resident_steps(op, *start, STEPS)
+            torch.cuda.synchronize()
+            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            checks.append(dict(kernel="resident_lanczos", case=case, dtype="float32", S=STEPS,
+                               G=plan if G is None else G, max_abs_err=err, limit=0.0))
+            require(err == 0.0, f"resident_lanczos {case} G={G or plan}: error {err}")
+            if case.startswith("d10") and G is None:
+                worst["resident_lanczos"] = err
 
     # times at the main path's shape and dtype: d=10, n=131072, tridiagonal, f64
     op = cases["d10_n131072_tridiag"]
@@ -294,6 +324,21 @@ def phase_kernels(tkt):
     start = (v.float(), torch.zeros_like(v, dtype=torch.float32), torch.zeros(10, dtype=torch.float32, device=dev))
     times["resident_lanczos"] = time_pair(lambda: lanczos_resident_steps_reference(op32, *start, STEPS),
                                           lambda: lanczos_resident_steps(op32, *start, STEPS), reps=50, warm=5)
+    resident_g = dict(plan=resident_lanczos_plan(10, 131072, dev),
+                      clusters_that_fit={G: resident_lanczos._max_active_clusters(
+                                          G, dev.index or 0, resident_lanczos._u_bytes(131072, G))
+                                          for G in CLUSTER_SIZES})
+    # at every G, with u in shared memory where it fits (the kernel's choice) and always in the scratch
+    # row (L2): the same bits, timed
+    ref32 = lanczos_resident_steps(op32, *start, STEPS)
+    for key, u_bytes in (("ms", None), ("ms_u_in_l2", 0)):
+        resident_g[key] = {}
+        for G in CLUSTER_SIZES:
+            with resident_setting(G, u_bytes):
+                got = lanczos_resident_steps(op32, *start, STEPS)
+                require(all(torch.equal(g, r) for g, r in zip(got, ref32)),
+                        f"resident_lanczos G={G} {key}: the bits differ")
+                resident_g[key][G] = time_one(lambda: lanczos_resident_steps(op32, *start, STEPS), reps=50, warm=5)
     e, d, n, nb = 8, 10, 131072, len(op.offsets)
     sp_bytes, sp_flops = spmv_work(op, v)
     nnz = op.nnz_per_factor
@@ -312,7 +357,8 @@ def phase_kernels(tkt):
     emit("kernels", ok=True, checks=checks,
          ms_at_d10_n131072={k: {"kernel": t[0], "plain": t[1], "dtype": "float32" if k == "resident_lanczos"
                                 else "float64"} for k, t in times.items() if k != "resident_spmv"},
-         resident_steps_per_call=STEPS, ms_at_bench_shape=bench_shape, resident_spmv=resident_spmv, bounds=extra)
+         resident_steps_per_call=STEPS, resident_cluster_d10_n131072=resident_g, ms_at_bench_shape=bench_shape,
+         resident_spmv=resident_spmv, bounds=extra)
     return worst, times, extra
 
 
@@ -320,11 +366,12 @@ def phase_kernels_bench_shape(checks):
     """The SpMV and the resident Lanczos kernel on the bench's own inputs
     (d=8 tridiagonal laplace, n=2^20, f32): one SpMV of the bench's v, and
     BENCH_STEPS resident steps from the bench's unit start, each against its
-    plain version bit for bit; timed there."""
+    plain version bit for bit (the resident kernel at its plan's cluster size
+    and at every other); timed there."""
     from tensorkrylov_tpu_torch import bench
     from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
     from tensorkrylov_tpu_torch.ops.resident_lanczos import (
-        ResidentSteps, lanczos_resident_steps, lanczos_resident_steps_reference)
+        ResidentSteps, lanczos_resident_steps, lanczos_resident_steps_reference, resident_lanczos_plan)
 
     dev = torch.device("cuda")
     op, v, _ = bench._spmv_problem(dev, bench.SPMV_D, bench.SPMV_N)
@@ -337,20 +384,30 @@ def phase_kernels_bench_shape(checks):
     require(err == 0.0, f"banded_spmv {case}: error {err}")
     vp = bench._unit_start(bench.SPMV_D, bench.SPMV_N, dev)
     start = (vp, torch.zeros_like(vp), torch.zeros(bench.SPMV_D, dtype=torch.float32, device=dev))
-    got = lanczos_resident_steps(op, *start, BENCH_STEPS)
     ref = lanczos_resident_steps_reference(op, *start, BENCH_STEPS)
-    torch.cuda.synchronize()
-    for name, g, r in zip(ResidentSteps._fields, got, ref):
-        err = float((g - r).abs().max())
-        checks.append(dict(kernel="resident_lanczos", case=case, dtype="float32", S=BENCH_STEPS, out=name,
-                           max_abs_err=err, limit=0.0))
-        require(err == 0.0 and bool(torch.isfinite(g).all()), f"resident_lanczos {case} {name}: error {err}")
-    del got, ref
+    plan = resident_lanczos_plan(bench.SPMV_D, bench.SPMV_N, dev)
+    for G in (None,) + CLUSTER_SIZES:
+        with resident_setting(G):
+            got = lanczos_resident_steps(op, *start, BENCH_STEPS)
+        torch.cuda.synchronize()
+        for name, g, r in zip(ResidentSteps._fields, got, ref):
+            err = float((g - r).abs().max())
+            checks.append(dict(kernel="resident_lanczos", case=case, dtype="float32", S=BENCH_STEPS, out=name,
+                               G=plan if G is None else G, max_abs_err=err, limit=0.0))
+            require(err == 0.0 and bool(torch.isfinite(g).all()),
+                    f"resident_lanczos {case} G={G or plan} {name}: error {err}")
+        del got
+    del ref
     spmv_ms = time_pair(lambda: spmv_reference(op, v), lambda: spmv(op, v))
     res_ms = time_pair(lambda: lanczos_resident_steps_reference(op, *start, BENCH_STEPS),
                        lambda: lanczos_resident_steps(op, *start, BENCH_STEPS), reps=3, warm=1)
+    sweep = {}
+    for G in CLUSTER_SIZES:
+        with resident_setting(G):
+            sweep[G] = time_one(lambda: lanczos_resident_steps(op, *start, BENCH_STEPS), reps=3, warm=1)
     return {"banded_spmv": {"kernel": spmv_ms[0], "plain": spmv_ms[1]},
-            f"resident_lanczos_S{BENCH_STEPS}": {"kernel": res_ms[0], "plain": res_ms[1]}}
+            f"resident_lanczos_S{BENCH_STEPS}": {"kernel": res_ms[0], "plain": res_ms[1], "G": plan,
+                                                "ms_by_G": sweep}}
 
 
 def phase_kernels_resident_spmv(tkt, checks, worst, times, extra):
@@ -758,23 +815,34 @@ SHARDED_SOLVES = {  # name: (factor_parallel, comm, extra SolverConfig fields)
 
 
 def plain_sharded(sop, vs):
-    """The ring route's plain version on the card: the same exchange, then
-    ring_spmv_reference on every shard once its halos have arrived."""
+    """The ring route's plain version on the card: the halo exchange (copies
+    on the current stream), then ring_spmv_reference on every shard."""
     from tensorkrylov_tpu_torch.ops.ring_spmv import ring_spmv_reference
     from tensorkrylov_tpu_torch.parallel.halo import exchange_halos
 
-    halos, events = exchange_halos(sop, vs)
-    out = []
-    for sh, v, (lh, rh), ev in zip(sop.shards, vs, halos, events):
-        torch.cuda.current_stream(sh.device).wait_event(ev)
-        out.append(ring_spmv_reference(sh.op, v, lh, rh))
-    return out
+    halos, _ = exchange_halos(sop, vs)
+    return [ring_spmv_reference(sh.op, v, lh, rh) for sh, v, (lh, rh) in zip(sop.shards, vs, halos)]
+
+
+def graph_replay_ms(fn, ref):
+    """ms per replay of fn's work captured in a CUDA graph: its launches
+    without the host's Python around them, after checking that a replay
+    gives ref's bits."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(out, ref)), "a replayed graph differs from the call")
+    return time_one(graph.replay)
 
 
 def phase_sharded(tkt):
-    """The mode-sharded solve on 4 shards of cuda:0: the ring kernel against
-    its plain version and timed; then solve_sharded four ways against the
-    unsharded solve, each with the launch counts set to 0 just before it."""
+    """The mode-sharded solve on 4 shards of cuda:0: the ring kernel (one
+    launch for the 4 shards) against its plain version and timed; then
+    solve_sharded four ways against the unsharded solve, each with the launch
+    counts set to 0 just before it."""
     from tensorkrylov_tpu_torch.ops import _build
     from tensorkrylov_tpu_torch.ops.banded import spmv
     from tensorkrylov_tpu_torch.parallel import gather, make_mesh, shard_operator, shard_rhs, solve_sharded
@@ -792,39 +860,33 @@ def phase_sharded(tkt):
         for shape in ((10, n), (10, 4, n)):
             v = unit_rows(rng, shape, dtype, dev)
             vs = shard_rhs(v, mesh)
-            got, ref = spmv_sharded(sop, vs), plain_sharded(sop, vs)
+            _build.launches.clear()
+            got = spmv_sharded(sop, vs)
+            call_launches = dict(_build.launches)
+            ref = plain_sharded(sop, vs)
             torch.cuda.synchronize()
             err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
             whole = rel_err(gather(got, mesh), spmv(op, v))
             checks.append(dict(kernel="ring_spmv", dtype=str(dtype)[6:], v=list(shape), shards=SHARDS,
-                               max_abs_err=err, limit=0.0, vs_unsharded_rel=whole, unsharded_limit=LIMITS[dtype]))
+                               launches=call_launches, max_abs_err=err, limit=0.0, vs_unsharded_rel=whole,
+                               unsharded_limit=LIMITS[dtype]))
+            require(call_launches == {"ring_spmv": 1}, f"ring_spmv {dtype} {shape}: launches {call_launches}")
             require(err == 0.0, f"ring_spmv {dtype} {shape}: error {err} against its plain version")
             require(whole <= LIMITS[dtype], f"ring_spmv {dtype} {shape}: {whole} from the unsharded SpMV")
 
-    # times at the main path's shape and dtype: f64, (d, n), 4 shards
-    lib = _build.kernels()
+    # times at the main path's shape and dtype: f64, (d, n), 4 shards; the bound counts
+    # bands and v read once and u written once (the edges read in place are v's)
     sop = shard_operator(op64, mesh, "ring")
     v = unit_rows(rng, (10, n), torch.float64, dev)
     vs = shard_rhs(v, mesh)
-    outs = [torch.empty_like(x) for x in vs]
-
-    def interiors():  # the interior launches alone, no exchange and no edge
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for sh, x, o in zip(sop.shards, vs, outs):
-            lib.tk_ring_spmv_interior_f64(sh.op.bands.data_ptr(), sh.op.offsets_tensor.data_ptr(), x.data_ptr(),
-                                          o.data_ptr(), sh.op.d, len(sh.op.offsets), 1, x.shape[-1], stream)
-
     ring_ms, plain_ms = time_pair(lambda: plain_sharded(sop, vs), lambda: spmv_sharded(sop, vs))
+    graph_ms = graph_replay_ms(lambda: spmv_sharded(sop, vs), spmv_sharded(sop, vs))
     gspmd = shard_operator(op64, mesh, "gspmd")
     nbytes, flops = spmv_work(op64, v)
-    H = sop.halo
-    nbytes += 2 * 2 * (SHARDS - 1) * 10 * H * 8     # each halo column read from a neighbour and written
-    times = dict(ring_ms=ring_ms, plain_ms=plain_ms, interior_only_ms=time_one(interiors),
+    times = dict(ring_ms=ring_ms, plain_ms=plain_ms, graph_replay_ms=graph_ms, wrapper_ms=ring_ms - graph_ms,
                  gspmd_route_ms=time_one(lambda: spmv_sharded(gspmd, vs)),
                  unsharded_banded_spmv_ms=time_one(lambda: spmv(op64, v)),
                  library_ms=library_spmv_ms(op64, v, spmv(op64, v)), **bound(nbytes, flops, torch.float64))
-    times["exchange_and_edges_ms"] = times["ring_ms"] - times["interior_only_ms"]
-    del outs
 
     # the slice's problem through solve_sharded, each held against the unsharded solve
     refs, unsharded = {}, {}
@@ -857,9 +919,11 @@ def phase_sharded(tkt):
         x = res.x.factors
         require(tuple(x.shape) == (10, n, cfg.tmax) and bool(torch.isfinite(x).all()) and x.device == dev,
                 f"sharded {name}: bad solution (shape {tuple(x.shape)}, device {x.device})")
-        kernel, other = ("ring_spmv", "banded_spmv") if comm == "ring" else ("banded_spmv", "ring_spmv")
-        require(counts.get(kernel, 0) == SHARDS * k and counts.get(other, 0) == 0,
-                f"sharded {name}: launches {counts} in {k} steps on {SHARDS} shards")
+        # all shards share the card: one ring launch per step, or one banded_spmv launch per shard and step
+        kernel, other, per_step = (("ring_spmv", "banded_spmv", 1) if comm == "ring"
+                                   else ("banded_spmv", "ring_spmv", SHARDS))
+        require(counts.get(kernel, 0) == per_step * k and counts.get(other, 0) == 0,
+                f"sharded {name}: launches {counts} in {k} steps on {SHARDS} shards of one card")
         require(res.config.step_impl == "xla", f"sharded {name}: step_impl {res.config.step_impl}")
         runs[name] = dict(factor_parallel=fp, comm=comm, orth=cfg.orth, status=res.status, niterations=k,
                           trace_max_rel_err=trace, final_rel_residual=float(a[-1]), wall_s=wall,

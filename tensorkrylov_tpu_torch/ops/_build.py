@@ -51,16 +51,19 @@ _SIGNATURES = {
     "tk_fused_lanczos_f32": [_P] * 9 + [_I, _I, _I, _P],
     "tk_fused_lanczos_f64": [_P] * 9 + [_I, _I, _I, _P],
     "tk_fused_lanczos_block_elems": [],
-    "tk_resident_lanczos_f32": [_P] * 10 + [_I] * 4 + [_P],
+    "tk_resident_lanczos_f32": [_P] * 10 + [_I] * 6 + [_P],
+    "tk_resident_lanczos_max_clusters": [_I, _I, _P],
     "tk_resident_lanczos_block_elems": [],
     "tk_resident_spmv_plan": [_I, _I, _I, _I, _P],
     "tk_resident_spmv_f32": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
     "tk_resident_spmv_f64": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
-    "tk_ring_spmv_interior_f32": [_P] * 4 + [_I] * 4 + [_P],
-    "tk_ring_spmv_interior_f64": [_P] * 4 + [_I] * 4 + [_P],
-    "tk_ring_spmv_edge_f32": [_P] * 5 + [_I] * 5 + [_P],
-    "tk_ring_spmv_edge_f64": [_P] * 5 + [_I] * 5 + [_P],
+    "tk_ring_spmv_f32": [_P, _I, _P] + [_I] * 5 + [_P],
+    "tk_ring_spmv_f64": [_P, _I, _P] + [_I] * 5 + [_P],
+    "tk_ring_spmv_max_shards": [],
+    "tk_enable_peer_access": [_I, _I],
 }
+# entry points that return a count rather than a cudaError_t
+_COUNTS = ("tk_fused_lanczos_block_elems", "tk_resident_lanczos_block_elems", "tk_ring_spmv_max_shards")
 
 
 def _nvcc() -> str:
@@ -141,8 +144,7 @@ def kernels() -> ctypes.CDLL:
             t0 = time.perf_counter()
             path, log = build_shared("tk_kernels", cu + cuh, NVCC_FLAGS, BUILD_DIR, _compile_kernels)
             build_info.update(seconds=time.perf_counter() - t0, path=str(path), log=log)
-            _lib = load_shared(path, _SIGNATURES,
-                               lambda name: ctypes.c_int64 if name.endswith("block_elems") else ctypes.c_int)
+            _lib = load_shared(path, _SIGNATURES, lambda name: ctypes.c_int64 if name in _COUNTS else ctypes.c_int)
         return _lib
 
 

@@ -11,43 +11,55 @@
 // from lanczos_resident_steps), which keeps each factor's bands and three ring
 // vectors in VMEM for S statically unrolled steps, one pallas_call per factor.
 //
-// Design: one thread block per factor owns that factor's whole row for all S
-// steps, so the SpMV, the two reductions, the update and the column write are
-// separated by __syncthreads() alone: no cross-block reduction, no cooperative
-// launch, no atomics. S is a runtime argument (no unrolling, no cap). The
-// three ring vectors are V itself (v_{j-1} and v_{j-2} are the columns the
-// block wrote in its previous steps, or the inputs vp/vpp) and a (d, n) scratch
-// row for u; at d=10, n=131072 the bands and these vectors are ~31 MB and stay
-// in the 50 MB L2. Loads are masked (0 <= i + offset < n), so any n and any
-// offset work, unlike the TPU kernel's n % 128 rule and 128-lane halo.
+// Design: one thread-block cluster of G blocks per factor (G = 1 .. 16, from
+// ops/resident_lanczos.py:resident_lanczos_plan), d clusters in all, for all S
+// steps of the launch. Block r of a cluster owns a contiguous run of the
+// factor's 256-element chunks and computes the SpMV, the update and the
+// column write for them. Per step three cluster barriers
+// (barrier.cluster.arrive.release / wait.acquire) order the blocks: after
+// each of the two reductions' chunk sums, and after the column write, since
+// step j + 1's SpMV reads the H neighbours of v_j that other blocks wrote.
+// The loads of V, of the u scratch and of the chunk sums are plain coherent
+// loads (never the read-only __ldg path): other SMs wrote them, and the
+// barrier's acquire is what makes their writes visible. Clusters never wait on
+// each other, so d * G blocks beyond what the card holds at once only queue:
+// no cooperative launch. S is a runtime argument (no unrolling, no cap). The
+// vectors are V itself (v_{j-1} and v_{j-2} are earlier columns, or the inputs
+// vp/vpp), u (each block's part in its shared memory where the wrapper found
+// room, else a (d, n) scratch row) and a (d, 2, ceil(n / 256)) scratch for the
+// chunk sums. Loads are masked (0 <= i + offset < n), so any n and any offset
+// work, unlike the TPU kernel's n % 128 rule and 128-lane halo.
 //
-// Bound on the card: one SM per factor. The grid has d blocks, so at d=10 ten
-// of the H100's 132 SMs stream their rows while the rest idle; each step moves
-// about (nb + 7) * n * 4 bytes per factor through one SM's L1/L2 path, and the
-// two reductions add 2 x ceil(n / 8192) + 2 block barriers per step. A thread
-// block cluster per factor, holding the row in distributed shared memory, is
-// the redesign that spreads a factor over several SMs.
+// Bound on the card: memory. Each step moves about (nb + 7) * n * 4 bytes per
+// factor (bands, vp three times, vpp, u written and read twice, v written),
+// now through G SMs per factor instead of one. At d=10, n=131072 that is
+// 52 MB per step, mostly L2 hits; at the bench's d=8, n=2^20, 336 MB per step
+// from device memory. Each step also pays three cluster barriers.
 //
 // Reduction order: a Lanczos recurrence without reorthogonalization amplifies
 // a change in rounding about 2.6x per step, so the sums are taken in an order
 // fixed by n alone, the order of ops/fused_lanczos.py:fixed_order_sum: each
 // 256-element chunk is tree-summed (upper half onto lower half), chunk c's sum
 // is added, in order of c, to slot c % 256 of a running total, and the 256
-// slots are tree-summed. Warp w sums chunks w, w + 32, ... as a register tree
-// and shuffles, so slot c % 256 is only ever touched by one warp, in order.
-// Products and sums are rounded one at a time (no FMA contraction), the
-// reciprocal is __fdiv_rn, the square root __fsqrt_rn: the plain version in
+// slots are tree-summed. Any ownership of chunks by blocks keeps that order:
+// each block writes the sum of chunk c to csum[c]; after the cluster barrier
+// every block reads all of csum, thread k adds csum[k], csum[k + 256], ... in
+// turn and warp 0 tree-sums the 256 slots. Every block computes the same
+// total redundantly, which saves a broadcast and a fourth barrier. Products
+// and sums are rounded one at a time (no FMA contraction), the reciprocal is
+// __fdiv_rn, the square root __fsqrt_rn: the plain version in
 // ops/resident_lanczos.py gives the same bits.
 #include "tk_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;           // one block per factor
+constexpr int kThreads = 1024;           // threads per block; G blocks per factor
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 256;              // elements per chunk tree (fused_lanczos.py:BLOCK)
 constexpr int kPerLane = kChunk / 32;    // elements of a chunk each lane holds
 constexpr int kSlots = 256;              // second-stage slots (fused_lanczos.py:BLOCK)
-static_assert(kSlots % kWarps == 0, "a slot must belong to one warp");
+constexpr int64_t kMaxCluster = 16;      // the H100's largest cluster, non-portable above 8
+static_assert(kSlots <= kThreads, "thread k < 256 owns slot k");
 
 // Tree sum of the 256 values x[j] of lane l = element l + 32 j of a chunk, in
 // fixed_order_sum's pairing (element i + element i + h, h = 128, 64, ..., 1);
@@ -64,119 +76,236 @@ __device__ __forceinline__ float chunk_tree(float (&x)[kPerLane]) {
   return t;
 }
 
-// tk::band_row without its __restrict__ on v_row: here v_row is a column this
-// block wrote in the previous step, which a non-coherent load could miss.
-__device__ __forceinline__ float band_row_coherent(const float* __restrict__ bands_s,
-                                                   const int64_t* __restrict__ offsets, const float* v_row,
-                                                   int64_t nb, int64_t n, int64_t i) {
-  float acc = 0.0f;
-  for (int64_t b = 0; b < nb; ++b) {
-    const int64_t j = i + offsets[b];
-    const float x = (j >= 0 && j < n) ? v_row[j] : 0.0f;
-    acc = tk::add_rn(acc, tk::mul_rn(bands_s[b * n + i], x));
-  }
-  return acc;
+// Every thread of every block of the cluster arrives; the release makes this
+// thread's earlier writes (global memory included) visible at cluster scope,
+// the acquire makes every other thread's visible to the loads that follow.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
 }
 
-// sum over i < n of elem(i), in the fixed order above; every thread gets the
-// result. elem(i) may also write element i of a row: each thread calls it for
-// the same indices in every pass.
+// csum[c] = the tree sum of the values fill(i0, x) puts in x for chunk c,
+// lane l holding elements i0 + 32 k, i0 = c * 256 + l (x[k] = 0 past n); for
+// this block's chunks [c0, c1), warp w taking chunks c0 + w, c0 + w + 32, ...
+// fill may also write those elements of a row: each thread fills the same
+// elements in every pass of a step.
 template <typename F>
-__device__ float fixed_order_pass(int64_t n, float* slots, float* result, F elem) {
+__device__ __forceinline__ void chunk_sums(int64_t c0, int64_t c1, float* csum, F fill) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    for (int k = warp; k < kSlots; k += kWarps) slots[k] = 0.0f;
-  }
-  const int64_t n_chunks = (n + kChunk - 1) / kChunk;
-  for (int64_t c = warp; c < n_chunks; c += kWarps) {
+  for (int64_t c = c0 + warp; c < c1; c += kWarps) {
     float x[kPerLane];
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int64_t i = c * kChunk + lane + 32 * j;
-      x[j] = i < n ? elem(i) : 0.0f;
-    }
+    fill(c * kChunk + lane, x);
     const float part = chunk_tree(x);
-    if (lane == 0) slots[c % kSlots] = tk::add_rn(slots[c % kSlots], part);
+    if (lane == 0) csum[c] = part;
+  }
+}
+
+// The fixed-order total of the n_chunks chunk sums that the whole cluster
+// wrote before its barrier; every thread of the block gets it.
+__device__ float chunk_total(const float* csum, int64_t n_chunks, float* slots, float* result) {
+  if (threadIdx.x < kSlots) {
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int64_t c = threadIdx.x; c < n_chunks; c += kSlots) acc = tk::add_rn(acc, csum[c]);
+    slots[threadIdx.x] = acc;
   }
   __syncthreads();
-  if (warp == 0) {
+  if (threadIdx.x < 32) {
     float x[kPerLane];
 #pragma unroll
-    for (int j = 0; j < kPerLane; ++j) x[j] = slots[lane + 32 * j];
+    for (int j = 0; j < kPerLane; ++j) x[j] = slots[threadIdx.x + 32 * j];
     const float total = chunk_tree(x);
-    if (lane == 0) *result = total;
+    if (threadIdx.x == 0) *result = total;
   }
   __syncthreads();
   return *result;
 }
 
-// V, scratch and the inputs are read and written through plain pointers: the
-// block reads back the columns it wrote in earlier steps, so no load may take
-// the non-coherent read-only path.
+// Launched as d clusters of G blocks: block b works on factor b / G as the
+// cluster's block b % G. In each pass a lane loads all 8 of its elements
+// before it stores any, and the SpMV runs the band loop outside the element
+// loop, so a lane keeps 8 elements' loads of a band in flight at once. V,
+// vp_in, vpp_in and the scratch are plain pointers: the loads must not take
+// the read-only path, since other blocks wrote the columns and chunk sums.
 __global__ void __launch_bounds__(kThreads)
 resident_lanczos_kernel(const float* __restrict__ bands, const int64_t* __restrict__ offsets,
                         const float* vp_in, const float* vpp_in, const float* beta_in, float* V,
-                        float* alpha_out, float* beta_out, float* beta_last, float* scratch,
-                        int64_t d, int64_t nb, int64_t n, int64_t S) {
+                        float* alpha_out, float* beta_out, float* beta_last, float* u_all, float* csum_all,
+                        int64_t d, int64_t nb, int64_t n, int64_t S, int G, int u_shared) {
   __shared__ float slots[kSlots];
   __shared__ float result;
-  const int64_t s = blockIdx.x;
+  extern __shared__ float u_smem[];
+  const int64_t s = blockIdx.x / G;
+  const int64_t rank = blockIdx.x % G;
+  const int64_t n_chunks = (n + kChunk - 1) / kChunk;
+  const int64_t per_block = (n_chunks + G - 1) / G;
+  const int64_t c0 = rank * per_block < n_chunks ? rank * per_block : n_chunks;
+  const int64_t c1 = c0 + per_block < n_chunks ? c0 + per_block : n_chunks;
   const float* bands_s = bands + s * nb * n;
-  float* u = scratch + s * n;
+  // u[i - ib] is element i of u, for this block's elements [ib, c1 * 256): in
+  // shared memory when the launch gave room for them, else in the scratch row
+  const int64_t ib = c0 * kChunk;
+  float* u = u_shared ? u_smem : u_all + s * n + ib;
+  float* csum_alpha = csum_all + s * 2 * n_chunks;
+  float* csum_beta = csum_alpha + n_chunks;
   float beta = beta_in[s];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int64_t j = 0; j < S; ++j) {
     const float* vp = j == 0 ? vp_in + s * n : V + ((j - 1) * d + s) * n;
     const float* vpp = j == 0 ? vpp_in + s * n : (j == 1 ? vp_in + s * n : V + ((j - 2) * d + s) * n);
-    const float alpha = fixed_order_pass(n, slots, &result, [&](int64_t i) {
-      const float w = tk::sub_rn(band_row_coherent(bands_s, offsets, vp, nb, n, i), tk::mul_rn(beta, vpp[i]));
-      u[i] = w;
-      return tk::mul_rn(w, vp[i]);
+    // u = A vp - beta vpp, each product and sum in band order from zero; x = u * vp
+    chunk_sums(c0, c1, csum_alpha, [&](int64_t i0, float (&x)[kPerLane]) {
+      float w[kPerLane], vpi[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) w[k] = 0.0f;
+      for (int64_t b = 0; b < nb; ++b) {
+        const int64_t off = offsets[b];
+        const float* band = bands_s + b * n;
+#pragma unroll
+        for (int k = 0; k < kPerLane; ++k) {
+          const int64_t i = i0 + 32 * k, col = i + off;
+          const float a = i < n ? band[i] : 0.0f;
+          const float y = (i < n && col >= 0 && col < n) ? vp[col] : 0.0f;
+          w[k] = tk::add_rn(w[k], tk::mul_rn(a, y));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int64_t i = i0 + 32 * k;
+        vpi[k] = i < n ? vp[i] : 0.0f;
+        w[k] = tk::sub_rn(w[k], tk::mul_rn(beta, i < n ? vpp[i] : 0.0f));
+      }
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int64_t i = i0 + 32 * k;
+        if (i < n) u[i - ib] = w[k];
+        x[k] = i < n ? tk::mul_rn(w[k], vpi[k]) : 0.0f;
+      }
     });
-    const float beta_sq = fixed_order_pass(n, slots, &result, [&](int64_t i) {
-      const float ui = tk::sub_rn(u[i], tk::mul_rn(alpha, vp[i]));
-      u[i] = ui;
-      return tk::mul_rn(ui, ui);
+    cluster_barrier();  // every chunk sum of alpha written
+    const float alpha = chunk_total(csum_alpha, n_chunks, slots, &result);
+    // u -= alpha vp; x = u * u
+    chunk_sums(c0, c1, csum_beta, [&](int64_t i0, float (&x)[kPerLane]) {
+      float ui[kPerLane], vpi[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int64_t i = i0 + 32 * k;
+        ui[k] = i < n ? u[i - ib] : 0.0f;
+        vpi[k] = i < n ? vp[i] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) {
+        const int64_t i = i0 + 32 * k;
+        ui[k] = tk::sub_rn(ui[k], tk::mul_rn(alpha, vpi[k]));
+        if (i < n) u[i - ib] = ui[k];
+        x[k] = i < n ? tk::mul_rn(ui[k], ui[k]) : 0.0f;
+      }
     });
+    // every chunk sum of beta written; and every block has read csum_alpha,
+    // which step j + 1 overwrites
+    cluster_barrier();
+    const float beta_sq = chunk_total(csum_beta, n_chunks, slots, &result);
     const float beta_new = __fsqrt_rn(beta_sq);
     const bool ok = beta_new > 1e-30f;
     const float inv = ok ? __fdiv_rn(1.0f, beta_new) : 0.0f;
     float* v = V + (j * d + s) * n;
     // same element-to-thread mapping as the passes: each thread reads the u it wrote
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int64_t c = warp; c * kChunk < n; c += kWarps) {
+    for (int64_t c = c0 + warp; c < c1; c += kWarps) {
+      const int64_t i0 = c * kChunk + lane;
+      float ui[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) ui[k] = i0 + 32 * k < n ? u[i0 + 32 * k - ib] : 0.0f;
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
-        const int64_t i = c * kChunk + lane + 32 * k;
-        if (i < n) v[i] = tk::mul_rn(u[i], inv);
+        if (i0 + 32 * k < n) v[i0 + 32 * k] = tk::mul_rn(ui[k], inv);
       }
     }
     beta = ok ? beta_new : 0.0f;
-    if (threadIdx.x == 0) {
+    if (rank == 0 && threadIdx.x == 0) {
       alpha_out[s * S + j] = alpha;
       beta_out[s * S + j] = beta;
     }
-    __syncthreads();  // column j is read, shifted, by other threads in step j + 1
+    // column j complete before any block's step j + 1 reads its neighbours;
+    // and every block has read csum_beta, which step j + 1 overwrites
+    cluster_barrier();
   }
-  if (threadIdx.x == 0) beta_last[s] = beta;
+  if (rank == 0 && threadIdx.x == 0) beta_last[s] = beta;
+}
+
+cudaLaunchConfig_t cluster_config(int64_t blocks, int64_t G, size_t smem, cudaLaunchAttribute* attr,
+                                  cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(G);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace
 
 // bands (d, nb, n) f32; offsets (nb,) int64; vp, vpp (d, n); beta (d,); V out
-// (S, d, n); alpha, beta out (d, S); beta_last out (d,); scratch (d, n). All
-// contiguous, f32 but the offsets, on one device. Returns the cudaError_t of
-// the launch.
+// (S, d, n); alpha, beta out (d, S); beta_last out (d,); scratch
+// d * (n + 2 * ceil(n / 256)) floats. All contiguous, f32 but the offsets, on
+// the current device. G blocks per factor, 1 <= G <= 16. u_shared != 0 keeps
+// each block's ceil(ceil(n / 256) / G) * 256 elements of u in dynamic shared
+// memory instead of the scratch. Returns the cudaError_t of the launch.
 extern "C" int tk_resident_lanczos_f32(const void* bands, const void* offsets, const void* vp,
                                        const void* vpp, const void* beta, void* V, void* alpha_out,
                                        void* beta_out, void* beta_last, void* scratch, int64_t d,
-                                       int64_t nb, int64_t n, int64_t S, void* stream) {
+                                       int64_t nb, int64_t n, int64_t S, int64_t G, int64_t u_shared,
+                                       void* stream) {
   if (d == 0 || S == 0) return 0;
-  resident_lanczos_kernel<<<static_cast<unsigned>(d), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(bands), static_cast<const int64_t*>(offsets),
-      static_cast<const float*>(vp), static_cast<const float*>(vpp), static_cast<const float*>(beta),
-      static_cast<float*>(V), static_cast<float*>(alpha_out), static_cast<float*>(beta_out),
-      static_cast<float*>(beta_last), static_cast<float*>(scratch), d, nb, n, S);
+  if (G < 1 || G > kMaxCluster || d * G > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t per_block = ((n + kChunk - 1) / kChunk + G - 1) / G;
+  // the bytes that ops/resident_lanczos.py:_u_bytes gives the occupancy query
+  const size_t smem = u_shared ? static_cast<size_t>(per_block) * kChunk * sizeof(float) : 0;
+  err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(d * G, G, smem, &attr, static_cast<cudaStream_t>(stream));
+  float* u = static_cast<float*>(scratch);
+  err = cudaLaunchKernelEx(&cfg, resident_lanczos_kernel, static_cast<const float*>(bands),
+                           static_cast<const int64_t*>(offsets), static_cast<const float*>(vp),
+                           static_cast<const float*>(vpp), static_cast<const float*>(beta), static_cast<float*>(V),
+                           static_cast<float*>(alpha_out), static_cast<float*>(beta_out),
+                           static_cast<float*>(beta_last), u, u + d * n, d, nb, n, S, static_cast<int>(G),
+                           static_cast<int>(u_shared != 0));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Writes to *clusters how many clusters of G blocks of the kernel, each with
+// smem bytes of dynamic shared memory, the current device holds at once
+// (cudaOccupancyMaxActiveClusters); 0 when it cannot launch one. Returns a
+// cudaError_t.
+extern "C" int tk_resident_lanczos_max_clusters(int64_t G, int64_t smem, int64_t* clusters) {
+  *clusters = 0;
+  if (G < 1 || G > kMaxCluster) return 0;
+  cudaError_t err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(G, G, static_cast<size_t>(smem), &attr, nullptr);
+  int num = 0;
+  err = cudaOccupancyMaxActiveClusters(&num, reinterpret_cast<const void*>(resident_lanczos_kernel), &cfg);
+  if (err != cudaSuccess) {  // a cluster size the card refuses: none fits
+    cudaGetLastError();
+    return 0;
+  }
+  *clusters = num;
+  return 0;
 }
 
 // Elements per chunk tree and second-stage slots; the wrapper checks them

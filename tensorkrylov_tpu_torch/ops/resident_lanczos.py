@@ -16,9 +16,15 @@ correctly rounded square root and round every product and sum on its own, so
 they agree bit for bit: without reorthogonalization the recurrence amplifies
 a rounding difference about 2.6× per step. The kernel takes f32 only, as the
 TPU kernel does; unlike it, any n, any offsets and any S in one launch.
+
+The kernel spreads each factor over a thread-block cluster of G blocks;
+``resident_lanczos_plan(d, n, device)`` picks G from the card's SM count and
+how many clusters of each size it holds at once. Every G gives the same bits.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -34,9 +40,12 @@ __all__ = [
     "lanczos_resident_steps",
     "lanczos_resident_steps_reference",
     "lanczos_resident_supported",
+    "resident_lanczos_plan",
 ]
 
 FREEZE = 1e-30  # β' at or below this writes a zero column and records β' = 0
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # blocks per factor the plan considers; 16 is the H100's largest cluster
+U_SHARED_BYTES = 200 * 1024  # a block keeps its elements of u in shared memory when they fit in this
 
 
 class ResidentSteps(NamedTuple):
@@ -85,6 +94,59 @@ def lanczos_resident_steps_reference(op: KroneckerSumOperator, vp, vpp, beta, S:
     return ResidentSteps(V, alpha, betas, *_carries(V, vp, vpp), b)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _u_bytes(n: int, G: int) -> int:
+    """The dynamic shared memory of a launch: a block's ceil(ceil(n / BLOCK) / G)
+    chunks of u where they fit in U_SHARED_BYTES, else 0 (u in the scratch row)."""
+    chunks = -(-n // BLOCK)
+    nbytes = -(-chunks // G) * BLOCK * 4
+    return nbytes if nbytes <= U_SHARED_BYTES else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _max_active_clusters(G: int, device: int, smem: int) -> int:
+    """How many clusters of G kernel blocks, each with smem bytes of dynamic
+    shared memory, the card holds at once (cudaOccupancyMaxActiveClusters);
+    0 when it cannot launch one."""
+    out = ctypes.c_int64(0)
+    with torch.cuda.device(device):
+        _build.check(_build.kernels().tk_resident_lanczos_max_clusters(G, smem, ctypes.byref(out)),
+                     "resident_lanczos occupancy")
+    return int(out.value)
+
+
+def resident_lanczos_plan(d: int, n: int, device=None) -> int:
+    """G, the blocks per factor of the kernel's cluster.
+
+    Every factor is one cluster; the card runs A(G) clusters at once, so d
+    clusters take ceil(d / A(G)) rounds of n / G elements per block. G minimises
+    that product over CLUSTER_SIZES, with at least one cluster fitting and no
+    more blocks than the factor has 256-element chunks; on a tie the smaller
+    G, since G=16 measured 18% slower than G=8 at d=10, n=131072 on the H100
+    and 2% faster at d=8, n=2^20 (PERF.md). When d fills every SM, G = 1."""
+    index = torch.device("cuda" if device is None else device).index
+    index = torch.cuda.current_device() if index is None else index
+    sms = _sm_count(index)
+    if d >= sms:
+        return 1
+    chunks = -(-n // BLOCK)
+    best, best_cost = 1, None
+    for G in CLUSTER_SIZES:
+        if G > sms or (G > 1 and G > chunks):
+            break
+        fit = _max_active_clusters(G, index, _u_bytes(n, G))
+        if fit < 1:
+            continue
+        cost = -(-d // fit) / G
+        if best_cost is None or cost < best_cost:
+            best, best_cost = G, cost
+    return best
+
+
 def _resident_cuda(op: KroneckerSumOperator, vp, vpp, beta, S: int, out: Optional[torch.Tensor]) -> ResidentSteps:
     bands = op.bands
     d, nb, n = bands.shape
@@ -98,8 +160,9 @@ def _resident_cuda(op: KroneckerSumOperator, vp, vpp, beta, S: int, out: Optiona
             raise TypeError(f"{name} must be float32 on {bands.device}, got {t.dtype} on {t.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {shape}, got {tuple(t.shape)}")
-    if S < 0 or d > 2**31 - 1:
-        raise ValueError(f"resident Lanczos kernel takes S >= 0 and fewer than 2**31 factors, got S={S}, d={d}")
+    G = resident_lanczos_plan(d, n, bands.device)
+    if S < 0 or d * G > 2**31 - 1:
+        raise ValueError(f"resident Lanczos kernel takes S >= 0 and fewer than 2**31 blocks, got S={S}, d={d}, G={G}")
     lib = _build.kernels()
     if lib.tk_resident_lanczos_block_elems() != BLOCK:
         raise RuntimeError("csrc/resident_lanczos.cu and fused_lanczos.BLOCK disagree on the chunk size")
@@ -108,13 +171,17 @@ def _resident_cuda(op: KroneckerSumOperator, vp, vpp, beta, S: int, out: Optiona
     alpha = torch.empty((d, S), dtype=torch.float32, device=dev)
     betas = torch.empty((d, S), dtype=torch.float32, device=dev)
     beta_last = beta.clone()
-    scratch = torch.empty((d, n), dtype=torch.float32, device=dev)
-    err = lib.tk_resident_lanczos_f32(
-        bands.data_ptr(), op.offsets_tensor.data_ptr(), vp.data_ptr(), vpp.data_ptr(), beta.data_ptr(),
-        V.data_ptr(), alpha.data_ptr(), betas.data_ptr(), beta_last.data_ptr(), scratch.data_ptr(),
-        d, nb, n, S, _build.stream_of(V))
+    # u (d, n), then the chunk sums of the two reductions (d, 2, ceil(n / BLOCK))
+    scratch = torch.empty(d * (n + 2 * -(-n // BLOCK)), dtype=torch.float32, device=dev)
+    u_shared = _u_bytes(n, G) > 0
+    with torch.cuda.device(dev):
+        err = lib.tk_resident_lanczos_f32(
+            bands.data_ptr(), op.offsets_tensor.data_ptr(), vp.data_ptr(), vpp.data_ptr(), beta.data_ptr(),
+            V.data_ptr(), alpha.data_ptr(), betas.data_ptr(), beta_last.data_ptr(), scratch.data_ptr(),
+            d, nb, n, S, G, u_shared, _build.stream_of(V))
     _build.check(err, "resident_lanczos")
-    _build.launches["resident_lanczos"] += 1
+    if S > 0 and d > 0:
+        _build.launches["resident_lanczos"] += 1
     return ResidentSteps(V, alpha, betas, *_carries(V, vp, vpp), beta_last)
 
 

@@ -4,14 +4,22 @@
 Each shard owns a contiguous slice of every factor's length-n axis. Its SpMV
 needs the H = max |offset| edge columns of its two neighbours in the chain
 (zeros at the two ends, as ``halo.py:46-47``, not wrapped data).
-``exchange_halos`` copies them into the shard's halo buffers, kept on the
-ShardedOperator and reused by every call, on a side stream of the receiving
-device, after events that mark the senders' v as written and the receiver's
-earlier reads of the buffers as queued. On the ring route every shard's
-interior is launched before any edge, and only the edge launches wait for the
-copies' events, so the interiors run while the halos are in flight (on one
-card the P interiors share its current stream and run in turn). On the CPU the
-exchange is a plain copy.
+
+On CUDA shards the ring route exchanges nothing: the ring kernel reads the
+neighbours' edges in place from their v (``ring_sources``), one launch per
+card for all of that card's shards. On one card that launch follows the
+writes of the v pieces on the card's current stream, so stream order is all
+the ordering it needs. Across cards (peer access, enabled by
+``shard_operator``) the launch waits for one event per neighbouring card,
+recorded after its v was written, and each neighbour's current stream then
+waits for the reading card's event, so that its allocator cannot reuse a v
+still being read (``record_stream`` cannot fence another card's stream).
+
+``exchange_halos`` copies the edges into each shard's halo buffers, kept on
+the ShardedOperator and reused by every call. The gspmd route uses it on a
+side stream of the receiving device, after events that mark the senders' v as
+written and the receiver's earlier reads of the buffers as queued; the CPU
+route of 'ring' and the plain version on the card copy on the current stream.
 
 Layout contract: arrays are split on their last axis over the mode shards,
 n % n_mode == 0, and a shard is at least H wide. The halos of one call are
@@ -25,11 +33,11 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..ops.banded import spmv
-from ..ops.ring_spmv import ring_spmv_edge, ring_spmv_interior, ring_spmv_local
+from ..ops.ring_spmv import Source, ring_spmv_edge, ring_spmv_interior, ring_spmv_local
 from ..types import KroneckerSumOperator
 from .sharding import Mesh, ShardedOperator, gather, shard_operator, shard_rhs
 
-__all__ = ["exchange_halos", "spmv_halo_local", "spmv_sharded", "make_halo_spmv", "spmv_halo"]
+__all__ = ["exchange_halos", "ring_sources", "spmv_halo_local", "spmv_sharded", "make_halo_spmv", "spmv_halo"]
 
 
 def _halo_buffers(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -56,12 +64,13 @@ def exchange_halos(sop: ShardedOperator, vs: Sequence[torch.Tensor]
                    ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], List[Optional[torch.cuda.Event]]]:
     """Per shard (left halo, right halo), each (d_f, …, H): the last H columns
     of the left neighbour and the first H of the right one, zeros at the chain
-    ends; and per shard the event after which its halos are complete (None on
-    the CPU)."""
+    ends; and per shard the event after which its halos are complete on its
+    side stream (None where the copies ran on the current stream: CPU shards
+    and the ring route's CUDA shards, which have no side stream)."""
     H, P = sop.halo, sop.n_mode
     halos = _halo_buffers(sop, vs)
-    ready = {sh.device: torch.cuda.current_stream(sh.device).record_event()
-             for sh in sop.shards if sh.device.type == "cuda"}
+    ready = ({sh.device: torch.cuda.current_stream(sh.device).record_event() for sh in sop.shards}
+             if any(sh.side is not None for sh in sop.shards) else {})
     events = []
     for q, (sh, (lh, rh)) in enumerate(zip(sop.shards, halos)):
         p = q % P
@@ -93,26 +102,59 @@ def exchange_halos(sop: ShardedOperator, vs: Sequence[torch.Tensor]
     return halos, events
 
 
-def spmv_halo_local(op: KroneckerSumOperator, v: torch.Tensor, lhalo: torch.Tensor, rhalo: torch.Tensor,
-                    halo_ready: Optional[torch.cuda.Event] = None) -> torch.Tensor:
+def spmv_halo_local(op: KroneckerSumOperator, v: torch.Tensor, lhalo: torch.Tensor, rhalo: torch.Tensor) -> torch.Tensor:
     """Per-shard body in ``halo.py:51``'s order: the interior with zero-filled
     in-shard shifts, then the edge corrections one band at a time. It is the
-    ring kernel (ops/ring_spmv.py) on a CUDA shard and its plain version on a
-    CPU shard."""
-    return ring_spmv_local(op, v, lhalo, rhalo, halo_ready)
+    ring kernel (ops/ring_spmv.py) with the halo buffers as its sources on a
+    CUDA shard, and its plain version on a CPU shard."""
+    return ring_spmv_local(op, v, lhalo, rhalo)
+
+
+def ring_sources(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[Tuple[Optional[Source], Optional[Source]]]:
+    """Each shard's (left, right) source for the ring kernel: the
+    neighbouring shards' own v, read in place (the left one's last H columns
+    from base nl, the right one's first H from base 0); None at the two ends
+    of each factor group's chain."""
+    P = sop.n_mode
+    return [(Source(vs[q - 1], vs[q - 1].shape[-1]) if q % P > 0 else None,
+             Source(vs[q + 1], 0) if q % P < P - 1 else None) for q in range(len(vs))]
+
+
+def _spmv_ring_cuda(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One ring launch per card (sop.ring), with the neighbours' edges read in place."""
+    sources = ring_sources(sop, vs)
+    if len(sop.ring) == 1:
+        return sop.ring[0][2](vs, [s[0] for s in sources], [s[1] for s in sources])
+    ready = {dev: torch.cuda.current_stream(dev).record_event() for dev, _, _ in sop.ring}
+    out: List[Optional[torch.Tensor]] = [None] * len(vs)
+    for dev, qs, launch in sop.ring:
+        peers = {src.tensor.device for q in qs for src in sources[q] if src is not None} - {dev}
+        stream = torch.cuda.current_stream(dev)
+        for peer in peers:
+            stream.wait_event(ready[peer])
+        us = launch([vs[q] for q in qs], [sources[q][0] for q in qs], [sources[q][1] for q in qs])
+        done = stream.record_event()
+        for peer in peers:
+            torch.cuda.current_stream(peer).wait_event(done)
+        for q, u in zip(qs, us):
+            out[q] = u
+    return out
 
 
 def spmv_sharded(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """u = A v on every shard, v (d_f, nl) or (d_f, m, nl) per shard, by
-    sop.comm: 'ring' launches every shard's ring interior, then every edge
-    after its halos; 'gspmd' runs the banded_spmv kernel on the slab
-    [left halo | v | right halo] with the shard's padded bands and keeps the
-    centre, whose sums follow the unsharded band order."""
+    sop.comm: 'ring' is one ring kernel launch per card that reads the
+    neighbours' edges in place (on CPU shards: the halo exchange, every
+    shard's plain interior, then every edge); 'gspmd' runs the banded_spmv
+    kernel on the slab [left halo | v | right halo] with the shard's padded
+    bands and keeps the centre, whose sums follow the unsharded band order."""
     H = sop.halo
+    if sop.ring:
+        return _spmv_ring_cuda(sop, vs)
     halos, events = exchange_halos(sop, vs)
     if sop.comm == "ring":
         us = [ring_spmv_interior(sh.op, v) for sh, v in zip(sop.shards, vs)]
-        return [ring_spmv_edge(sh.op, u, lh, rh, ev) for sh, u, (lh, rh), ev in zip(sop.shards, us, halos, events)]
+        return [ring_spmv_edge(sh.op, u, lh, rh) for sh, u, (lh, rh) in zip(sop.shards, us, halos)]
     out = []
     for sh, v, (lh, rh), ev in zip(sop.shards, vs, halos, events):
         if ev is not None:

@@ -3,8 +3,10 @@
 The JAX package places its operands on a ('factor', 'mode') device mesh and
 lets GSPMD insert the collectives. The port is single-controller in the same
 way: one process drives a grid of shard slots, each a ``torch.device``, and a
-device may repeat (P shards on one card share ``cuda:0``, each with its own
-side stream for halo copies; on several cards a halo copy is a peer copy).
+device may repeat (P shards on one card share ``cuda:0``). On the ring route
+the kernel reads a neighbouring shard's edge in place, across cards through
+peer access, which ``shard_operator`` enables; on the gspmd route each CUDA
+shard has a side stream for its halo copies (a peer copy across cards).
 
   * 'mode' splits each factor's length-n axis into n_mode contiguous slices;
     the SpMV exchanges H-wide edges between neighbours (``parallel/halo.py``)
@@ -26,7 +28,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.ring_spmv import halo_width
+from ..ops import _build
+from ..ops.ring_spmv import RingLaunch, halo_width
 from ..types import KroneckerSumOperator, SolveResult, SolverConfig
 
 __all__ = ["Mesh", "Shard", "ShardedOperator", "make_mesh", "shard_operator", "shard_rhs", "gather",
@@ -101,7 +104,7 @@ class Shard:
     factors: Tuple[int, int]
     cols: Tuple[int, int]
     op: KroneckerSumOperator
-    side: Optional[torch.cuda.Stream]  # where the shard's halos are copied (CUDA shards)
+    side: Optional[torch.cuda.Stream]  # where the shard's halos are copied (CUDA shards of 'gspmd')
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -109,9 +112,10 @@ class ShardedOperator:
     """A Kronecker-sum operator split over a mesh; shards are group-major
     (shard g·n_mode + p holds factor group g, mode slice p). comm selects the
     per-shard SpMV: 'ring' the ring kernel, 'gspmd' the banded_spmv kernel on
-    the halo-extended slab. halo_buffers keeps each shard's (left, right)
-    halo buffers per (shape, dtype) of v, reused by every exchange
-    (parallel/halo.py)."""
+    the halo-extended slab. ring holds, for CUDA shards of 'ring', each
+    card's (device, shard indices, RingLaunch), its bands checked once.
+    halo_buffers keeps each shard's (left, right) halo buffers per (shape,
+    dtype) of v, reused by every exchange (parallel/halo.py)."""
 
     mesh: Mesh
     shards: Tuple[Shard, ...]
@@ -120,6 +124,7 @@ class ShardedOperator:
     d: int
     n: int
     comm: str
+    ring: Tuple[Tuple[torch.device, Tuple[int, ...], RingLaunch], ...] = ()
     halo_buffers: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -154,10 +159,26 @@ def _split(x: torch.Tensor, mesh: Mesh, d: int, factor_axis: int = 0) -> List[to
     return pieces
 
 
+def _enable_ring_peers(mesh: Mesh) -> None:
+    """The ring kernel reads its neighbours' v in place, so each card must
+    reach its chain neighbours' memory: peer access both ways, or an error
+    that names the route that copies instead."""
+    pairs = {(a.index, b.index) for row in mesh.devices for x, y in zip(row, row[1:])
+             for a, b in ((x, y), (y, x)) if a.type == "cuda" and a != b}
+    for a, b in sorted(pairs):
+        if not torch.cuda.can_device_access_peer(a, b):
+            raise ValueError(f"comm='ring' reads the neighbouring shards' edges in place, but cuda:{a} cannot "
+                             f"access cuda:{b}; use comm='gspmd', which copies them")
+    for a, b in sorted(pairs):
+        _build.check(_build.kernels().tk_enable_peer_access(a, b), f"peer access cuda:{a} -> cuda:{b}")
+
+
 def shard_operator(op: KroneckerSumOperator, mesh: Mesh, comm: str = "gspmd") -> ShardedOperator:
     """bands (d, nb, n): n over 'mode', d over 'factor' when it divides d,
     each shard keeping the bands that comm's SpMV reads. Needs
-    n % n_mode == 0 and a shard at least H = max |offset| wide."""
+    n % n_mode == 0 and a shard at least H = max |offset| wide. 'ring' on
+    several cards enables peer access between neighbouring cards and raises
+    where the card cannot; 'gspmd' gives each CUDA shard a side stream."""
     if comm not in COMMS:
         raise ValueError(f"comm must be 'gspmd' or 'ring', got {comm!r}")
     P, H = mesh.shape["mode"], halo_width(op.offsets)
@@ -166,6 +187,8 @@ def shard_operator(op: KroneckerSumOperator, mesh: Mesh, comm: str = "gspmd") ->
     nl = op.n // P
     if nl < H:
         raise ValueError(f"a shard of {nl} columns is narrower than the halo width {H}")
+    if comm == "ring":
+        _enable_ring_peers(mesh)
     # gspmd: column c of the operator at c + H, so a shard's slab starts at c0
     bands, width = (op.bands, nl) if comm == "ring" else (F.pad(op.bands, (H, H)), nl + 2 * H)
     shards = []
@@ -173,10 +196,16 @@ def shard_operator(op: KroneckerSumOperator, mesh: Mesh, comm: str = "gspmd") ->
         for p in range(P):
             dev, c0 = mesh.devices[g][p], p * nl
             mine = bands[s0:s1, :, c0:c0 + width].contiguous().to(dev)
-            side = torch.cuda.Stream(device=dev) if dev.type == "cuda" else None
+            side = torch.cuda.Stream(device=dev) if dev.type == "cuda" and comm == "gspmd" else None
             shards.append(Shard(dev, (s0, s1), (c0, c0 + nl), KroneckerSumOperator(mine, op.offsets, op.symmetric),
                                 side))
-    return ShardedOperator(mesh, tuple(shards), op.offsets, op.symmetric, op.d, op.n, comm)
+    ring = ()
+    if comm == "ring" and shards[0].device.type == "cuda":
+        cards = {}
+        for q, sh in enumerate(shards):
+            cards.setdefault(sh.device, []).append(q)
+        ring = tuple((dev, tuple(qs), RingLaunch([shards[q].op for q in qs])) for dev, qs in cards.items())
+    return ShardedOperator(mesh, tuple(shards), op.offsets, op.symmetric, op.d, op.n, comm, ring)
 
 
 def shard_rhs(b: torch.Tensor, mesh: Mesh, d: Optional[int] = None) -> List[torch.Tensor]:
@@ -202,8 +231,9 @@ def solve_sharded(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = 
 
     comm: 'gspmd' — each shard's SpMV is the banded_spmv kernel on its slab
           [left halo | columns | right halo], bit-equal to the unsharded SpMV;
-          'ring'  — each shard's SpMV is the ring kernel: the interior
-          overlapped with the halo copies, then the edge corrections.
+          'ring'  — every SpMV is one ring kernel launch per card, which
+          reads the neighbouring shards' edges in place (peer access
+          across cards).
     step_impl is forced to 'xla' (``sharding.py:95-98``); SolveResult.config
     records it. The solution is gathered to the lead device, (d, n, t) there,
     where the JAX package leaves it sharded.

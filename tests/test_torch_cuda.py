@@ -13,10 +13,13 @@ import tensorkrylov_tpu_torch as tkt
 from tensorkrylov_tpu_torch.ops import _build
 from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
 from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
-from tensorkrylov_tpu_torch.ops.resident_lanczos import lanczos_resident_steps, lanczos_resident_steps_reference
+from tensorkrylov_tpu_torch.ops import resident_lanczos
+from tensorkrylov_tpu_torch.ops.resident_lanczos import (
+    lanczos_resident_steps, lanczos_resident_steps_reference, resident_lanczos_plan)
 from tensorkrylov_tpu_torch.ops.resident_spmv import resident_spmv_plan, spmv_multi_apply, spmv_multi_apply_reference
 from tensorkrylov_tpu_torch.ops.ring_spmv import make_ring_spmv, ring_spmv_local, ring_spmv_reference
 from tensorkrylov_tpu_torch.parallel import gather, make_mesh, shard_operator, shard_rhs, solve_sharded
+from tensorkrylov_tpu_torch.parallel import halo as halo_mod
 from tensorkrylov_tpu_torch.parallel.halo import exchange_halos, spmv_sharded
 
 pytestmark = pytest.mark.cuda
@@ -162,6 +165,101 @@ def test_resident_recurrence_equals_cpu(cuda):
     torch.testing.assert_close(card[2], cpu[2], rtol=0, atol=1e-13 * float(cpu[2].abs().max()))
 
 
+RESIDENT_CASES = {  # d, n, offsets
+    "ragged": (3, 4099, (-5, -2, 0, 3, 5)),
+    "n_below_G_chunks": (2, 300, (-1, 0, 1)),   # 2 chunks: most blocks of a cluster own none
+    "d20_queued": (20, 20011, (-1, 0, 1)),     # more clusters than the card holds at once
+}
+
+
+def _resident_equal(got, ref):
+    return all(torch.equal(a, r) for a, r in zip(got, ref))
+
+
+def _force_cluster(monkeypatch, G):
+    """The resident kernel's launches take G blocks per factor, whatever the plan says."""
+    monkeypatch.setattr(resident_lanczos, "resident_lanczos_plan", lambda d, n, device=None: G)
+
+
+@pytest.mark.parametrize("u_in", ["shared", "l2"])
+@pytest.mark.parametrize("case", sorted(RESIDENT_CASES))
+@pytest.mark.parametrize("G", [1, 2, 8, 16])
+def test_resident_cluster_sizes_equal_plain(cuda, monkeypatch, G, case, u_in):
+    """Every cluster size gives the plain version's bits, with u in shared
+    memory or in the scratch row: chunk ownership by blocks leaves the fixed
+    summation order alone; one launch each."""
+    if u_in == "l2":
+        monkeypatch.setattr(resident_lanczos, "U_SHARED_BYTES", 0)
+    _force_cluster(monkeypatch, G)
+    d, n, offsets = RESIDENT_CASES[case]
+    op = _op(offsets, d, n, 31, torch.float32, cuda)
+    vp = _unit_rows(d, n, 32, cuda)
+    vpp, beta = torch.zeros_like(vp), torch.zeros(d, dtype=torch.float32, device=cuda)
+    before = _build.launches["resident_lanczos"]
+    got = lanczos_resident_steps(op, vp, vpp, beta, 9)
+    torch.cuda.synchronize()
+    assert _build.launches["resident_lanczos"] == before + 1
+    assert _resident_equal(got, lanczos_resident_steps_reference(op, vp, vpp, beta, 9))
+
+
+@pytest.mark.parametrize("S", [0, 1, 2, 33])
+def test_resident_step_counts_equal_plain(cuda, S):
+    """S = 0 launches nothing and returns the carries; 1, 2 and 33 steps
+    (past the slab of columns one segment writes) equal the plain version."""
+    d, n = 3, 5003
+    op = tkt.reaction_diffusion(d, n, 1e4, dtype=torch.float32, device=cuda)
+    vp = _unit_rows(d, n, 33, cuda)
+    vpp, beta = torch.zeros_like(vp), torch.zeros(d, dtype=torch.float32, device=cuda)
+    before = _build.launches["resident_lanczos"]
+    got = lanczos_resident_steps(op, vp, vpp, beta, S)
+    torch.cuda.synchronize()
+    assert _build.launches["resident_lanczos"] == before + (S > 0)
+    assert tuple(got.V.shape) == (S, d, n) and tuple(got.alpha.shape) == (d, S)
+    assert _resident_equal(got, lanczos_resident_steps_reference(op, vp, vpp, beta, S))
+
+
+@pytest.mark.parametrize("G", [1, 8])
+def test_resident_freeze_on_card(cuda, monkeypatch, G):
+    """An eigenvector start freezes its factor (zero columns, β' = 0) on the
+    card as in the plain version; the other factor runs on."""
+    d, n = 2, 16
+    op = tkt.eigval_matrix(np.stack([np.arange(1.0, n + 1), np.linspace(1.0, 3.0, n)]), dtype=torch.float32,
+                           device=cuda)
+    vp = torch.zeros((d, n), dtype=torch.float32, device=cuda)
+    vp[0, 3] = 1.0
+    vp[1] = 1.0 / np.sqrt(n)
+    vpp, beta = torch.zeros_like(vp), torch.zeros(d, dtype=torch.float32, device=cuda)
+    _force_cluster(monkeypatch, G)
+    got = lanczos_resident_steps(op, vp, vpp, beta, 4)
+    assert _resident_equal(got, lanczos_resident_steps_reference(op, vp, vpp, beta, 4))
+    assert torch.count_nonzero(got.V[:, 0]) == 0 and float(got.beta_last[0]) == 0.0
+    assert bool(torch.all(got.beta[1] > 0.1))
+
+
+@pytest.mark.parametrize("G", [2, 16])
+def test_resident_out_slab_on_card(cuda, monkeypatch, G):
+    """out= writes the columns into a slab of a larger basis and nothing
+    else of it."""
+    d, n = 3, 4099
+    op = tkt.laplace(d, n, shift=3.0, dtype=torch.float32, device=cuda)
+    vp = _unit_rows(d, n, 34, cuda)
+    vpp, beta = torch.zeros_like(vp), torch.zeros(d, dtype=torch.float32, device=cuda)
+    V = torch.zeros((6, d, n), dtype=torch.float32, device=cuda)
+    _force_cluster(monkeypatch, G)
+    got = lanczos_resident_steps(op, vp, vpp, beta, 4, out=V[1:5])
+    assert got.V.data_ptr() == V[1].data_ptr()
+    assert torch.equal(V[1:5], lanczos_resident_steps_reference(op, vp, vpp, beta, 4).V)
+    assert torch.count_nonzero(V[0]) == 0 and torch.count_nonzero(V[5]) == 0
+
+
+def test_resident_plan_on_card(cuda):
+    """At the host-projected slice's shape the plan spreads each factor over
+    a cluster (G > 1) that the card can hold."""
+    G = resident_lanczos_plan(10, 131072, cuda)
+    assert G in resident_lanczos.CLUSTER_SIZES and G > 1
+    assert resident_lanczos._max_active_clusters(G, torch.cuda.current_device(), resident_lanczos._u_bytes(131072, G)) >= 1
+
+
 def test_resident_wrapper_rejects_bad_input(cuda):
     op = _op((-1, 0, 1), 2, 64, 4, torch.float32, cuda)
     v = torch.ones((2, 64), dtype=torch.float32, device=cuda)
@@ -288,9 +386,9 @@ def _ring_on(devices, op, v):
 @pytest.mark.parametrize("band", sorted(RING_OFFSETS))
 @pytest.mark.parametrize("P", [1, 2, 4, 8])
 def test_ring_kernel_equals_plain(cuda, P, band, dtype, shape):
-    """P shards of 1003 columns on cuda:0: one count per shard, and each
-    shard's result equals the plain version on the same halos, on the card
-    and on the CPU, bit for bit."""
+    """P shards of 1003 columns on cuda:0: one launch for all of them, and
+    each shard's result equals the plain version on the same halos, on the
+    card and on the CPU, bit for bit."""
     offsets, d = RING_OFFSETS[band], 3
     n = 1003 * P
     op = _op(offsets, d, n, 21, dtype, cuda)
@@ -299,7 +397,7 @@ def test_ring_kernel_equals_plain(cuda, P, band, dtype, shape):
     before = _build.launches["ring_spmv"]
     got, sop, vs = _ring_on([cuda] * P, op, v)
     torch.cuda.synchronize()
-    assert _build.launches["ring_spmv"] == before + P
+    assert _build.launches["ring_spmv"] == before + 1
     halos, _ = exchange_halos(sop, vs)
     torch.cuda.synchronize()
     for sh, vi, (lh, rh), g in zip(sop.shards, vs, halos, got):
@@ -308,29 +406,31 @@ def test_ring_kernel_equals_plain(cuda, P, band, dtype, shape):
     assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
 
 
-def test_ring_interiors_launch_before_edges(cuda, monkeypatch):
-    """The kernel's entry points are called as P interiors, then P edges, so
-    no interior is queued behind another shard's halo copies; one count per
-    shard."""
+def test_ring_one_launch_per_card(cuda, monkeypatch):
+    """4 shards of one card: one call of the kernel's entry point per sharded
+    SpMV, one count, no halo exchange and no side stream; the result equals
+    the CPU route's bit for bit."""
     calls = []
     lib = _build.kernels()
 
     class Recorder:
         def __getattr__(self, name):
-            if name.startswith("tk_ring_spmv_"):
-                calls.append(name.split("_")[3])
+            if name.startswith("tk_ring_spmv_f"):
+                calls.append(name)
             return getattr(lib, name)
 
-    monkeypatch.setattr(_build, "kernels", lambda: Recorder())
     op = _op(RING_OFFSETS["penta"], 3, 4 * 1000, 29, torch.float64, cuda)
     v = torch.randn((3, 4 * 1000), dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(30))
+    on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * 4), RING_OFFSETS["penta"])(op.bands.cpu(),
+                                                                                               v.cpu())
+    monkeypatch.setattr(_build, "kernels", lambda: Recorder())
+    monkeypatch.setattr(halo_mod, "exchange_halos", lambda *a: pytest.fail("the ring route exchanged halos"))
     before = _build.launches["ring_spmv"]
     got, sop, _ = _ring_on([cuda] * 4, op, v)
     torch.cuda.synchronize()
-    assert calls == ["interior"] * 4 + ["edge"] * 4
-    assert _build.launches["ring_spmv"] == before + 4
-    on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * 4), RING_OFFSETS["penta"])(op.bands.cpu(),
-                                                                                               v.cpu())
+    assert calls == ["tk_ring_spmv_f64"]
+    assert _build.launches["ring_spmv"] == before + 1
+    assert all(sh.side is None for sh in sop.shards) and not sop.halo_buffers
     assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
 
 
@@ -346,17 +446,41 @@ def test_ring_kernel_shard_exactly_halo_wide(cuda, dtype):
 
 
 def test_ring_kernel_across_two_cards(cuda):
-    """4 shards alternating over two cards: the halos are peer copies."""
+    """4 shards alternating over two cards: each card's one launch reads its
+    neighbours' edges over peer access."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     offsets = RING_OFFSETS["penta"]
     op = _op(offsets, 3, 4 * 5000, 25, torch.float64, cuda)
     v = torch.randn((3, 4 * 5000), dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(26))
     devices = [torch.device("cuda", i % 2) for i in range(4)]
+    before = _build.launches["ring_spmv"]
     got, sop, _ = _ring_on(devices, op, v)
-    assert [g.device for g in got] == devices
+    assert [g.device for g in got] == devices and _build.launches["ring_spmv"] == before + 2
     on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * 4), offsets)(op.bands.cpu(), v.cpu())
     assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
+
+
+@pytest.mark.parametrize("comm", ["ring", "gspmd"])
+def test_solve_sharded_across_cards(cuda, comm):
+    """One mode shard per card: the ring route launches once per card and
+    step, reading its neighbours' edges over peer access; both routes give
+    the unsharded solve's traces."""
+    cards = min(torch.cuda.device_count(), 4)
+    if cards < 2:
+        pytest.skip("needs two CUDA devices")
+    op = tkt.laplace(4, 400, shift=2e4, device=cuda)
+    b = tkt.random_rhs(4, 400, seed=7, device=cuda)
+    cfg = tkt.SolverConfig(kmax=60, tol=1e-8)
+    ref = tkt.solve(op, b, cfg)
+    _build.launches.clear()
+    res = solve_sharded(op, b, cfg, make_mesh(devices=[torch.device("cuda", i) for i in range(cards)]), comm)
+    torch.cuda.synchronize()
+    k = res.niterations
+    # one shard per card: one ring launch, or one banded_spmv launch, per card and step
+    assert _build.launches["ring_spmv" if comm == "ring" else "banded_spmv"] == cards * k
+    assert (res.status, k) == (ref.status, ref.niterations) and res.status == tkt.Status.CONVERGED
+    torch.testing.assert_close(res.relative_residual[1:k + 1], ref.relative_residual[1:k + 1], rtol=1e-8, atol=1e-12)
 
 
 @pytest.mark.parametrize("shape", [(4, 8000), (4, 3, 8000)])
@@ -378,9 +502,9 @@ def test_gspmd_route_equals_unsharded_spmv(cuda, shape):
 @pytest.mark.parametrize("fp,comm,orth", [(1, "ring", "lanczos_reorth"), (1, "gspmd", "lanczos_reorth"),
                                           (2, "ring", "lanczos_reorth"), (1, "ring", "arnoldi")])
 def test_solve_sharded_on_card_goes_through_kernel(cuda, fp, comm, orth):
-    """4 shards on the card: every SpMV of the ring route is 4 ring launches
-    and none of banded_spmv, and the reverse for gspmd; the traces agree
-    with the unsharded solve on the card."""
+    """4 shards on the card: every SpMV of the ring route is one ring launch
+    and none of banded_spmv; of the gspmd route 4 banded_spmv launches and
+    no ring launch; the traces agree with the unsharded solve on the card."""
     op = tkt.laplace(4, 400, shift=2e4, device=cuda)
     b = tkt.random_rhs(4, 400, seed=7, device=cuda)
     cfg = tkt.SolverConfig(kmax=60, tol=1e-8, orth=orth)
@@ -389,8 +513,8 @@ def test_solve_sharded_on_card_goes_through_kernel(cuda, fp, comm, orth):
     res = solve_sharded(op, b, cfg, make_mesh(devices=[cuda] * 4, factor_parallel=fp), comm)
     torch.cuda.synchronize()
     k = res.niterations
-    kernel, other = ("ring_spmv", "banded_spmv") if comm == "ring" else ("banded_spmv", "ring_spmv")
-    assert _build.launches[kernel] == 4 * k and _build.launches[other] == 0
+    kernel, other, per_step = ("ring_spmv", "banded_spmv", 1) if comm == "ring" else ("banded_spmv", "ring_spmv", 4)
+    assert _build.launches[kernel] == per_step * k and _build.launches[other] == 0
     assert (res.status, k) == (ref.status, ref.niterations) and res.status == tkt.Status.CONVERGED
     torch.testing.assert_close(res.relative_residual[1:k + 1], ref.relative_residual[1:k + 1], rtol=1e-8, atol=1e-12)
     assert res.x.factors.device == ref.x.factors.device

@@ -1,7 +1,7 @@
 """The port's resident multi-step Lanczos (its plain version, which CPU
 tensors take) against the JAX package's Pallas kernel in interpret mode, and
 against a plain f32 step summed in the same order; the freeze at β' ≤ 1e-30;
-the eligibility rules of step_impl='resident'."""
+the eligibility rules of step_impl='resident'; the kernel's cluster plan."""
 import functools
 
 import numpy as np
@@ -14,13 +14,14 @@ import tensorkrylov_tpu as tk
 import tensorkrylov_tpu.ops.pallas.resident_lanczos as rl
 import tensorkrylov_tpu_torch as tkt
 from tensorkrylov_tpu_torch.interop import operator_from_numpy
-from tensorkrylov_tpu_torch.ops import _build
+from tensorkrylov_tpu_torch.ops import _build, resident_lanczos
 from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core_reference
 from tensorkrylov_tpu_torch.ops.orth import _sqrt_rn
 from tensorkrylov_tpu_torch.ops.resident_lanczos import (
     lanczos_resident_steps,
     lanczos_resident_steps_reference,
     lanczos_resident_supported,
+    resident_lanczos_plan,
 )
 from tensorkrylov_tpu_torch.solver import _resident_eligible, _resolve_config
 
@@ -136,3 +137,28 @@ def test_eligibility_rules(fields, op_kind, eligible):
     assert _resolve_config(cfg, op, host_projected=True).step_impl == ("resident" if eligible else "xla")
     assert _resolve_config(cfg, op).step_impl == "xla"  # solve() has no segments
     assert lanczos_resident_supported(op.astype(F32)) and not lanczos_resident_supported(op)
+
+
+# The card's answers to the plan's two questions, for an H100-like card (132 SMs)
+# and for one that runs no cluster larger than one block.
+H100_FIT = {1: 132, 2: 66, 4: 32, 8: 16, 16: 7}
+NO_CLUSTERS = {1: 132, 2: 0, 4: 0, 8: 0, 16: 0}
+
+
+@pytest.mark.parametrize("fit,d,n,want", [
+    (H100_FIT, 10, 131072, 8),      # 10 clusters of 8 fit at once; of 16, two rounds
+    (H100_FIT, 8, 1 << 20, 8),      # 8 clusters of 16 would take two rounds when 7 fit
+    ({**H100_FIT, 16: 8}, 8, 1 << 20, 16),
+    (H100_FIT, 1, 300, 2),          # two chunks: no more blocks than chunks
+    (H100_FIT, 3, 100, 1),          # one chunk
+    (H100_FIT, 200, 131072, 1),     # d fills every SM
+    (NO_CLUSTERS, 10, 131072, 1),
+    ({1: 132, 2: 66, 4: 32, 8: 0, 16: 0}, 10, 131072, 4),
+])
+def test_resident_plan(monkeypatch, fit, d, n, want):
+    """G from the SM count and the cluster occupancy alone: 1 <= G <= 16, at
+    least one cluster of G fits, and G = 1 where no larger cluster does."""
+    monkeypatch.setattr(resident_lanczos, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(resident_lanczos, "_max_active_clusters", lambda G, device, smem: fit[G])
+    G = resident_lanczos_plan(d, n, "cuda:0")
+    assert G == want and 1 <= G <= 16 and fit[G] >= 1

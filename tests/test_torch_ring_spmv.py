@@ -17,11 +17,11 @@ from tensorkrylov_tpu.parallel.halo import make_halo_spmv as jax_make_halo_spmv
 from tensorkrylov_tpu_torch.interop import operator_from_numpy
 from tensorkrylov_tpu_torch.ops import _build
 from tensorkrylov_tpu_torch.ops.banded import spmv
-from tensorkrylov_tpu_torch.ops.ring_spmv import make_ring_spmv, ring_spmv_local, ring_spmv_reference
+from tensorkrylov_tpu_torch.ops.ring_spmv import RingLaunch, make_ring_spmv, ring_spmv_local, ring_spmv_reference
 from tensorkrylov_tpu_torch.parallel import gather, make_mesh, shard_operator
 from tensorkrylov_tpu_torch.parallel import halo as halo_mod
 from tensorkrylov_tpu_torch.parallel import shard_rhs
-from tensorkrylov_tpu_torch.parallel.halo import exchange_halos, make_halo_spmv, spmv_halo, spmv_sharded
+from tensorkrylov_tpu_torch.parallel.halo import exchange_halos, make_halo_spmv, ring_sources, spmv_halo, spmv_sharded
 
 CPU8 = [torch.device("cpu")] * 8
 WIDE = (-7, -2, 0, 3, 5)
@@ -231,3 +231,48 @@ def test_make_halo_spmv_shards_the_bands_once(monkeypatch):
     assert torch.equal(fn(tb, tv), first) and len(splits) == 1
     fn(tb.clone(), tv)
     assert len(splits) == 2
+
+
+@pytest.mark.parametrize("factor_parallel", [1, 2])
+@pytest.mark.parametrize("shape", ["dn", "dmn"])
+def test_ring_sources_read_the_halos(factor_parallel, shape):
+    """The sources the ring kernel reads in place (a neighbour's v, its row
+    stride and column base) address exactly the columns that the exchange
+    copies into the halo buffers; None at each group's chain ends."""
+    bands, _ = _bands(WIDE, 4, 64, 18, np.float64)
+    mesh = make_mesh(devices=CPU8, factor_parallel=factor_parallel)
+    sop = shard_operator(operator_from_numpy(bands, WIDE), mesh, "ring")
+    vshape = (4, 64) if shape == "dn" else (4, 3, 64)
+    vs = shard_rhs(torch.tensor(np.random.default_rng(19).standard_normal(vshape)), mesh)
+    halos, _ = exchange_halos(sop, vs)
+    H, P = sop.halo, sop.n_mode
+    for q, ((left, right), (lh, rh)) in enumerate(zip(ring_sources(sop, vs), halos)):
+        for src, halo, end, lo in ((left, lh, q % P == 0, -H), (right, rh, q % P == P - 1, 0)):
+            if end:
+                assert src is None and not halo.any()
+                continue
+            rows = src.tensor.reshape(-1, src.tensor.shape[-1])
+            read = rows[:, src.base + lo:src.base + lo + H].reshape(halo.shape)
+            assert torch.equal(read, halo)
+
+
+def test_ring_across_cards_without_peer_access_raises(monkeypatch):
+    """The ring route reads a neighbour's v on another card in place; where
+    the cards cannot reach each other it raises before any copy and names
+    the route that copies instead."""
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: False)
+    op = operator_from_numpy(_bands(WIDE, 2, 64, 20, np.float64)[0], WIDE)
+    mesh = make_mesh(devices=[torch.device("cuda", i % 2) for i in range(4)])
+    with pytest.raises(ValueError, match="comm='gspmd'"):
+        shard_operator(op, mesh, "ring")
+
+
+def test_ring_kernel_launch_takes_cuda_shards_only():
+    """A RingLaunch is the kernel's launch: CPU shards take the plain version
+    (ring_spmv_local, spmv_sharded) and are refused here, and a CPU ring
+    operator builds none."""
+    bands, _ = _bands(WIDE, 2, 8, 21, np.float64)
+    op = operator_from_numpy(bands, WIDE)
+    with pytest.raises(ValueError, match="CUDA shards"):
+        RingLaunch([op])
+    assert shard_operator(op, make_mesh(devices=[torch.device("cpu")]), "ring").ring == ()
