@@ -7,14 +7,22 @@ Phases, one output line each:
   1. device  — a CUDA device whose name contains H100 (and the nvidia-smi line);
   2. build   — nvcc builds the kernels in tensorkrylov_tpu_torch/ops/csrc;
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
-               (the SpMV and the fused core in f64 and f32; the resident
-               multi-step Lanczos kernel in f32, 8 steps from β = 0, bit for
-               bit, at the cluster size G its plan picks and at every G of
-               1, 2, 4, 8, 16, each timed; the SpMV and 32 resident steps on
-               the bench's own d=8, n=2^20 f32 inputs, bit for bit, with the
-               same G sweep; the multi-apply SpMV in f64 and f32, 200
-               applies, at the bench's d=8, n=2^20 and on distinct
-               pentadiagonal factors);
+               (the SpMV in f64 and f32; the fused core in f64 and f32, bit
+               for bit, with w in shared memory and in u's row, timed at
+               d=10, n=131072 in both placements as a call and as a CUDA-graph
+               replay of the call (its launch alone); the resident multi-step
+               Lanczos kernel in f32, 8 steps from β = 0, bit for bit, at the
+               cluster size G its plan picks and at every G of 1, 2, 4, 8,
+               16, each timed; the SpMV and 32 resident steps on the bench's
+               own d=8, n=2^20 f32 inputs, bit for bit, with the same G sweep;
+               the multi-apply SpMV in f64 and f32, 200 applies, bit for bit
+               at each of its instantiations: centred 3 bands at the bench's
+               d=8, n=2^20, centred 5 bands and the generic one on distinct
+               pentadiagonal and 7-band factors, and at d=8, n=2^20 a distinct
+               pentadiagonal operator through the 5-band instantiation and,
+               forced, the generic one, each timed; its plan (M, T) on the
+               phase's line, the launches of one m=200 call on the kernels
+               line);
   4. golden  — tests/golden_laplace_d4_n100.json reproduced on the card, and the
                dense-oracle residual at d=3, n=30;
   5. slice   — reaction_diffusion(d=10, n=131072), f64, kmax=200, tol=1e-8, with
@@ -115,17 +123,18 @@ def unit_rows(rng, shape, dtype, device):
     return torch.tensor(x, dtype=dtype, device=device)
 
 
-def penta_operator(tkt, d, n, seed, device):
-    """Distinct random symmetric, diagonally dominant pentadiagonal factors."""
+def banded_operator(tkt, d, n, h, seed, device):
+    """Distinct random symmetric, diagonally dominant factors with the 2h + 1
+    centred offsets -h..h (h = 2: pentadiagonal)."""
     rng = np.random.default_rng(seed)
-    offsets = (-2, -1, 0, 1, 2)
-    bands = np.zeros((d, 5, n))
+    offsets = tuple(range(-h, h + 1))
+    bands = np.zeros((d, 2 * h + 1, n))
     for s in range(d):
-        for k in (1, 2):
+        for k in range(1, h + 1):
             upper = rng.uniform(-1.0, 1.0, n - k)       # A[i, i+k] = A[i+k, i]
-            bands[s, 2 + k, : n - k] = upper
-            bands[s, 2 - k, k:] = upper
-        bands[s, 2] = 5.0 + rng.uniform(0.0, 1.0, n)
+            bands[s, h + k, : n - k] = upper
+            bands[s, h - k, k:] = upper
+        bands[s, h] = 2 * h + 1 + rng.uniform(0.0, 1.0, n)
     return tkt.KroneckerSumOperator(torch.tensor(bands, device=device), offsets, True)
 
 
@@ -253,9 +262,47 @@ def resident_setting(G=None, u_shared_bytes=None):
         rl.resident_lanczos_plan, rl.U_SHARED_BYTES = saved
 
 
+@contextlib.contextmanager
+def fused_setting(G=None, w_shared_bytes=None):
+    """Within the block, the fused kernel launches with G blocks per factor
+    whatever its plan says, and/or keeps w in shared memory only where it
+    fits in w_shared_bytes (0: never, w in u's row): module settings of
+    ops/fused_lanczos.py, restored after."""
+    from tensorkrylov_tpu_torch.ops import fused_lanczos as fl
+
+    saved = fl.fused_lanczos_plan, fl.W_SHARED_BYTES
+    if G is not None:
+        fl.fused_lanczos_plan = lambda d, n, dtype, device=None: G
+    if w_shared_bytes is not None:
+        fl.W_SHARED_BYTES = w_shared_bytes
+    try:
+        yield
+    finally:
+        fl.fused_lanczos_plan, fl.W_SHARED_BYTES = saved
+
+
+W_PLACEMENTS = {"shared": None, "u_row": 0}  # the fused kernel's w: where its plan puts it, and forced into u's row
+
+
+@contextlib.contextmanager
+def generic_spmv():
+    """Within the block, the multi-apply kernel takes its generic instantiation
+    for every operator, the centred 3- and 5-band sets too: ops/resident_spmv.py's
+    _centred answers no, restored after."""
+    from tensorkrylov_tpu_torch.ops import resident_spmv as rs
+
+    saved = rs._centred
+    rs._centred = lambda op: False
+    try:
+        yield
+    finally:
+        rs._centred = saved
+
+
 def phase_kernels(tkt):
     from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
-    from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
+    from tensorkrylov_tpu_torch.ops.fused_lanczos import (
+        fused_lanczos_core, fused_lanczos_core_reference, fused_lanczos_plan)
     from tensorkrylov_tpu_torch.ops import resident_lanczos
     from tensorkrylov_tpu_torch.ops.resident_lanczos import (
         ResidentSteps, lanczos_resident_steps, lanczos_resident_steps_reference, resident_lanczos_plan)
@@ -263,7 +310,7 @@ def phase_kernels(tkt):
     dev = torch.device("cuda")
     scaled_laplace = tkt.laplace(10, 131072, device=dev)
     scaled_laplace = tkt.KroneckerSumOperator(scaled_laplace.bands / (4.0 * 131073**2), scaled_laplace.offsets)
-    cases = {"d10_n131072_tridiag": scaled_laplace, "d3_n1001_penta_distinct": penta_operator(tkt, 3, 1001, 5, dev)}
+    cases = {"d10_n131072_tridiag": scaled_laplace, "d3_n1001_penta_distinct": banded_operator(tkt, 3, 1001, 2, 5, dev)}
     checks, worst = [], {}
     for case, op64 in cases.items():
         for dtype in (torch.float64, torch.float32):
@@ -282,15 +329,18 @@ def phase_kernels(tkt):
                     worst["banded_spmv"] = float((got - ref).abs().max())
             v_prev, v_pprev, b = (unit_rows(rng, (d, n), dtype, dev) for _ in range(3))
             beta = torch.tensor(rng.uniform(0.1, 1.0, d), dtype=dtype, device=dev)
-            got = fused_lanczos_core(op, v_prev, v_pprev, beta, b)
             ref = fused_lanczos_core_reference(op, v_prev, v_pprev, beta, b)
-            torch.cuda.synchronize()
-            for name, g, r in zip(("u", "alpha", "beta_sq", "ub"), got, ref):
-                err = rel_err(g, r)
-                checks.append(dict(kernel="fused_lanczos", case=case, dtype=str(dtype)[6:], out=name, err=err, limit=limit))
-                require(err <= limit, f"fused_lanczos {case} {dtype} {name}: {err} > {limit}")
-            if case.startswith("d10") and dtype == torch.float64:
-                worst["fused_lanczos"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            # bit for bit, with w in shared memory (the plan's placement here) and in u's row
+            for placement, w_bytes in W_PLACEMENTS.items():
+                with fused_setting(w_shared_bytes=w_bytes):
+                    got = fused_lanczos_core(op, v_prev, v_pprev, beta, b)
+                torch.cuda.synchronize()
+                err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+                checks.append(dict(kernel="fused_lanczos", case=case, dtype=str(dtype)[6:], w=placement,
+                                   max_abs_err=err, limit=0.0))
+                require(err == 0.0, f"fused_lanczos {case} {dtype} w in {placement}: error {err}")
+                if case.startswith("d10") and dtype == torch.float64:
+                    worst["fused_lanczos"] = max(worst.get("fused_lanczos", 0.0), err)
         # the resident kernel takes f32 only: STEPS steps from a unit start, vpp = 0, β = 0,
         # bit for bit at the plan's cluster size and at every other
         op = op64.astype(torch.float32)
@@ -319,6 +369,20 @@ def phase_kernels(tkt):
         "fused_lanczos": time_pair(lambda: fused_lanczos_core_reference(op, v, v_pprev, beta, b),
                                    lambda: fused_lanczos_core(op, v, v_pprev, beta, b)),
     }
+    # the fused call in both w placements, and its launch alone: the call captured in a CUDA graph and replayed
+    fused = {"G": fused_lanczos_plan(10, 131072, torch.float64, dev)}
+    call = lambda: fused_lanczos_core(op, v, v_pprev, beta, b)
+    ref64 = call()
+    for placement, w_bytes in W_PLACEMENTS.items():
+        with fused_setting(w_shared_bytes=w_bytes):
+            require(all(torch.equal(g, r) for g, r in zip(call(), ref64)), f"fused_lanczos w in {placement}: bits")
+            fused[placement] = dict(ms=time_one(call), device_ms=graph_replay_ms(call, ref64))
+    # the launch alone at every G, w where the kernel puts it: the same bits
+    fused["device_ms_by_G"] = {}
+    for G in CLUSTER_SIZES:
+        with fused_setting(G):
+            require(all(torch.equal(g, r) for g, r in zip(call(), ref64)), f"fused_lanczos G={G}: bits")
+            fused["device_ms_by_G"][G] = graph_replay_ms(call, ref64)
     # the resident kernel at the host-projected path's shape and dtype: f32, one segment of STEPS steps
     op32 = op.astype(torch.float32)
     start = (v.float(), torch.zeros_like(v, dtype=torch.float32), torch.zeros(10, dtype=torch.float32, device=dev))
@@ -347,7 +411,7 @@ def phase_kernels(tkt):
                             library_ms=library_spmv_ms(op, v, spmv_reference(op, v))),
         # reads bands, v_prev, v_pprev, b, β; writes u, α, β², ⟨u, b⟩
         "fused_lanczos": dict(bound((nb + 4) * d * n * e + 4 * d * e, d * (2 * nnz + 10 * n), torch.float64),
-                              library_ms=None),
+                              library_ms=None, device_ms=fused["shared"]["device_ms"]),
         # f32, STEPS steps: reads bands, vp, vpp, β; writes V (S, d, n), α, β (d, S), β_last
         "resident_lanczos": dict(bound(((nb + 2 + STEPS) * d * n + (2 * STEPS + 2) * d) * 4,
                                        STEPS * d * (2 * nnz + 9 * n), torch.float32), library_ms=None),
@@ -357,8 +421,8 @@ def phase_kernels(tkt):
     emit("kernels", ok=True, checks=checks,
          ms_at_d10_n131072={k: {"kernel": t[0], "plain": t[1], "dtype": "float32" if k == "resident_lanczos"
                                 else "float64"} for k, t in times.items() if k != "resident_spmv"},
-         resident_steps_per_call=STEPS, resident_cluster_d10_n131072=resident_g, ms_at_bench_shape=bench_shape,
-         resident_spmv=resident_spmv, bounds=extra)
+         fused_d10_n131072_f64=fused, resident_steps_per_call=STEPS, resident_cluster_d10_n131072=resident_g,
+         ms_at_bench_shape=bench_shape, resident_spmv=resident_spmv, bounds=extra)
     return worst, times, extra
 
 
@@ -411,20 +475,28 @@ def phase_kernels_bench_shape(checks):
 
 
 def phase_kernels_resident_spmv(tkt, checks, worst, times, extra):
-    """The multi-apply kernel against its plain version, bit for bit: at the
-    bench's shape (d=8, n=2^20, tridiagonal, f32 and f64, m=200) and on
-    distinct pentadiagonal factors (d=3, n=1001) with m % M != 0; timed at
-    the bench's shape in f32."""
+    """The multi-apply kernel against its plain version, bit for bit, in f32
+    and f64 at each of its instantiations: tridiagonal at the bench's shape
+    (d=8, n=2^20, m=200), and distinct pentadiagonal and 7-band factors (d=3,
+    n=1001) with m % M != 0; timed at the bench's shape, where a distinct
+    pentadiagonal operator also goes through the centred 5-band instantiation
+    and, forced, the generic one (both bit for bit). The launches of one
+    m=200 call are counted there."""
+    from tensorkrylov_tpu_torch.ops import _build
     from tensorkrylov_tpu_torch.ops.resident_spmv import (
         resident_spmv_plan, spmv_multi_apply, spmv_multi_apply_reference)
 
     dev = torch.device("cuda")
     bench_op = tkt.laplace(8, 1 << 20, device=dev)
     scale = 1.0 / (4.0 * ((1 << 20) + 1) ** 2)
-    cases = {"d8_n1048576_tridiag": (bench_op, scale, RESIDENT_SPMV_APPLIES),
-             "d3_n1001_penta_distinct": (penta_operator(tkt, 3, 1001, 5, dev), 0.125, RESIDENT_SPMV_APPLIES)}
+    m = RESIDENT_SPMV_APPLIES
+    cases = {  # name: (operator, scale, the kernel's instantiation)
+        "d8_n1048576_tridiag": (bench_op, scale, "centred 3 bands"),
+        "d3_n1001_penta_distinct": (banded_operator(tkt, 3, 1001, 2, 5, dev), 0.125, "centred 5 bands"),
+        "d3_n1001_7band_distinct": (banded_operator(tkt, 3, 1001, 3, 6, dev), 0.1, "generic"),
+    }
     plans = {}
-    for case, (op64, c, m) in cases.items():
+    for case, (op64, c, kind) in cases.items():
         for dtype in (torch.float64, torch.float32):
             op = op64.astype(dtype)
             M, T = resident_spmv_plan(op)
@@ -434,25 +506,57 @@ def phase_kernels_resident_spmv(tkt, checks, worst, times, extra):
             got, ref = spmv_multi_apply(op, v, m, c), spmv_multi_apply_reference(op, v, m, c)
             torch.cuda.synchronize()
             err = float((got - ref).abs().max())
-            plans[f"{case}_{str(dtype)[6:]}"] = dict(M=M, T=T, launches=-(-m // M), m=m)
-            checks.append(dict(kernel="resident_spmv", case=case, dtype=str(dtype)[6:], m=m, M=M, T=T,
-                               max_abs_err=err, ref_max=float(ref.abs().max()), limit=0.0))
+            plans[f"{case}_{str(dtype)[6:]}"] = dict(M=M, T=T, launches=-(-m // M), m=m, instantiation=kind)
+            checks.append(dict(kernel="resident_spmv", case=case, dtype=str(dtype)[6:], instantiation=kind, m=m, M=M,
+                               T=T, max_abs_err=err, ref_max=float(ref.abs().max()), limit=0.0))
             require(err == 0.0 and bool(ref.abs().max() > 0), f"resident_spmv {case} {dtype}: error {err}")
-            if case.startswith("d8") and dtype == torch.float32:
-                worst["resident_spmv"] = err
-    m = RESIDENT_SPMV_APPLIES
-    ms = {}
+            worst["resident_spmv"] = max(worst.get("resident_spmv", 0.0), err)
+    ms, launches_per_call = {}, {}
     for dtype in (torch.float32, torch.float64):
         op = bench_op.astype(dtype)
         v = unit_rows(np.random.default_rng(15), (8, 1 << 20), dtype, dev)
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        spmv_multi_apply(op, v, m, scale)
+        torch.cuda.synchronize()
+        launches_per_call[str(dtype)[6:]] = _build.launches["resident_spmv"]
         ms[str(dtype)[6:]] = time_pair(lambda: spmv_multi_apply_reference(op, v, m, scale),
                                        lambda: spmv_multi_apply(op, v, m, scale), reps=3, warm=1)
+    # a distinct pentadiagonal operator at the bench's shape: the centred 5-band instantiation against the
+    # generic one, each bit for bit against the plain version and timed
+    penta = banded_operator(tkt, 8, 1 << 20, 2, 17, dev)
+    penta_ms = {}
+    for dtype in (torch.float32, torch.float64):
+        op = penta.astype(dtype)
+        v = unit_rows(np.random.default_rng(18), (8, 1 << 20), dtype, dev)
+        ref = spmv_multi_apply_reference(op, v, m, 0.125)
+        row = {}
+        for kind, ctx in (("centred_5_bands", contextlib.nullcontext), ("generic", generic_spmv)):
+            with ctx():
+                M, T = resident_spmv_plan(op)
+                got = spmv_multi_apply(op, v, m, 0.125)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                checks.append(dict(kernel="resident_spmv", case="d8_n1048576_penta_distinct", dtype=str(dtype)[6:],
+                                   instantiation=kind, m=m, M=M, T=T, max_abs_err=err,
+                                   ref_max=float(ref.abs().max()), limit=0.0))
+                require(err == 0.0 and bool(ref.abs().max() > 0), f"resident_spmv penta {kind} {dtype}: error {err}")
+                row[kind] = dict(ms=time_one(lambda: spmv_multi_apply(op, v, m, 0.125), reps=3, warm=1), M=M, T=T)
+        penta_ms[str(dtype)[6:]] = row
+        del ref, got
     times["resident_spmv"] = ms["float32"]
     # f32: reads bands and v once, writes u once; m applies of the SpMV and the scaling
     nb, d, n = len(bench_op.offsets), 8, 1 << 20
-    extra["resident_spmv"] = dict(bound((nb + 2) * d * n * 4, m * d * (2 * bench_op.nnz_per_factor + n),
-                                        torch.float32), library_ms=None)
-    return dict(plans=plans, ms_d8_n1048576_m200={k: {"kernel": t[0], "plain": t[1]} for k, t in ms.items()})
+    flops = m * d * (2 * bench_op.nnz_per_factor + n)
+    extra["resident_spmv"] = dict(bound((nb + 2) * d * n * 4, flops, torch.float32), library_ms=None,
+                                  launches_per_call=launches_per_call["float32"],
+                                  ms_float64=ms["float64"][0], plain_ms_float64=ms["float64"][1])
+    # the floor under the kernel's rounding contract: each operation on its own at half the peak rate
+    # (the peak counts an FMA as two); computed, not measured
+    return dict(plans=plans, launches_per_call_m200=launches_per_call,
+                ms_d8_n1048576_m200={k: {"kernel": t[0], "plain": t[1]} for k, t in ms.items()},
+                penta_d8_n1048576_m200=penta_ms,
+                computed_no_fma_floor_ms=flops / (PEAK_FLOP_S[torch.float32] / 2) * 1e3)
 
 
 def run_solve(tkt, op, b, config, entry="solve"):
@@ -968,8 +1072,7 @@ def main():
     kernels = [dict(name=name, route="cuda", source=f"{pkg}/{name}.cu",
                     replaces=f"tensorkrylov_tpu/ops/pallas/{where}", launches=launches[name],
                     max_abs_err=worst[name], ms=times[name][0], plain_ms=times[name][1],
-                    bound_ms=extra[name]["bound_ms"], bound_by=extra[name]["bound_by"],
-                    library_ms=extra[name]["library_ms"])
+                    **{k: v for k, v in extra[name].items() if k not in ("bytes", "flops")})
                for name, where in replaces.items()]
     kernels.append(dict(name="ring_spmv", route="cuda", source=f"{pkg}/ring_spmv.cu",
                         replaces="tensorkrylov_tpu/ops/pallas/ring_spmv.py:45", launches=ring_launches["ring_spmv"],

@@ -48,15 +48,16 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "tk_banded_spmv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tk_banded_spmv_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tk_fused_lanczos_f32": [_P] * 9 + [_I, _I, _I, _P],
-    "tk_fused_lanczos_f64": [_P] * 9 + [_I, _I, _I, _P],
+    "tk_fused_lanczos_f32": [_P] * 8 + [_I] * 5 + [_P],
+    "tk_fused_lanczos_f64": [_P] * 8 + [_I] * 5 + [_P],
     "tk_fused_lanczos_block_elems": [],
+    "tk_fused_lanczos_max_clusters": [_I, _I, _I, _P],
     "tk_resident_lanczos_f32": [_P] * 10 + [_I] * 6 + [_P],
     "tk_resident_lanczos_max_clusters": [_I, _I, _P],
     "tk_resident_lanczos_block_elems": [],
-    "tk_resident_spmv_plan": [_I, _I, _I, _I, _P],
-    "tk_resident_spmv_f32": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
-    "tk_resident_spmv_f64": [_P] * 4 + [_I] * 6 + [ctypes.c_double, _P],
+    "tk_resident_spmv_plan": [_I] * 5 + [_P],
+    "tk_resident_spmv_f32": [_P] * 4 + [_I] * 7 + [ctypes.c_double, _P],
+    "tk_resident_spmv_f64": [_P] * 4 + [_I] * 7 + [ctypes.c_double, _P],
     "tk_ring_spmv_f32": [_P, _I, _P] + [_I] * 5 + [_P],
     "tk_ring_spmv_f64": [_P, _I, _P] + [_I] * 5 + [_P],
     "tk_ring_spmv_max_shards": [],

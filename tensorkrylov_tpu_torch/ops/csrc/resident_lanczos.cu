@@ -55,70 +55,10 @@ namespace {
 
 constexpr int kThreads = 1024;           // threads per block; G blocks per factor
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 256;              // elements per chunk tree (fused_lanczos.py:BLOCK)
-constexpr int kPerLane = kChunk / 32;    // elements of a chunk each lane holds
-constexpr int kSlots = 256;              // second-stage slots (fused_lanczos.py:BLOCK)
+constexpr int kChunk = tk::kChunk;       // elements per chunk tree (fused_lanczos.py:BLOCK)
+constexpr int kPerLane = tk::kPerLane;   // elements of a chunk each lane holds
 constexpr int64_t kMaxCluster = 16;      // the H100's largest cluster, non-portable above 8
-static_assert(kSlots <= kThreads, "thread k < 256 owns slot k");
-
-// Tree sum of the 256 values x[j] of lane l = element l + 32 j of a chunk, in
-// fixed_order_sum's pairing (element i + element i + h, h = 128, 64, ..., 1);
-// the result is valid in lane 0.
-__device__ __forceinline__ float chunk_tree(float (&x)[kPerLane]) {
-#pragma unroll
-  for (int h = kPerLane / 2; h > 0; h >>= 1) {
-#pragma unroll
-    for (int j = 0; j < h; ++j) x[j] = tk::add_rn(x[j], x[j + h]);
-  }
-  float t = x[0];
-#pragma unroll
-  for (int h = 16; h > 0; h >>= 1) t = tk::add_rn(t, __shfl_down_sync(0xffffffffu, t, h));
-  return t;
-}
-
-// Every thread of every block of the cluster arrives; the release makes this
-// thread's earlier writes (global memory included) visible at cluster scope,
-// the acquire makes every other thread's visible to the loads that follow.
-__device__ __forceinline__ void cluster_barrier() {
-  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
-}
-
-// csum[c] = the tree sum of the values fill(i0, x) puts in x for chunk c,
-// lane l holding elements i0 + 32 k, i0 = c * 256 + l (x[k] = 0 past n); for
-// this block's chunks [c0, c1), warp w taking chunks c0 + w, c0 + w + 32, ...
-// fill may also write those elements of a row: each thread fills the same
-// elements in every pass of a step.
-template <typename F>
-__device__ __forceinline__ void chunk_sums(int64_t c0, int64_t c1, float* csum, F fill) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int64_t c = c0 + warp; c < c1; c += kWarps) {
-    float x[kPerLane];
-    fill(c * kChunk + lane, x);
-    const float part = chunk_tree(x);
-    if (lane == 0) csum[c] = part;
-  }
-}
-
-// The fixed-order total of the n_chunks chunk sums that the whole cluster
-// wrote before its barrier; every thread of the block gets it.
-__device__ float chunk_total(const float* csum, int64_t n_chunks, float* slots, float* result) {
-  if (threadIdx.x < kSlots) {
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int64_t c = threadIdx.x; c < n_chunks; c += kSlots) acc = tk::add_rn(acc, csum[c]);
-    slots[threadIdx.x] = acc;
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float x[kPerLane];
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) x[j] = slots[threadIdx.x + 32 * j];
-    const float total = chunk_tree(x);
-    if (threadIdx.x == 0) *result = total;
-  }
-  __syncthreads();
-  return *result;
-}
+static_assert(tk::kSlots <= kThreads, "thread k < 256 owns slot k");
 
 // Launched as d clusters of G blocks: block b works on factor b / G as the
 // cluster's block b % G. In each pass a lane loads all 8 of its elements
@@ -131,7 +71,7 @@ resident_lanczos_kernel(const float* __restrict__ bands, const int64_t* __restri
                         const float* vp_in, const float* vpp_in, const float* beta_in, float* V,
                         float* alpha_out, float* beta_out, float* beta_last, float* u_all, float* csum_all,
                         int64_t d, int64_t nb, int64_t n, int64_t S, int G, int u_shared) {
-  __shared__ float slots[kSlots];
+  __shared__ float slots[tk::kSlots];
   __shared__ float result;
   extern __shared__ float u_smem[];
   const int64_t s = blockIdx.x / G;
@@ -153,38 +93,13 @@ resident_lanczos_kernel(const float* __restrict__ bands, const int64_t* __restri
     const float* vp = j == 0 ? vp_in + s * n : V + ((j - 1) * d + s) * n;
     const float* vpp = j == 0 ? vpp_in + s * n : (j == 1 ? vp_in + s * n : V + ((j - 2) * d + s) * n);
     // u = A vp - beta vpp, each product and sum in band order from zero; x = u * vp
-    chunk_sums(c0, c1, csum_alpha, [&](int64_t i0, float (&x)[kPerLane]) {
-      float w[kPerLane], vpi[kPerLane];
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) w[k] = 0.0f;
-      for (int64_t b = 0; b < nb; ++b) {
-        const int64_t off = offsets[b];
-        const float* band = bands_s + b * n;
-#pragma unroll
-        for (int k = 0; k < kPerLane; ++k) {
-          const int64_t i = i0 + 32 * k, col = i + off;
-          const float a = i < n ? band[i] : 0.0f;
-          const float y = (i < n && col >= 0 && col < n) ? vp[col] : 0.0f;
-          w[k] = tk::add_rn(w[k], tk::mul_rn(a, y));
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const int64_t i = i0 + 32 * k;
-        vpi[k] = i < n ? vp[i] : 0.0f;
-        w[k] = tk::sub_rn(w[k], tk::mul_rn(beta, i < n ? vpp[i] : 0.0f));
-      }
-#pragma unroll
-      for (int k = 0; k < kPerLane; ++k) {
-        const int64_t i = i0 + 32 * k;
-        if (i < n) u[i - ib] = w[k];
-        x[k] = i < n ? tk::mul_rn(w[k], vpi[k]) : 0.0f;
-      }
+    tk::chunk_sums<kWarps>(c0, c1, csum_alpha, [&](int64_t i0, float (&x)[kPerLane]) {
+      tk::lanczos_w_pass(bands_s, offsets, vp, vpp, beta, nb, n, i0, u, ib, x);
     });
-    cluster_barrier();  // every chunk sum of alpha written
-    const float alpha = chunk_total(csum_alpha, n_chunks, slots, &result);
+    tk::cluster_barrier();  // every chunk sum of alpha written
+    const float alpha = tk::chunk_total(csum_alpha, n_chunks, slots, &result);
     // u -= alpha vp; x = u * u
-    chunk_sums(c0, c1, csum_beta, [&](int64_t i0, float (&x)[kPerLane]) {
+    tk::chunk_sums<kWarps>(c0, c1, csum_beta, [&](int64_t i0, float (&x)[kPerLane]) {
       float ui[kPerLane], vpi[kPerLane];
 #pragma unroll
       for (int k = 0; k < kPerLane; ++k) {
@@ -202,8 +117,8 @@ resident_lanczos_kernel(const float* __restrict__ bands, const int64_t* __restri
     });
     // every chunk sum of beta written; and every block has read csum_alpha,
     // which step j + 1 overwrites
-    cluster_barrier();
-    const float beta_sq = chunk_total(csum_beta, n_chunks, slots, &result);
+    tk::cluster_barrier();
+    const float beta_sq = tk::chunk_total(csum_beta, n_chunks, slots, &result);
     const float beta_new = __fsqrt_rn(beta_sq);
     const bool ok = beta_new > 1e-30f;
     const float inv = ok ? __fdiv_rn(1.0f, beta_new) : 0.0f;
@@ -226,25 +141,14 @@ resident_lanczos_kernel(const float* __restrict__ bands, const int64_t* __restri
     }
     // column j complete before any block's step j + 1 reads its neighbours;
     // and every block has read csum_beta, which step j + 1 overwrites
-    cluster_barrier();
+    tk::cluster_barrier();
   }
   if (rank == 0 && threadIdx.x == 0) beta_last[s] = beta;
 }
 
-cudaLaunchConfig_t cluster_config(int64_t blocks, int64_t G, size_t smem, cudaLaunchAttribute* attr,
-                                  cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(G);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+cudaError_t allow_shared(int64_t smem) {
+  static tk::SharedAllowance allowance;
+  return tk::allow_shared(reinterpret_cast<const void*>(resident_lanczos_kernel), allowance, smem, true);
 }
 
 }  // namespace
@@ -262,16 +166,14 @@ extern "C" int tk_resident_lanczos_f32(const void* bands, const void* offsets, c
                                        void* stream) {
   if (d == 0 || S == 0) return 0;
   if (G < 1 || G > kMaxCluster || d * G > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t per_block = ((n + kChunk - 1) / kChunk + G - 1) / G;
   // the bytes that ops/resident_lanczos.py:_u_bytes gives the occupancy query
   const size_t smem = u_shared ? static_cast<size_t>(per_block) * kChunk * sizeof(float) : 0;
-  err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  cudaError_t err = allow_shared(static_cast<int64_t>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(d * G, G, smem, &attr, static_cast<cudaStream_t>(stream));
+  const cudaLaunchConfig_t cfg =
+      tk::cluster_config(d * G, kThreads, G, smem, &attr, static_cast<cudaStream_t>(stream));
   float* u = static_cast<float*>(scratch);
   err = cudaLaunchKernelEx(&cfg, resident_lanczos_kernel, static_cast<const float*>(bands),
                            static_cast<const int64_t*>(offsets), static_cast<const float*>(vp),
@@ -290,14 +192,10 @@ extern "C" int tk_resident_lanczos_f32(const void* bands, const void* offsets, c
 extern "C" int tk_resident_lanczos_max_clusters(int64_t G, int64_t smem, int64_t* clusters) {
   *clusters = 0;
   if (G < 1 || G > kMaxCluster) return 0;
-  cudaError_t err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(resident_lanczos_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  }
+  cudaError_t err = allow_shared(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(G, G, static_cast<size_t>(smem), &attr, nullptr);
+  const cudaLaunchConfig_t cfg = tk::cluster_config(G, kThreads, G, static_cast<size_t>(smem), &attr, nullptr);
   int num = 0;
   err = cudaOccupancyMaxActiveClusters(&num, reinterpret_cast<const void*>(resident_lanczos_kernel), &cfg);
   if (err != cudaSuccess) {  // a cluster size the card refuses: none fits

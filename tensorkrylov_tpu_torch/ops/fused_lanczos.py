@@ -1,29 +1,37 @@
 """Fused plain-Lanczos recurrence core: counterpart of
 ``tensorkrylov_tpu/ops/pallas/fused_lanczos.py:fused_lanczos_core``.
 
-``fused_lanczos_core`` launches the CUDA kernels of ``csrc/fused_lanczos.cu``
+``fused_lanczos_core`` launches the CUDA kernel of ``csrc/fused_lanczos.cu``
 (the port of the Pallas kernels ``_k1``/``_k2``) for tensors on a CUDA device,
 in f32 or f64, and computes its plain PyTorch version
 ``fused_lanczos_core_reference`` for tensors on the CPU. On any other device
 it raises. Unlike the TPU kernel it has no tile argument and no halo limit.
 
-Both take the α, β² and ⟨u, b⟩ sums in the kernel's fixed two-stage order
-(``fixed_order_sum``), so the two agree bit for bit. The order matters: a
-Lanczos recurrence without reorthogonalization amplifies a change in the
-rounding of these sums by about 2.6× per step (see
+The kernel is one launch per call: one thread-block cluster of G blocks per
+factor (``fused_lanczos_plan``), which keeps w on chip between α and u, in
+shared memory where a block's part fits in ``W_SHARED_BYTES`` and in u's own
+row otherwise. Both take the α, β² and ⟨u, b⟩ sums in the kernel's fixed
+two-stage order (``fixed_order_sum``), so the two agree bit for bit at every G
+and in both placements. The order matters: a Lanczos recurrence without
+reorthogonalization amplifies a change in the rounding of these sums by about
+2.6× per step (see
 ``tests/test_torch_solve.py::test_fused_trace_depends_on_sum_order``).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..types import KroneckerSumOperator
 from . import _build
+from ._cluster import cluster_plan, device_index, max_active_clusters, sm_count as _sm_count
 from .banded import spmv_reference
 
-__all__ = ["fused_lanczos_core", "fused_lanczos_core_reference", "fixed_order_sum"]
+__all__ = ["fused_lanczos_core", "fused_lanczos_core_reference", "fixed_order_sum", "fused_lanczos_plan"]
 
-BLOCK = 256  # elements of a row per block of csrc/fused_lanczos.cu (its kThreads)
+BLOCK = 256  # elements of a chunk tree and second-stage slots of the kernels (tk_common.cuh: kChunk, kSlots)
+W_SHARED_BYTES = 200 * 1024  # a block keeps its elements of w in shared memory when they fit in this
 
 
 def _tree_sum(x):
@@ -60,6 +68,34 @@ def fused_lanczos_core_reference(op: KroneckerSumOperator, v_prev, v_pprev, beta
     return u, alpha, fixed_order_sum(u * u), fixed_order_sum(u * b)
 
 
+def _w_bytes(n: int, G: int, elt: int) -> int:
+    """The dynamic shared memory of a launch: a block's ceil(ceil(n / BLOCK) / G)
+    chunks of w where they fit in W_SHARED_BYTES, else 0 (w in u's row)."""
+    chunks = -(-n // BLOCK)
+    nbytes = -(-chunks // G) * BLOCK * elt
+    return nbytes if nbytes <= W_SHARED_BYTES else 0
+
+
+def _max_active_clusters(G: int, device: int, smem: int, elt: int) -> int:
+    """How many clusters of G blocks of the elt-byte kernel, each with smem
+    bytes of dynamic shared memory, the card holds at once; 0 when it cannot
+    launch one."""
+    return max_active_clusters("tk_fused_lanczos_max_clusters", device, G, smem, elt)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(d: int, n: int, elt: int, device: int, w_limit: int) -> int:
+    """fused_lanczos_plan's G, kept per W_SHARED_BYTES (w_limit), which decides the placement."""
+    return cluster_plan(d, -(-n // BLOCK), _sm_count(device),
+                        lambda G: _max_active_clusters(G, device, _w_bytes(n, G, elt), elt))
+
+
+def fused_lanczos_plan(d: int, n: int, dtype, device=None) -> int:
+    """G, the blocks per factor of the kernel's cluster (``cluster_plan``
+    with the kernel's occupancy at its w placement)."""
+    return _plan(d, n, dtype.itemsize, device_index(device), W_SHARED_BYTES)
+
+
 def _fused_cuda(op: KroneckerSumOperator, v_prev, v_pprev, beta, b):
     bands = op.bands
     d, nb, n = bands.shape
@@ -74,21 +110,25 @@ def _fused_cuda(op: KroneckerSumOperator, v_prev, v_pprev, beta, b):
             raise ValueError(f"{name} must be contiguous {shape}, got {tuple(t.shape)}")
     if not bands.is_contiguous():
         raise ValueError("fused Lanczos kernel takes contiguous bands")
-    if d > 65535:
-        raise ValueError(f"fused Lanczos kernel takes at most 65535 factors, got {d}")
+    dev = bands.device
+    G = fused_lanczos_plan(d, n, dtype, dev)
+    if d * G > 2**31 - 1:
+        raise ValueError(f"fused Lanczos kernel takes fewer than 2**31 blocks, got d={d}, G={G}")
     lib = _build.kernels()
     if lib.tk_fused_lanczos_block_elems() != BLOCK:
         raise RuntimeError("csrc/fused_lanczos.cu and fused_lanczos.BLOCK disagree on the block size")
-    n_blocks = -(-n // BLOCK)
-    u = torch.empty((d, n), dtype=dtype, device=bands.device)
-    partials = torch.empty((3, d, n_blocks), dtype=dtype, device=bands.device)
-    sums = torch.empty((3, d), dtype=dtype, device=bands.device)
+    u = torch.empty((d, n), dtype=dtype, device=dev)
+    # the sums (3, d): alpha, beta^2, ub; then the chunk sums (d, 3, ceil(n / BLOCK))
+    scratch = torch.empty(3 * d * (1 + -(-n // BLOCK)), dtype=dtype, device=dev)
     fn = lib.tk_fused_lanczos_f64 if dtype == torch.float64 else lib.tk_fused_lanczos_f32
-    err = fn(bands.data_ptr(), op.offsets_tensor.data_ptr(), v_prev.data_ptr(), v_pprev.data_ptr(),
-             beta.data_ptr(), b.data_ptr(), u.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-             d, nb, n, _build.stream_of(u))
+    with torch.cuda.device(dev):
+        err = fn(bands.data_ptr(), op.offsets_tensor.data_ptr(), v_prev.data_ptr(), v_pprev.data_ptr(),
+                 beta.data_ptr(), b.data_ptr(), u.data_ptr(), scratch.data_ptr(), d, nb, n, G,
+                 _w_bytes(n, G, u.element_size()) > 0, _build.stream_of(u))
     _build.check(err, "fused_lanczos")
-    _build.launches["fused_lanczos"] += 1
+    if d > 0 and n > 0:
+        _build.launches["fused_lanczos"] += 1
+    sums = scratch[:3 * d].view(3, d)
     return u, sums[0], sums[1], sums[2]
 
 

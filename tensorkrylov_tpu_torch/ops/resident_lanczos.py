@@ -23,14 +23,13 @@ how many clusters of each size it holds at once. Every G gives the same bits.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..types import KroneckerSumOperator
 from . import _build
+from ._cluster import cluster_plan, device_index, max_active_clusters, sm_count as _sm_count
 from .banded import spmv_reference
 from .fused_lanczos import BLOCK, fixed_order_sum
 from .orth import _sqrt_rn
@@ -44,7 +43,6 @@ __all__ = [
 ]
 
 FREEZE = 1e-30  # β' at or below this writes a zero column and records β' = 0
-CLUSTER_SIZES = (1, 2, 4, 8, 16)  # blocks per factor the plan considers; 16 is the H100's largest cluster
 U_SHARED_BYTES = 200 * 1024  # a block keeps its elements of u in shared memory when they fit in this
 
 
@@ -94,11 +92,6 @@ def lanczos_resident_steps_reference(op: KroneckerSumOperator, vp, vpp, beta, S:
     return ResidentSteps(V, alpha, betas, *_carries(V, vp, vpp), b)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _u_bytes(n: int, G: int) -> int:
     """The dynamic shared memory of a launch: a block's ceil(ceil(n / BLOCK) / G)
     chunks of u where they fit in U_SHARED_BYTES, else 0 (u in the scratch row)."""
@@ -107,44 +100,20 @@ def _u_bytes(n: int, G: int) -> int:
     return nbytes if nbytes <= U_SHARED_BYTES else 0
 
 
-@functools.lru_cache(maxsize=None)
 def _max_active_clusters(G: int, device: int, smem: int) -> int:
     """How many clusters of G kernel blocks, each with smem bytes of dynamic
     shared memory, the card holds at once (cudaOccupancyMaxActiveClusters);
     0 when it cannot launch one."""
-    out = ctypes.c_int64(0)
-    with torch.cuda.device(device):
-        _build.check(_build.kernels().tk_resident_lanczos_max_clusters(G, smem, ctypes.byref(out)),
-                     "resident_lanczos occupancy")
-    return int(out.value)
+    return max_active_clusters("tk_resident_lanczos_max_clusters", device, G, smem)
 
 
 def resident_lanczos_plan(d: int, n: int, device=None) -> int:
-    """G, the blocks per factor of the kernel's cluster.
-
-    Every factor is one cluster; the card runs A(G) clusters at once, so d
-    clusters take ceil(d / A(G)) rounds of n / G elements per block. G minimises
-    that product over CLUSTER_SIZES, with at least one cluster fitting and no
-    more blocks than the factor has 256-element chunks; on a tie the smaller
-    G, since G=16 measured 18% slower than G=8 at d=10, n=131072 on the H100
-    and 2% faster at d=8, n=2^20 (PERF.md). When d fills every SM, G = 1."""
-    index = torch.device("cuda" if device is None else device).index
-    index = torch.cuda.current_device() if index is None else index
-    sms = _sm_count(index)
-    if d >= sms:
-        return 1
-    chunks = -(-n // BLOCK)
-    best, best_cost = 1, None
-    for G in CLUSTER_SIZES:
-        if G > sms or (G > 1 and G > chunks):
-            break
-        fit = _max_active_clusters(G, index, _u_bytes(n, G))
-        if fit < 1:
-            continue
-        cost = -(-d // fit) / G
-        if best_cost is None or cost < best_cost:
-            best, best_cost = G, cost
-    return best
+    """G, the blocks per factor of the kernel's cluster: ``cluster_plan`` with
+    the kernel's occupancy at its u placement (G=8 at d=10, n=131072 and at
+    d=8, n=2^20 on the H100)."""
+    index = device_index(device)
+    return cluster_plan(d, -(-n // BLOCK), _sm_count(index),
+                        lambda G: _max_active_clusters(G, index, _u_bytes(n, G)))
 
 
 def _resident_cuda(op: KroneckerSumOperator, vp, vpp, beta, S: int, out: Optional[torch.Tensor]) -> ResidentSteps:

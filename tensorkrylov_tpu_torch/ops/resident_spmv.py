@@ -10,10 +10,13 @@ The TPU kernel keeps one factor's bands and a ping-pong vector in VMEM for all
 m applies. The CUDA kernel blocks in time instead: each thread block advances
 a tile of T outputs M applies in shared memory, recomputing an M·H halo on
 each side, so one launch does M applies and ⌈m/M⌉ launches do m
-(``resident_spmv_plan`` gives M and T). Unlike the JAX dispatcher, which falls
-back to its XLA scan on f64, on n % 128, on offsets past 128 and on a VMEM
-budget, the kernel takes f32 and f64, any n and any offsets, and raises on what
-it cannot take.
+(``resident_spmv_plan`` gives M and T). The centred band sets -1..1 and -2..2
+have instantiations of their own, which keep v and the bands in registers;
+any other set takes the generic one, which keeps them in shared memory.
+Unlike the JAX dispatcher, which falls back to its XLA scan on f64, on
+n % 128, on offsets past 128 and on a VMEM budget, the kernel takes f32 and
+f64, any n and any offsets whose span fits in shared memory, and raises on
+the others (offsets so wide that not even one apply of one output fits).
 """
 from __future__ import annotations
 
@@ -39,6 +42,12 @@ def _halo(op: KroneckerSumOperator) -> int:
     return max((abs(o) for o in op.offsets), default=0)
 
 
+def _centred(op: KroneckerSumOperator) -> bool:
+    """The offsets are -H..H in order: the kernel's instantiations for 3 and 5 bands."""
+    H = _halo(op)
+    return tuple(op.offsets) == tuple(range(-H, H + 1))
+
+
 def spmv_multi_apply_reference(op: KroneckerSumOperator, v: torch.Tensor, m: int, scale: float = 1.0) -> torch.Tensor:
     """Plain version, the counterpart of ``spmv_multi_apply_xla``: m calls of
     ``spmv_reference``, each product times scale rounded to v's dtype."""
@@ -51,10 +60,12 @@ def spmv_multi_apply_reference(op: KroneckerSumOperator, v: torch.Tensor, m: int
 
 def resident_spmv_plan(op: KroneckerSumOperator) -> Tuple[int, int]:
     """(M, T) of the kernel on the operator's CUDA device for this operator's
-    band count, half-width and dtype: applies per launch and outputs per tile."""
+    offsets and dtype: applies per launch and outputs per tile at M applies (a
+    launch of a < M applies takes a tile of T + 2·(M − a)·H)."""
     lib = _build.kernels()
     plan = (ctypes.c_int64 * 2)()
-    err = lib.tk_resident_spmv_plan(op.device.index or 0, len(op.offsets), _halo(op), op.bands.element_size(), plan)
+    err = lib.tk_resident_spmv_plan(op.device.index or 0, len(op.offsets), _halo(op), op.bands.element_size(),
+                                    _centred(op), plan)
     if err != 0:
         raise ValueError(f"resident SpMV kernel cannot take {len(op.offsets)} bands of half-width {_halo(op)} "
                          f"in {op.dtype} (cudaError_t {err})")
@@ -81,13 +92,15 @@ def _multi_apply_cuda(op: KroneckerSumOperator, v: torch.Tensor, m: int, scale: 
         lib = _build.kernels()
         fn = lib.tk_resident_spmv_f64 if v.dtype == torch.float64 else lib.tk_resident_spmv_f32
         c = _rounded(scale, v.dtype)
+        H, centred = _halo(op), _centred(op)
         bufs = (torch.empty_like(v), torch.empty_like(v))
         src, done, launch = v, 0, 0
         while done < m:
             applies = min(M, m - done)
             dst = bufs[launch % 2]
+            tile = T + 2 * (M - applies) * H  # fewer applies leave room for a wider tile
             err = fn(bands.data_ptr(), op.offsets_tensor.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                     d, nb, n, _halo(op), applies, T, c, _build.stream_of(v))
+                     d, nb, n, H, applies, tile, centred, c, _build.stream_of(v))
             _build.check(err, "resident_spmv")
             _build.launches["resident_spmv"] += 1
             src, done, launch = dst, done + applies, launch + 1

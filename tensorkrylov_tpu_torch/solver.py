@@ -167,7 +167,7 @@ def _resolve_config(config: SolverConfig, op: KroneckerSumOperator, host_project
     if config.eigh_impl == "tridiag_mixed":
         raise NotImplementedError(
             "eigh_impl='tridiag_mixed' is not ported; native f64 torch.linalg.eigh ('dense') "
-            "replaces it on the card (ROADMAP.md Queue 1, #20)")
+            "replaces it on the card (ROADMAP.md Queue 1, #10)")
     if config.eigh_impl == "auto":
         config = dataclasses.replace(config, eigh_impl="dense")
     if config.step_impl == "auto":

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 import tensorkrylov_tpu_torch as tkt
-from tensorkrylov_tpu_torch.ops import _build
+from tensorkrylov_tpu_torch.ops import _build, _cluster
 from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
+from tensorkrylov_tpu_torch.ops import fused_lanczos
 from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
 from tensorkrylov_tpu_torch.ops import resident_lanczos
 from tensorkrylov_tpu_torch.ops.resident_lanczos import (
@@ -74,6 +75,68 @@ def test_fused_kernel_matches_plain(cuda, dtype, n):
     # fixed reduction trees, no atomics: a second launch repeats bit for bit
     again = fused_lanczos_core(op, v_prev, v_pprev, beta, b)
     assert all(torch.equal(a, x) for a, x in zip(got, again))
+
+
+class _EntryRecorder:
+    """The kernel library, recording the names of the entry points called whose name starts with prefix."""
+
+    def __init__(self, prefix):
+        self.lib, self.prefix, self.calls = _build.kernels(), prefix, []
+
+    def __getattr__(self, name):
+        if name.startswith(self.prefix):
+            self.calls.append(name)
+        return getattr(self.lib, name)
+
+
+FUSED_CASES = {  # d, n
+    "n50001": (4, 50001),
+    "n131072": (4, 131072),
+    "w_past_shared": (2, 1 << 20),  # a block's part of w (256 chunks at G=16) is past W_SHARED_BYTES: u's row
+}
+
+
+@pytest.mark.parametrize("w_in", ["shared", "u_row"])
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_placements_one_launch(cuda, monkeypatch, dtype, case, w_in):
+    """w kept in shared memory or in u's row (forced, or because a block's
+    part does not fit): the plain version's bits either way, in one launch
+    per call."""
+    if w_in == "u_row":
+        monkeypatch.setattr(fused_lanczos, "W_SHARED_BYTES", 0)
+    d, n = FUSED_CASES[case]
+    op = _op((-1, 0, 1), d, n, 40, dtype, cuda)
+    g = torch.Generator(cuda).manual_seed(41)
+    v_prev, v_pprev, b = (torch.randn((d, n), dtype=dtype, device=cuda, generator=g) for _ in range(3))
+    beta = torch.rand(d, dtype=dtype, device=cuda, generator=g)
+    G = fused_lanczos.fused_lanczos_plan(d, n, dtype, cuda)
+    assert (fused_lanczos._w_bytes(n, G, dtype.itemsize) > 0) == (w_in == "shared" and case != "w_past_shared")
+    recorder = _EntryRecorder("tk_fused_lanczos_f")
+    monkeypatch.setattr(_build, "kernels", lambda: recorder)
+    before = _build.launches["fused_lanczos"]
+    got = fused_lanczos_core(op, v_prev, v_pprev, beta, b)
+    torch.cuda.synchronize()
+    assert recorder.calls == ["tk_fused_lanczos_f64" if dtype == torch.float64 else "tk_fused_lanczos_f32"]
+    assert _build.launches["fused_lanczos"] == before + 1
+    assert all(torch.equal(a, r) for a, r in zip(got, fused_lanczos_core_reference(op, v_prev, v_pprev, beta, b)))
+
+
+@pytest.mark.parametrize("w_in", ["shared", "u_row"])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
+def test_fused_cluster_sizes_equal_plain(cuda, monkeypatch, G, w_in):
+    """Every cluster size gives the plain version's bits: chunk ownership by
+    blocks leaves the fixed summation order alone."""
+    if w_in == "u_row":
+        monkeypatch.setattr(fused_lanczos, "W_SHARED_BYTES", 0)
+    monkeypatch.setattr(fused_lanczos, "fused_lanczos_plan", lambda d, n, dtype, device=None: G)
+    d, n = 3, 20011
+    op = _op((-5, -2, 0, 3, 5), d, n, 42, torch.float64, cuda)
+    g = torch.Generator(cuda).manual_seed(43)
+    v_prev, v_pprev, b = (torch.randn((d, n), dtype=torch.float64, device=cuda, generator=g) for _ in range(3))
+    beta = torch.rand(d, dtype=torch.float64, device=cuda, generator=g)
+    got = fused_lanczos_core(op, v_prev, v_pprev, beta, b)
+    assert all(torch.equal(a, r) for a, r in zip(got, fused_lanczos_core_reference(op, v_prev, v_pprev, beta, b)))
 
 
 @pytest.mark.parametrize("basis_dtype", [torch.float32, torch.float64])
@@ -256,7 +319,7 @@ def test_resident_plan_on_card(cuda):
     """At the host-projected slice's shape the plan spreads each factor over
     a cluster (G > 1) that the card can hold."""
     G = resident_lanczos_plan(10, 131072, cuda)
-    assert G in resident_lanczos.CLUSTER_SIZES and G > 1
+    assert G in _cluster.CLUSTER_SIZES and G > 1
     assert resident_lanczos._max_active_clusters(G, torch.cuda.current_device(), resident_lanczos._u_bytes(131072, G)) >= 1
 
 
@@ -314,10 +377,15 @@ def _dominant_op(offsets, d, n, seed, dtype, device):
     return tkt.KroneckerSumOperator(bands.to(dtype).to(device), offsets, False)
 
 
-RESIDENT_OPS = {
+RESIDENT_OPS = {  # the kernel's instantiations: centred 3 bands, centred 5 bands, generic (the rest)
     "laplace": lambda d, n, dtype, dev: tkt.laplace(d, n, dtype=dtype, device=dev),
     "conv_diff": lambda d, n, dtype, dev: tkt.conv_diff(d, n, dtype=dtype, device=dev),
+    "penta_distinct": lambda d, n, dtype, dev: _dominant_op((-2, -1, 0, 1, 2), d, n, 12, dtype, dev),
     "wide_distinct": lambda d, n, dtype, dev: _dominant_op((-3, -1, 0, 2, 5), d, n, 8, dtype, dev),
+    "seven_distinct": lambda d, n, dtype, dev: _dominant_op((-3, -2, -1, 0, 1, 2, 3), d, n, 13, dtype, dev),
+    # the generic span is the shared memory's: more than 16 bands, and a half-width past 511
+    "seventeen_distinct": lambda d, n, dtype, dev: _dominant_op(tuple(range(-8, 9)), d, n, 14, dtype, dev),
+    "half_width_512": lambda d, n, dtype, dev: _dominant_op((-512, -1, 0, 1, 512), d, n, 15, dtype, dev),
 }
 
 
@@ -367,6 +435,8 @@ def test_resident_spmv_rejects_bad_input(cuda):
         spmv_multi_apply(op, torch.ones((2, 128), dtype=torch.float32, device=cuda)[:, ::2], 2)
     with pytest.raises(ValueError):
         spmv_multi_apply(op, v, -1)
+    with pytest.raises(ValueError, match="cannot take"):  # not one apply of one output fits in shared memory
+        spmv_multi_apply(_op((-4000, 0, 4000), 2, 64, 4, torch.float32, cuda), v, 2)
 
 
 RING_OFFSETS = {"tri": (-1, 0, 1), "penta": (-2, -1, 0, 1, 2), "wide": (-7, -2, 0, 3, 5)}
@@ -410,25 +480,17 @@ def test_ring_one_launch_per_card(cuda, monkeypatch):
     """4 shards of one card: one call of the kernel's entry point per sharded
     SpMV, one count, no halo exchange and no side stream; the result equals
     the CPU route's bit for bit."""
-    calls = []
-    lib = _build.kernels()
-
-    class Recorder:
-        def __getattr__(self, name):
-            if name.startswith("tk_ring_spmv_f"):
-                calls.append(name)
-            return getattr(lib, name)
-
+    recorder = _EntryRecorder("tk_ring_spmv_f")
     op = _op(RING_OFFSETS["penta"], 3, 4 * 1000, 29, torch.float64, cuda)
     v = torch.randn((3, 4 * 1000), dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(30))
     on_cpu = make_ring_spmv(make_mesh(devices=[torch.device("cpu")] * 4), RING_OFFSETS["penta"])(op.bands.cpu(),
                                                                                                v.cpu())
-    monkeypatch.setattr(_build, "kernels", lambda: Recorder())
+    monkeypatch.setattr(_build, "kernels", lambda: recorder)
     monkeypatch.setattr(halo_mod, "exchange_halos", lambda *a: pytest.fail("the ring route exchanged halos"))
     before = _build.launches["ring_spmv"]
     got, sop, _ = _ring_on([cuda] * 4, op, v)
     torch.cuda.synchronize()
-    assert calls == ["tk_ring_spmv_f64"]
+    assert recorder.calls == ["tk_ring_spmv_f64"]
     assert _build.launches["ring_spmv"] == before + 1
     assert all(sh.side is None for sh in sop.shards) and not sop.halo_buffers
     assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)

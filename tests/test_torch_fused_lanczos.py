@@ -15,7 +15,8 @@ import tensorkrylov_tpu.ops.pallas.fused_lanczos as fl
 from tensorkrylov_tpu.ops.banded import spmv as jax_spmv
 from tensorkrylov_tpu.ops.orth import init_state as jax_init_state, lanczos_step as jax_lanczos_step
 from tensorkrylov_tpu_torch.interop import operator_from_numpy
-from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core
+from tensorkrylov_tpu_torch.ops import fused_lanczos
+from tensorkrylov_tpu_torch.ops.fused_lanczos import fixed_order_sum, fused_lanczos_core
 from tensorkrylov_tpu_torch.ops.orth import init_state, lanczos_step
 
 OFFSETS = {"tri": (-1, 0, 1), "penta": (-2, -1, 0, 1, 2)}
@@ -105,3 +106,78 @@ def test_fused_core_rejects_other_devices():
     meta = torch.empty((2, 8), dtype=torch.float64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         fused_lanczos_core(op, meta, meta, torch.empty(2, device="meta"), meta)
+
+
+def _kernel_order_sum(x):
+    """The sum of 1-D x as the kernels take it, written out step by step:
+    each 256-element chunk (zero past the end) is tree-summed, element t plus
+    element t + stride for stride 128, 64, ..., 1; lane t of 256 then adds
+    the chunk sums t, t + 256, ... in turn from zero; the 256 lane results are
+    tree-summed the same way. Every operation is rounded in x's dtype."""
+    chunks = -(-len(x) // 256)
+    padded = np.zeros(chunks * 256, dtype=x.dtype)
+    padded[: len(x)] = x
+
+    def tree(y):
+        y = y.copy()
+        stride = 128
+        while stride >= 1:
+            y[:stride] = y[:stride] + y[stride:2 * stride]
+            stride //= 2
+        return y[0]
+
+    parts = [tree(padded[c * 256:(c + 1) * 256]) for c in range(chunks)]
+    lanes = np.zeros(256, dtype=x.dtype)
+    for t in range(256):
+        acc = x.dtype.type(0)
+        for c in range(t, chunks, 256):
+            acc = acc + parts[c]
+        lanes[t] = acc
+    return tree(lanes)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 65536 + 3])
+def test_fixed_order_sum_is_the_kernel_order(n, dtype):
+    """fixed_order_sum, the plain versions' sum, is the kernels' order bit
+    for bit: a change to one without the other fails here."""
+    x = np.random.default_rng(n).standard_normal(n).astype(dtype)
+    want = _kernel_order_sum(x)
+    got = fixed_order_sum(torch.tensor(x)).numpy()
+    assert got.dtype == dtype and got.tobytes() == np.asarray(want, dtype=dtype).tobytes()
+    # a batch of rows sums each row in the same order
+    rows = np.stack([x, x[::-1].copy()])
+    assert fixed_order_sum(torch.tensor(rows)).numpy().tobytes() == np.array(
+        [want, _kernel_order_sum(rows[1])], dtype=dtype).tobytes()
+
+
+# The card's answers to the plan's questions, for an H100-like card (132 SMs):
+# clusters of G that fit at once, with w in shared memory or not
+H100_FIT = {1: 132, 2: 66, 4: 32, 8: 16, 16: 7}
+
+
+@pytest.mark.parametrize("d,n,dtype,want_G,want_shared", [
+    (10, 131072, torch.float64, 8, True),     # 64 chunks of w per block: 128 KB
+    (10, 131072, torch.float32, 8, True),
+    (2, 1 << 20, torch.float64, 16, False),   # 256 chunks per block: 512 KB, past W_SHARED_BYTES
+    (1, 300, torch.float64, 2, True),         # two chunks: no more blocks than chunks
+    (200, 4096, torch.float32, 1, True),      # d fills every SM
+])
+def test_fused_plan(monkeypatch, d, n, dtype, want_G, want_shared):
+    """G from the SM count and the cluster occupancy, as the resident
+    kernel's plan picks it; w stays in shared memory where a block's part
+    fits in W_SHARED_BYTES."""
+    asked = []
+
+    def fit(G, device, smem, elt):
+        asked.append((G, smem, elt))
+        return H100_FIT[G]
+
+    monkeypatch.setattr(fused_lanczos, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(fused_lanczos, "_max_active_clusters", fit)
+    fused_lanczos._plan.cache_clear()
+    G = fused_lanczos.fused_lanczos_plan(d, n, dtype, "cuda:0")
+    fused_lanczos._plan.cache_clear()
+    assert G == want_G
+    assert (fused_lanczos._w_bytes(n, G, dtype.itemsize) > 0) == want_shared
+    assert all(elt == dtype.itemsize and smem == fused_lanczos._w_bytes(n, g, elt) for g, smem, elt in asked)

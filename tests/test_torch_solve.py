@@ -154,6 +154,13 @@ def test_unsupported_options_raise(fields, error):
         tkt.solve(op, b, tkt.SolverConfig(**fields))
 
 
+def test_tridiag_mixed_names_its_roadmap_item():
+    """The refusal cites the ROADMAP item that replaces the TPU's mixed-precision tridiagonal eigh."""
+    b = torch.tensor(np.random.default_rng(0).random((2, 10)))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1, #10\)"):
+        tkt.solve(tkt.laplace(2, 10, device="cpu"), b, tkt.SolverConfig(eigh_impl="tridiag_mixed"))
+
+
 @pytest.mark.parametrize("fields,resolved", [
     (dict(), dict(step_impl="xla", eigh_impl="dense")),
     (dict(step_impl="resident"), dict(step_impl="xla")),  # resident segments: solve_host_projected only
