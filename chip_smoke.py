@@ -15,6 +15,7 @@ Phases, one output line each:
                cluster size G its plan picks and at every G of 1, 2, 4, 8,
                16, each timed; the SpMV and 32 resident steps on the bench's
                own d=8, n=2^20 f32 inputs, bit for bit, with the same G sweep;
+               the SpMV also at (d, 63, n), one kron_apply_cp of a rank-63 solution;
                the multi-apply SpMV in f64 and f32, 200 applies, bit for bit
                at each of its instantiations: centred 3 bands at the bench's
                d=8, n=2^20, centred 5 bands and the generic one on distinct
@@ -53,7 +54,15 @@ Phases, one output line each:
                comm='ring' and 'gspmd', a 2 x 2 factor-parallel mesh, Arnoldi), each
                held against the unsharded solve on the card, with the launch counts:
                one ring launch per step (all shards share the card), or 4
-               banded_spmv launches per step on the gspmd route.
+               banded_spmv launches per step on the gspmd route;
+ 10. solvers — solve_two_pass, fused and unfused, against solve with the same config
+               on the slice's problem (plain Lanczos): steps, final estimate, x, H's α
+               and β bit for bit on the fused route, the launches of each pass, peak
+               memory below solve's; solve_block on config 4 (d=10, n=10240, κ=1e4,
+               rank-4 B, kmax=96) with one banded_spmv launch per block step and the
+               device rank-R cross-check, and at n=1024 on the card against the CPU;
+               solve_refined on config 4's operator and b = B[0], its history
+               decreasing and its residual equal to the device cross-check's.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -92,6 +101,7 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the resident kernel's blocks per factor, swe
 BENCH_STEPS = 32          # resident kernel steps per call at the bench's shape: the bench's longest call
 RESIDENT_SPMV_APPLIES = 200  # applies per multi-apply call in phase 3: the bench's m1
 SHARDS = 4                # mode shards of phase 9, all on cuda:0
+KRON_RANK = 63            # columns of one kron_apply_cp of a tmax=63 solution (phase 3's SpMV shape)
 SHARDED_TRACE_RTOL, SHARDED_TRACE_ATOL = 1e-8, 1e-12  # sharded vs unsharded solve (tests/test_sharding.py:42-46)
 HBM_BYTES_PER_S = 3.35e12                                     # H100 SXM device memory
 PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}    # outside the tensor cores
@@ -318,7 +328,8 @@ def phase_kernels(tkt):
             d, n = op.d, op.n
             rng = np.random.default_rng(11)
             limit = LIMITS[dtype]
-            for shape in ((d, n), (d, 4, n)):
+            # (d, 63, n): one kron_apply_cp of a rank-63 solution (phase 10)
+            for shape in ((d, n), (d, 4, n)) + (((d, KRON_RANK, n),) if case.startswith("d10") else ()):
                 v = unit_rows(rng, shape, dtype, dev)
                 got, ref = spmv(op, v), spmv_reference(op, v)
                 torch.cuda.synchronize()
@@ -559,7 +570,7 @@ def phase_kernels_resident_spmv(tkt, checks, worst, times, extra):
                 computed_no_fma_floor_ms=flops / (PEAK_FLOP_S[torch.float32] / 2) * 1e3)
 
 
-def run_solve(tkt, op, b, config, entry="solve"):
+def run_solve(tkt, op, b, config, entry="solve", **kwargs):
     """One solve through the entry point tkt.<entry>, with the launch counts set to
     0 just before it and read just after."""
     from tensorkrylov_tpu_torch.ops import _build
@@ -569,7 +580,7 @@ def run_solve(tkt, op, b, config, entry="solve"):
         torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     t0 = time.perf_counter()
-    res = getattr(tkt, entry)(op, b, config)
+    res = getattr(tkt, entry)(op, b, config, **kwargs)
     if op.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1044,6 +1055,191 @@ def phase_sharded(tkt):
     return launches, times, max(c["max_abs_err"] for c in checks if c["dtype"] == "float64" and len(c["v"]) == 2)
 
 
+# phase 10: the slice's problem through solve_two_pass; config 4 (the rank-4 block problem of
+# tensorkrylov_tpu/experiments/config4_block.py) through solve_block; its operator through solve_refined
+SOLVERS = dict(
+    slice_n=131072, two_pass=dict(kmax=200, tol=1e-8, orth="lanczos"),
+    block_d=10, block_n=10240, block_kappa=1e4, block_rank=4, block_seed=1234, block_cpu_n=1024,
+    block=dict(kmax=96, tol=1e-8, check_every=8, orth="lanczos_reorth", spectral_source="H"),
+    refine=dict(kmax=40, tol=1e-8), refine_kw=dict(max_restarts=2, residual_rank=6, inner_tol=1e-4),
+)
+TWO_PASS_RTOL, TWO_PASS_X_RTOL = 1e-10, 1e-8  # final estimate (tests/test_twopass.py:25-28), max|x_tp − x| / max|x|
+# The unfused two-pass route forms b̃_k = ⟨v_k, b⟩ (the JAX package's formula) where solve forms ub/β: the
+# entries differ in their last bits, which moves the Lemma-3.4 estimate by up to about κ·eps·‖b‖ (κ = 1e2
+# here), on top of the relative bound
+TWO_PASS_ATOL = 1e2 * float(np.finfo(np.float64).eps)
+REFINE_ABS = 1e-8  # refine.py's cancellation floor of the CP residual norm, relative to ‖b‖
+
+
+def peak_bytes(dev):
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def config4_problem(tkt, n, device, p=SOLVERS):
+    """Config 4's operator (κ = p['block_kappa'] per factor) and its unit-row
+    B (R, d, n) from the seed, made on the CPU and copied, so that every
+    device gets the same bits."""
+    op = tkt.reaction_diffusion(p["block_d"], n, sigma_for_kappa(n, p["block_kappa"]), device="cpu")
+    B = np.random.default_rng(p["block_seed"]).standard_normal((p["block_rank"], p["block_d"], n))
+    B /= np.linalg.norm(B, axis=2, keepdims=True)
+    return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), torch.tensor(B, device=device)
+
+
+def on_host(res):
+    """The telemetry of a SolveResult as CPU tensors (x dropped)."""
+    fields = ("relative_residual", "projected_residual", "orthogonality", "lambda_min", "lambda_max", "expsum_rank")
+    return dataclasses.replace(res, x=None, **{f: getattr(res, f).cpu() for f in fields})
+
+
+def h_entries_differ(Ha, Hb, k):
+    """Which of the recorded α (H[j-1, j-1]) and β (H[j, j-1]) entries of steps
+    1..k differ between two projected matrices, and the first step where each does."""
+    j = torch.arange(1, k + 1, device=Ha.device)
+    out = {}
+    for name, (r, c) in (("alpha", (j - 1, j - 1)), ("beta", (j, j - 1))):
+        bad = torch.nonzero((Ha[:, r, c] != Hb[:, r, c]).any(dim=0))
+        if bad.numel():
+            out[name] = int(bad[0]) + 1
+    return out
+
+
+def phase_solvers(tkt, dev=torch.device("cuda"), p=SOLVERS):
+    """Phase 10: (b) solve_two_pass, fused and unfused, against solve with the
+    same config on the slice's problem; (c) solve_block on config 4 at full
+    width with the device rank-R cross-check, and the same solve at n=1024 on
+    the card and the CPU; (d) solve_refined on config 4's operator and b = B[0],
+    held against the device cross-check. Each path runs with the launch counts
+    set to 0 just before it and read just after."""
+    from tensorkrylov_tpu_torch import twopass
+    from tensorkrylov_tpu_torch.coeffs.tables import load_tables
+    from tensorkrylov_tpu_torch.ops import _build
+    from tensorkrylov_tpu_torch.ops.orth import _acc_dtype
+    from tensorkrylov_tpu_torch.solver import _segment, _setup
+    from tensorkrylov_tpu_torch.utils.cp import cp_residual_cross_check_device
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (b) two-pass against solve, fused and unfused
+    op, b = slice_problem(tkt, p["slice_n"], dev)
+    runs = {}
+    for name, step_impl in (("fused", "fused"), ("unfused", "auto")):
+        cfg = tkt.SolverConfig(**p["two_pass"], step_impl=step_impl)
+        ref, wall_ref, counts_ref = run_solve(tkt, op, b, cfg)
+        peak_ref = peak_bytes(dev)
+        k = ref.niterations
+        x_ref = ref.x.factors.cpu()
+        ref_final = float(ref.relative_residual[k])
+        ref_traces = {f: getattr(ref, f).cpu() for f in ("relative_residual", "projected_residual", "expsum_rank")}
+        del ref
+        tp, wall, counts = run_solve(tkt, op, b, cfg, "solve_two_pass")
+        peak = peak_bytes(dev)
+        kt, final = tp.niterations, float(tp.relative_residual[tp.niterations])
+        require(tp.status == tkt.Status.CONVERGED and kt == k,
+                f"two_pass {name}: status {tp.status} after {kt} steps, solve {k}")
+        # fused: the same α, β and b̃ as solve's, so the same bits; unfused: b̃ by another formula
+        atol = 0.0 if step_impl == "fused" else TWO_PASS_ATOL * float(torch.prod(torch.linalg.vector_norm(b, dim=1)))
+        require(abs(final - ref_final) <= TWO_PASS_RTOL * abs(ref_final) + atol,
+                f"two_pass {name}: final estimate {final} vs solve {ref_final} (atol {atol})")
+        x = tp.x.factors.cpu()
+        x_err = float((x - x_ref).abs().max() / x_ref.abs().max())
+        require(bool(torch.isfinite(x).all()) and x_err <= TWO_PASS_X_RTOL, f"two_pass {name}: x differs by {x_err}")
+        if step_impl == "fused":
+            want = {"fused_lanczos": k, "banded_spmv": k}   # pass 1, pass 2
+        else:
+            want = {"banded_spmv": 2 * k}
+        got = {kern: counts.get(kern, 0) for kern in ("fused_lanczos", "banded_spmv")}
+        require(got == {**{"fused_lanczos": 0}, **want}, f"two_pass {name}: launches {counts}, want {want}")
+        row = dict(status=tp.status, niterations=kt, step_impl=tp.config.step_impl, final_rel_residual=final,
+                   solve_final_rel_residual=ref_final, final_abs_diff=abs(final - ref_final), final_atol=atol,
+                   x_max_rel_diff=x_err, wall_s=wall, solve_wall_s=wall_ref, iterations_per_s=kt / wall,
+                   max_memory_allocated=peak, solve_max_memory_allocated=peak_ref, launches=counts,
+                   solve_launches=counts_ref)
+        if dev.type == "cuda":
+            require(peak < peak_ref, f"two_pass {name}: peak memory {peak} not below solve's {peak_ref}")
+        if step_impl == "fused":
+            # the fused route records solve's α and β bit for bit: the same kernel, the same post-processing;
+            # H of both from their internals (launches here are not the main path's)
+            traces_equal = all(torch.equal(getattr(tp, f).cpu(), t) for f, t in ref_traces.items())
+            cfg_r = tp.config
+            pr, carry = _setup(op, b, cfg, None)
+            H_solve = _segment(pr, carry, cfg_r.kmax).H
+            del pr, carry
+            acc = _acc_dtype(cfg_r.basis_dtype, cfg_r.proj_dtype)
+            H_tp = twopass._pass1(op.astype(acc), twopass._start(b, acc, cfg_r.proj_dtype),
+                                  load_tables(device=dev), cfg_r).H
+            differ = h_entries_differ(H_solve, H_tp, k)
+            require(not differ and traces_equal,
+                    f"two_pass fused: H differs from the fused solve's at the first step of {differ} "
+                    f"(alpha: the fused core's α or its cast; beta: the β² cast, _sqrt_rn or the breakdown test); "
+                    f"traces equal: {traces_equal}")
+            row.update(h_alpha_beta_bit_equal=True, traces_bit_equal=True)
+            del H_solve, H_tp
+        runs[name] = row
+        del tp, x, x_ref
+    out["two_pass"] = dict(d=op.d, n=op.n, config=p["two_pass"], runs=runs)
+    del op, b
+
+    # (c) config 4: the rank-4 block solve at full width, then card against CPU at n=1024
+    op4, B = config4_problem(tkt, p["block_n"], dev, p)
+    cfg = tkt.SolverConfig(**p["block"])
+    res, wall, counts = run_solve(tkt, op4, B, cfg, "solve_block")
+    peak = peak_bytes(dev)
+    k = res.niterations
+    idx = checked(res)
+    traces = {f: getattr(res, f).cpu().numpy()[idx] for f in ("relative_residual", "lambda_min", "lambda_max")}
+    require(res.status != tkt.Status.BREAKDOWN and all(np.isfinite(t).all() for t in traces.values())
+            and bool(torch.isfinite(res.x.factors).all()),
+            f"block config 4: status {res.status}, finite: {[bool(np.isfinite(t).all()) for t in traces.values()]}")
+    _build.launches.clear()
+    check = cp_residual_cross_check_device(op4, res.x.weights, res.x.factors, B)
+    check_counts = dict(_build.launches)
+    Bh = B.cpu().numpy()
+    Gb = np.einsum("rsn,qsn->srq", Bh, Bh).astype(np.longdouble)
+    b_norm = float(np.sqrt(max(float(np.prod(Gb, axis=0).sum()), 0.0)))
+    require(counts.get("banded_spmv", 0) == k and check_counts.get("banded_spmv", 0) == 1,
+            f"block config 4: launches {counts} in {k} block steps, cross-check {check_counts}")
+    block = dict(d=op4.d, n=op4.n, kappa=p["block_kappa"], rank=p["block_rank"], config=p["block"],
+                 status=res.status, niterations=k, final_rel_residual=float(traces["relative_residual"][-1]),
+                 expsum_rank=int(res.expsum_rank[idx[-1]]), wall_s=wall, iterations_per_s=k / wall,
+                 max_memory_allocated=peak, launches=counts, cross_check_launches=check_counts,
+                 true_rel_residual=check.value / b_norm, true_rel_floor=check.floor / b_norm,
+                 below_floor=check.value <= check.floor, b_norm=b_norm)
+    del res
+    runs_nc = {}
+    for d_ in (dev, torch.device("cpu")):
+        opc, Bc = config4_problem(tkt, p["block_cpu_n"], d_, p)
+        runs_nc[d_.type] = run_solve(tkt, opc, Bc, cfg, "solve_block")[0]
+    g, c = runs_nc[dev.type], runs_nc["cpu"]
+    require((g.status, g.niterations) == (c.status, c.niterations),
+            f"block n={p['block_cpu_n']}: card {g.status}/{g.niterations} vs cpu {c.status}/{c.niterations}")
+    cvc = trace_errs(on_host(g), c, checked(c))
+    require(cvc["relative_residual"] <= TRACE_RTOL, f"block card vs cpu: {cvc}")
+    block["card_vs_cpu"] = dict(n=p["block_cpu_n"], status=g.status, niterations=g.niterations, **cvc)
+    out["block_config4"] = block
+    del runs_nc, g, c
+
+    # (d) refined on config 4's operator with the rank-1 b = B[0]
+    b0 = B[0].contiguous()
+    res, wall, counts = run_solve(tkt, op4, b0, tkt.SolverConfig(**p["refine"]), "solve_refined", **p["refine_kw"])
+    peak = peak_bytes(dev)
+    h = res.residual_history
+    kron = counts.get("banded_spmv", 0) - sum(res.inner_iterations)
+    require(all(a > c for a, c in zip(h, h[1:])) and len(h) >= 1, f"refined: history not decreasing: {h}")
+    require(kron >= len(h), f"refined: {kron} kron_apply_cp launches for {len(h)} residuals ({counts})")
+    bn = float(np.prod(np.linalg.norm(b0.cpu().numpy(), axis=1)))
+    xc = cp_residual_cross_check_device(op4, res.x.weights, res.x.factors, b0)
+    gap = abs(res.true_relative_residual - xc.value / bn)
+    require(gap <= (xc.floor + REFINE_ABS * bn) / bn,
+            f"refined: true_relative_residual {res.true_relative_residual} vs cross-check {xc.value / bn} "
+            f"(floor {xc.floor / bn})")
+    out["refined"] = dict(config=p["refine"], **p["refine_kw"], status=res.status, cycles=res.cycles,
+                          residual_history=h, inner_iterations=res.inner_iterations, rep_condition=res.rep_condition,
+                          true_relative_residual=res.true_relative_residual, x_rank=res.x.rank,
+                          cross_check=xc.value / bn, cross_check_floor=xc.floor / bn, wall_s=wall,
+                          max_memory_allocated=peak, launches=counts, kron_apply_cp_launches=kron)
+    emit("solvers", **out, seconds=time.perf_counter() - t_phase)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1063,6 +1259,7 @@ def main():
         launches["resident_lanczos"] = phase_host_projected(tkt)
         launches["resident_spmv"] = phase_entry_points(tkt, slice_trace)
         ring_launches, ring_times, worst["ring_spmv"] = phase_sharded(tkt)
+        phase_solvers(tkt)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -23,6 +23,9 @@ __all__ = [
     "dense_to_bands",
     "bands_to_dense",
     "operator_from_dense_factors",
+    "operator_from_scipy",
+    "operator_from_ragged_factors",
+    "pad_ragged_rhs",
 ]
 
 
@@ -36,8 +39,9 @@ def _device(device) -> torch.device:
 
 
 def _to_operator(bands: np.ndarray, offsets, symmetric: bool, dtype, device) -> KroneckerSumOperator:
+    # a copy: bands may be a read-only broadcast view
     return KroneckerSumOperator(
-        torch.as_tensor(np.ascontiguousarray(bands), dtype=dtype, device=_device(device)),
+        torch.tensor(np.ascontiguousarray(bands), dtype=dtype, device=_device(device)),
         tuple(int(o) for o in offsets),
         symmetric,
     )
@@ -155,7 +159,73 @@ def operator_from_dense_factors(mats, symmetric: bool, dtype=torch.float64, devi
     if isinstance(mats, (list, tuple)):
         shapes = {np.asarray(A).shape for A in mats}
         if len(shapes) > 1:
-            raise ValueError(f"factors have different sizes {sorted(shapes)}")
+            raise ValueError(f"factors have different sizes {sorted(shapes)}; use operator_from_ragged_factors "
+                             "(pad-to-max, exact) for per-mode dimensions")
         mats = np.stack([np.asarray(A, np.float64) for A in mats])
     bands, offsets = dense_to_bands(np.asarray(mats, dtype=np.float64))
     return _to_operator(bands, offsets, symmetric, dtype, device)
+
+
+def operator_from_scipy(factors, symmetric: bool, dtype=torch.float64, device=None) -> KroneckerSumOperator:
+    """The operator of a list of scipy.sparse factor matrices of one size."""
+    import scipy.sparse as sp
+
+    mats = [sp.dia_matrix(A) for A in factors]
+    if len({A.shape for A in mats}) > 1:
+        raise ValueError(f"scipy factors have different sizes {sorted({A.shape for A in mats})}; "
+                         "use operator_from_ragged_factors (pad-to-max, exact)")
+    n = mats[0].shape[0]
+    offsets = sorted({int(o) for A in mats for o in A.offsets})
+    bands = np.zeros((len(mats), len(offsets), n))
+    for s, A in enumerate(mats):
+        dense_diags = {int(o): A.data[i] for i, o in enumerate(A.offsets)}
+        for b, off in enumerate(offsets):
+            if off not in dense_diags:
+                continue
+            row = dense_diags[off]
+            # scipy's DIA stores data[k, j] = A[j - off, j]: column-indexed
+            length = n - abs(off)
+            if off >= 0:
+                bands[s, b, :length] = row[off:off + length]
+            else:
+                bands[s, b, -off:] = row[:length]
+    return _to_operator(bands, offsets, symmetric, dtype, device)
+
+
+def operator_from_ragged_factors(factors, symmetric: bool, dtype=torch.float64, device=None):
+    """An operator of factors of different sizes n_s, padded to n_max exactly:
+    A_s becomes the leading block of blockdiag(A_s, c_s·I) with c_s = A_s[0, 0].
+    With the RHS padded by zeros (`pad_ragged_rhs`) the recurrences, the
+    projected algebra and the solution never touch the pad block (it is
+    invariant and b has no component there), so the padded solve is the
+    ragged solve and solution rows ≥ n_s are zero. c_s is a Rayleigh quotient
+    of A_s, so the padded spectrum has the same extremes.
+
+    Returns (op, sizes), sizes the true per-mode dimensions.
+    """
+    mats = [np.asarray(A, np.float64) for A in factors]
+    for s, A in enumerate(mats):
+        if A.ndim != 2 or A.shape[0] != A.shape[1]:
+            raise ValueError(f"factor {s} is not square: {A.shape}")
+    sizes = tuple(A.shape[0] for A in mats)
+    n_max = max(sizes)
+    padded = np.zeros((len(mats), n_max, n_max))
+    for s, A in enumerate(mats):
+        ns = sizes[s]
+        padded[s, :ns, :ns] = A
+        if ns < n_max:
+            padded[s, range(ns, n_max), range(ns, n_max)] = A[0, 0]
+    return operator_from_dense_factors(padded, symmetric=symmetric, dtype=dtype, device=device), sizes
+
+
+def pad_ragged_rhs(b_factors, n_max: Optional[int] = None, dtype=torch.float64, device=None) -> torch.Tensor:
+    """Per-mode RHS vectors of different lengths, zero-padded into the
+    (d, n_max) layout (the exactness condition of operator_from_ragged_factors)."""
+    vecs = [np.asarray(v, np.float64).ravel() for v in b_factors]
+    n_max = n_max or max(v.size for v in vecs)
+    out = np.zeros((len(vecs), n_max))
+    for s, v in enumerate(vecs):
+        if v.size > n_max:
+            raise ValueError(f"rhs factor {s} longer than n_max: {v.size} > {n_max}")
+        out[s, :v.size] = v
+    return torch.as_tensor(out, dtype=dtype, device=_device(device))

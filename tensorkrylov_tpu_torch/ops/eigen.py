@@ -16,6 +16,8 @@ __all__ = [
     "masked_eigh",
     "sym_extremes_from_eigs",
     "analytic_laplace_extremes",
+    "laplace_eigenvector",
+    "laplace_eigenspace",
     "bendixson_lambda_min",
     "tridiag_eigvalsh_sturm",
 ]
@@ -69,6 +71,21 @@ def analytic_laplace_extremes(d: int, n: int, k, dtype=torch.float64, device=Non
     kf = torch.as_tensor(k, device=device).to(dtype)
     arg = math.pi / (2.0 * (kf + 1.0))
     return d * 4.0 * h2inv * torch.sin(arg) ** 2, d * 4.0 * h2inv * torch.sin(kf * arg) ** 2
+
+
+def laplace_eigenvector(n: int, j: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """Unit-norm eigenvector j (1-based) of the n×n Dirichlet Laplacian:
+    v_j(i) ∝ sin(i·j·π/(n+1))."""
+    i = torch.arange(1, n + 1, dtype=dtype, device=device)
+    v = torch.sin(i * j * math.pi / (n + 1))
+    return v / torch.linalg.vector_norm(v)
+
+
+def laplace_eigenspace(n: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """(n, n) matrix whose columns are the unit-norm Laplacian eigenvectors."""
+    i = torch.arange(1, n + 1, dtype=dtype, device=device)
+    V = torch.sin(torch.outer(i, i) * math.pi / (n + 1))
+    return V / torch.linalg.vector_norm(V, dim=0, keepdim=True)
 
 
 def bendixson_lambda_min(W: torch.Tensor, k) -> torch.Tensor:

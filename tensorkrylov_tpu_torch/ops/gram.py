@@ -50,7 +50,8 @@ def _mask_yz(H, Y, btil, k):
     K = H.shape[1]
     m = (torch.arange(K, device=H.device) < k).to(H.dtype)
     Hm = H * m[None, :, None] * m[None, None, :]
-    return Hm, Y * m[None, :, None], btil * m[None, :]
+    btil_m = btil * m[None, :] if btil.dim() == 2 else btil * m[None, :, None]  # rank-1 or block (d, K, R)
+    return Hm, Y * m[None, :, None], btil_m
 
 
 def cp_gram_matrices(Hm, Ym):
@@ -83,9 +84,14 @@ def mv_norm_sq(Gy, Gz, X, weights):
 
 
 def tensor_inner_prod(Ym, Z, btil_m, weights):
-    """⟨H y, b̃⟩ via the single-excluded-index scan, for a rank-1 b̃ (d, K)."""
-    g = torch.einsum("dkt,dk->dt", Ym, btil_m)  # <y_i, b̃>_m
-    a = torch.einsum("dkt,dk->dt", Z, btil_m)   # <H y_i, b̃>_m
+    """⟨H y, b̃⟩ via the single-excluded-index scan, for a rank-1 b̃ (d, K)
+    or a rank-R block b̃ (d, K, R) (summed over its R terms)."""
+    if btil_m.dim() == 2:
+        g = torch.einsum("dkt,dk->dt", Ym, btil_m)  # <y_i, b̃>_m
+        a = torch.einsum("dkt,dk->dt", Z, btil_m)   # <H y_i, b̃>_m
+    else:
+        g = torch.einsum("dkt,dkr->dtr", Ym, btil_m)  # <y_i, b̃_r>_m
+        a = torch.einsum("dkt,dkr->dtr", Z, btil_m)   # <H y_i, b̃_r>_m
 
     def combine(m1, m2):
         g1, a1 = m1
@@ -93,7 +99,7 @@ def tensor_inner_prod(Ym, Z, btil_m, weights):
         return [g2 * g1, a2 * g1 + g2 * a1]
 
     _, ac = _associative_scan(combine, [g, a])
-    return weights @ ac[-1]
+    return weights @ (ac[-1] if btil_m.dim() == 2 else torch.sum(ac[-1], dim=1))
 
 
 def excluded_products(Gy):
@@ -118,20 +124,33 @@ def residual_norm_sq(H, Y, btil, k, weights, subdiag) -> ResidualTerms:
 
     Args:
       H: (d, K, K) projected factors (padded). Y: (d, K, T) CP factors.
-      btil: (d, K). k: active column count. weights: (T,).
-      subdiag: (d,) entries h^{(s)}_{k+1,k}.
+      btil: (d, K), or a block (d, K, R). k: active column count. weights: (T,).
+      subdiag: (d,) entries h^{(s)}_{k+1,k}, or the block-Krylov boundary
+      blocks (d, R, R) = H_s[k:k+R, k-R:k] (block Lemma 3.4).
     """
     Hm, Ym, btil_m = _mask_yz(H, Y, btil, k)
     Z, Gy, Gz, X = cp_gram_matrices(Hm, Ym)
 
     hy2 = mv_norm_sq(Gy, Gz, X, weights)
     ip = tensor_inner_prod(Ym, Z, btil_m, weights)
-    b2 = torch.prod(torch.sum(btil_m * btil_m, dim=1))
+    if btil_m.dim() == 2:
+        b2 = torch.prod(torch.sum(btil_m * btil_m, dim=1))
+    else:
+        # ‖Σ_r ⊗_s b̃_{s,r}‖² = Σ_{r,q} Π_s ⟨b̃_{s,r}, b̃_{s,q}⟩
+        b2 = torch.sum(torch.prod(torch.einsum("dkr,dkq->drq", btil_m, btil_m), dim=0))
     r_comp_sq = hy2 - 2.0 * ip + b2
 
-    # boundary terms: row k-1 of y in mode s across all ranks, weighted by h²
-    yk = Y[:, k - 1]                                               # (d, T)
-    bg = (subdiag * subdiag)[:, None, None] * yk[:, :, None] * yk[:, None, :]  # (d, T, T)
+    if subdiag.dim() == 1:
+        # boundary terms: row k-1 of y in mode s across all ranks, weighted by h²
+        yk = Y[:, k - 1]                                               # (d, T)
+        bg = (subdiag * subdiag)[:, None, None] * yk[:, :, None] * yk[:, None, :]  # (d, T, T)
+    else:
+        # the trailing R rows of y in mode s, weighted by the boundary block's
+        # Gram BᵀB (A_s V_s = V_s H_s + Q_s B_s E_Rᵀ, Q_s ⟂ V_s orthonormal)
+        R = subdiag.shape[1]
+        yrows = Y[:, k - R:k]                                          # (d, R, T)
+        M = torch.einsum("dri,drj->dij", subdiag, subdiag)             # (d, R, R)
+        bg = torch.einsum("drt,drq,dqu->dtu", yrows, M, yrows)         # (d, T, T)
     E = excluded_products(Gy)
     per_mode = torch.einsum("i,dij,j->d", weights, bg * E, weights)
     boundary = torch.sum(per_mode)

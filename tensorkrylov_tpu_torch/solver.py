@@ -239,6 +239,53 @@ class _Problem(NamedTuple):
     symmetric: bool
 
 
+class _History(NamedTuple):
+    """A solve's per-step telemetry, kmax + 1 entries each, written in place
+    at the checks (orth at every step)."""
+
+    rel_res: torch.Tensor
+    r_comp: torch.Tensor
+    orth: torch.Tensor
+    lmin_h: torch.Tensor
+    lmax_h: torch.Tensor
+    rank_h: torch.Tensor
+
+
+def _new_history(K: int, pdt, dev) -> _History:
+    inf = float("inf")
+    return _History(*(torch.full((K,), v, dtype=pdt, device=dev) for v in (inf, inf, 0.0, 0.0, 0.0)),
+                    rank_h=torch.zeros((K,), dtype=torch.int32, device=dev))
+
+
+def _record_check(h, k: int, ev: ProjectedEval, config: SolverConfig) -> Status:
+    """Write check k's estimate into the histories of h (a _History or a
+    _Carry) and return the status it decides: BREAKDOWN, CONVERGED or
+    RUNNING. On BREAKDOWN the caller keeps its previous projected solution."""
+    h.rel_res[k], h.r_comp[k], h.lmin_h[k], h.lmax_h[k], h.rank_h[k] = ev.rel, ev.r_comp, ev.lmin, ev.lmax, ev.rank
+    code = torch.where(ev.breakdown, int(Status.BREAKDOWN),
+                       torch.where(ev.rel < config.tol, int(Status.CONVERGED), int(Status.RUNNING)))
+    if config.debug:
+        print(f"k={k}  rel_res={float(ev.rel):.3e}  r_comp={float(ev.r_comp):.3e}  "
+              f"λ∈[{float(ev.lmin):.3e},{float(ev.lmax):.3e}]  t={int(ev.rank)}")
+    return Status(int(code))
+
+
+def _result(x: CPTensor, status, niter: int, h, config: SolverConfig) -> SolveResult:
+    """The SolveResult of a finished loop; a status still RUNNING is MAXITER."""
+    return SolveResult(
+        x=x,
+        status=int(Status.MAXITER if status == Status.RUNNING else Status(status)),
+        niterations=niter,
+        relative_residual=h.rel_res,
+        projected_residual=h.r_comp,
+        orthogonality=h.orth,
+        lambda_min=h.lmin_h,
+        lambda_max=h.lmax_h,
+        expsum_rank=h.rank_h,
+        config=config,
+    )
+
+
 class _Carry(NamedTuple):
     """A solve's state between segments: the Krylov state, the next step k,
     the status, the last projected solution and the histories. Everything a
@@ -287,12 +334,7 @@ def _initial_carry(state: KrylovState, config: SolverConfig, d: int, dev) -> _Ca
         *state, k=1, status=int(Status.RUNNING),
         weights=torch.zeros((config.tmax,), dtype=pdt, device=dev),
         Y=torch.zeros((d, K, config.tmax), dtype=pdt, device=dev),
-        rel_res=torch.full((K,), float("inf"), dtype=pdt, device=dev),
-        r_comp=torch.full((K,), float("inf"), dtype=pdt, device=dev),
-        orth=torch.zeros((K,), dtype=pdt, device=dev),
-        lmin_h=torch.zeros((K,), dtype=pdt, device=dev),
-        lmax_h=torch.zeros((K,), dtype=pdt, device=dev),
-        rank_h=torch.zeros((K,), dtype=torch.int32, device=dev),
+        **_new_history(K, pdt, dev)._asdict(),
     )
 
 
@@ -309,14 +351,7 @@ def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
         if k % config.check_every == 0 or k >= config.kmax:
             ev = projected_step(state.H, state.btil, state.H[:, k, k - 1], k, p.b_norm_prod,
                                 config, p.tables, p.symmetric, p.op.n, p.W_A)
-            c.rel_res[k], c.r_comp[k], c.lmin_h[k], c.lmax_h[k], c.rank_h[k] = (
-                ev.rel, ev.r_comp, ev.lmin, ev.lmax, ev.rank)
-            code = torch.where(ev.breakdown, int(Status.BREAKDOWN),
-                               torch.where(ev.rel < config.tol, int(Status.CONVERGED), int(Status.RUNNING)))
-            status = Status(int(code))
-            if config.debug:
-                print(f"k={k}  rel_res={float(ev.rel):.3e}  r_comp={float(ev.r_comp):.3e}  "
-                      f"λ∈[{float(ev.lmin):.3e},{float(ev.lmax):.3e}]  t={int(ev.rank)}")
+            status = _record_check(c, k, ev, config)
             # on breakdown the projected solution is untrustworthy: keep the previous one
             if status != Status.BREAKDOWN:
                 weights, Y = ev.weights, ev.Y
@@ -327,19 +362,7 @@ def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
 
 def _finalize(p: _Problem, c: _Carry, lift=_lift) -> SolveResult:
     niter = c.k - 1
-    status = Status.MAXITER if c.status == Status.RUNNING else Status(c.status)
-    return SolveResult(
-        x=CPTensor(c.weights, lift(c.V, c.Y, niter)),
-        status=int(status),
-        niterations=niter,
-        relative_residual=c.rel_res,
-        projected_residual=c.r_comp,
-        orthogonality=c.orth,
-        lambda_min=c.lmin_h,
-        lambda_max=c.lmax_h,
-        expsum_rank=c.rank_h,
-        config=p.config,
-    )
+    return _result(CPTensor(c.weights, lift(c.V, c.Y, niter)), c.status, niter, c, p.config)
 
 
 def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None) -> SolveResult:

@@ -594,3 +594,102 @@ def test_ring_wrapper_rejects_bad_input(cuda):
         ring_spmv_local(op, torch.ones((2, 128), dtype=torch.float64, device=cuda)[:, ::2], halo, halo)
     with pytest.raises(ValueError):
         ring_spmv_local(op, v, halo.cpu(), halo)
+
+
+def _solver_problem(device, R=None, seed=31, sigma=4e4):
+    """reaction_diffusion(3, 1001, σ=4e4) made on the CPU and copied, and unit-row b
+    (d, n), or B (R, d, n), so that both devices start from the same bits."""
+    op = tkt.reaction_diffusion(3, 1001, sigma, device="cpu")  # factor κ ≈ 100
+    shape = (3, 1001) if R is None else (R, 3, 1001)
+    b = torch.randn(shape, dtype=torch.float64, generator=torch.Generator().manual_seed(seed))
+    b = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), b.to(device)
+
+
+def _traces_close(got, ref, rtol):
+    k = ref.niterations
+    assert (got.status, got.niterations) == (ref.status, k)
+    r, g = ref.relative_residual.cpu().numpy(), got.relative_residual.cpu().numpy()
+    idx = np.flatnonzero(np.isfinite(r))
+    np.testing.assert_allclose(g[idx], r[idx], rtol=rtol)
+
+
+def test_solve_block_on_card_equals_cpu(cuda):
+    """One banded_spmv launch of the (d, R, n) block per block step; status,
+    steps and residual trace as on the CPU (CGS2 keeps the bases within
+    rounding of each other)."""
+    cfg = tkt.SolverConfig(kmax=60, tol=1e-8, check_every=4)
+    ref = tkt.solve_block(*_solver_problem("cpu", R=3), cfg)
+    _build.launches.clear()
+    got = tkt.solve_block(*_solver_problem(cuda, R=3), cfg)
+    torch.cuda.synchronize()
+    assert got.status == tkt.Status.CONVERGED and _build.launches["banded_spmv"] == got.niterations
+    _traces_close(got, ref, 1e-8)
+    np.testing.assert_allclose(got.x.factors.cpu().numpy(), ref.x.factors.numpy(), rtol=0,
+                               atol=1e-9 * float(ref.x.factors.abs().max()))
+
+
+@pytest.mark.parametrize("step_impl,launches", [("fused", {"fused_lanczos": 1, "banded_spmv": 1}),
+                                                ("auto", {"banded_spmv": 2})])
+def test_solve_two_pass_on_card_equals_cpu(cuda, step_impl, launches):
+    """Per step: pass 1's fused core and pass 2's SpMV, or one SpMV in each
+    pass; status, steps and residual trace as on the CPU (each device's
+    eigh rounds the projected stage its own way). The fused route's pass 1
+    runs one recurrence on both devices, bit for bit (the fused core and the
+    start's sums in a fixed order, sqrt correctly rounded)."""
+    from tensorkrylov_tpu_torch import twopass
+    from tensorkrylov_tpu_torch.coeffs.tables import load_tables
+
+    cfg = tkt.SolverConfig(kmax=60, tol=1e-8, orth="lanczos", step_impl=step_impl)
+    ref = tkt.solve_two_pass(*_solver_problem("cpu"), cfg)
+    _build.launches.clear()
+    got = tkt.solve_two_pass(*_solver_problem(cuda), cfg)
+    torch.cuda.synchronize()
+    k = got.niterations
+    assert got.status == tkt.Status.CONVERGED
+    assert dict(_build.launches) == {kern: n * k for kern, n in launches.items()}
+    _traces_close(got, ref, 1e-6)
+    if step_impl == "fused":
+        H = [twopass._pass1(op, twopass._start(b, torch.float64, torch.float64), load_tables(device=op.device),
+                            got.config).H.cpu() for op, b in (_solver_problem(cuda), _solver_problem("cpu"))]
+        assert torch.equal(H[0][:, :k + 1, :k + 1], H[1][:, :k + 1, :k + 1])
+    np.testing.assert_allclose(got.x.factors.cpu().numpy(), ref.x.factors.numpy(), rtol=0,
+                               atol=1e-9 * float(ref.x.factors.abs().max()))
+
+
+def test_fused_two_pass_h_equals_fused_solve_on_card(cuda):
+    """The fused two-pass route records the fused solve's α and β bit for bit
+    on the card: the same kernel and the same post-processing."""
+    from tensorkrylov_tpu_torch import twopass
+    from tensorkrylov_tpu_torch.coeffs.tables import load_tables
+    from tensorkrylov_tpu_torch.solver import _segment, _setup
+
+    op, b = _solver_problem(cuda)
+    cfg = tkt.SolverConfig(kmax=60, tol=1e-8, orth="lanczos", step_impl="fused")
+    p, carry = _setup(op, b, cfg, None)
+    c = _segment(p, carry, cfg.kmax)
+    p1 = twopass._pass1(op, twopass._start(b, torch.float64, torch.float64), load_tables(device=cuda), p.config)
+    assert p1.k == c.k and torch.equal(p1.H, c.H) and torch.equal(p1.history.rel_res, c.rel_res)
+
+
+def test_kron_apply_cp_on_card_equals_cpu(cuda):
+    """One banded_spmv launch of the (d, t, n) columns; the CP result equals
+    the CPU's bit for bit (the SpMV kernel's bits equal its plain version's)."""
+    from tensorkrylov_tpu_torch.types import CPTensor
+    from tensorkrylov_tpu_torch.utils.cp import cp_residual_cross_check_device
+
+    op, _ = _solver_problem("cpu")
+    g = torch.Generator().manual_seed(32)
+    x = CPTensor(torch.randn(7, dtype=torch.float64, generator=g),
+                 torch.randn((3, 1001, 7), dtype=torch.float64, generator=g))
+    ref = tkt.kron_apply_cp(op, x)
+    opc = tkt.KroneckerSumOperator(op.bands.to(cuda), op.offsets)
+    _build.launches.clear()
+    got = tkt.kron_apply_cp(opc, CPTensor(x.weights.to(cuda), x.factors.to(cuda)))
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"banded_spmv": 1} and got.rank == 21
+    assert torch.equal(got.weights.cpu(), ref.weights) and torch.equal(got.factors.cpu(), ref.factors)
+    b = torch.randn((3, 1001), dtype=torch.float64, generator=g)
+    chk_cpu = cp_residual_cross_check_device(op, x.weights, x.factors, b)
+    chk = cp_residual_cross_check_device(opc, x.weights.to(cuda), x.factors.to(cuda), b.to(cuda))
+    np.testing.assert_allclose(chk.value, chk_cpu.value, rtol=1e-10)

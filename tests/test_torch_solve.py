@@ -200,7 +200,10 @@ def test_import_leaves_jax_out():
             " tensorkrylov_tpu_torch.experiments.reproduction, tensorkrylov_tpu_torch.ops.resident_spmv,"
             " tensorkrylov_tpu_torch.utils.checkpoint, tensorkrylov_tpu_torch.ops.ring_spmv,"
             " tensorkrylov_tpu_torch.parallel, tensorkrylov_tpu_torch.parallel.sharding,"
-            " tensorkrylov_tpu_torch.parallel.halo, tensorkrylov_tpu_torch.parallel.krylov;"
+            " tensorkrylov_tpu_torch.parallel.halo, tensorkrylov_tpu_torch.parallel.krylov,"
+            " tensorkrylov_tpu_torch.block, tensorkrylov_tpu_torch.twopass, tensorkrylov_tpu_torch.refine,"
+            " tensorkrylov_tpu_torch.utils.cp, tensorkrylov_tpu_torch.experiments.eigenvalue_distribution,"
+            " tensorkrylov_tpu_torch.experiments.parameterized_systems, tensorkrylov_tpu_torch.experiments.plotting;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tensorkrylov_tpu.'))"
             " or m == 'tensorkrylov_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
