@@ -62,7 +62,15 @@ Phases, one output line each:
                rank-4 B, kmax=96) with one banded_spmv launch per block step and the
                device rank-R cross-check, and at n=1024 on the card against the CPU;
                solve_refined on config 4's operator and b = B[0], its history
-               decreasing and its residual equal to the device cross-check's.
+               decreasing and its residual equal to the device cross-check's;
+ 11. deflated — solve_deflated on the κ = 1e6 flagship (d=10, n=131072, m=2048, the
+               JAX package's recipe on storage='full'), certified below 1e-8 with one
+               banded_spmv launch per step and one for the device cross-check, the
+               cross-check not contradicting the bound (its own line, deflated_flagship);
+               at the JAX package's mid shape (d=10, n=16384, κ=1e5, m=256) 'full' and
+               'twopass' with plain Lanczos, equal bit for bit in T and the bounds,
+               'segmented', and a twopass stopped at k=64 and resumed from its state
+               cache equal to the uninterrupted one; d=3, n=30 on the card and the CPU.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -1240,6 +1248,169 @@ def phase_solvers(tkt, dev=torch.device("cuda"), p=SOLVERS):
     emit("solvers", **out, seconds=time.perf_counter() - t_phase)
 
 
+# phase 11: the flagship through solve_deflated with the JAX package's recipe
+# (tensorkrylov_tpu/experiments/data/northstar_d10_n131072_tpu.json) on storage='full'; the storages at the
+# JAX package's mid shape (northstar_mid_d10_n16384_tpu.json); card against CPU on tests/test_deflate.py:137's case
+DEFLATED = dict(
+    flagship=dict(d=10, n=131072, kappa=1e6, seed=1234, m=2048, checkpoints=[384, 448, 512],
+                  config=dict(kmax=512, tol=1e-8, orth="lanczos_reorth_auto")),
+    mid=dict(d=10, n=16384, kappa=1e5, seed=1234, m=256, kmax=384, tol=1e-8, segment=32, stop=[32, 64]),
+    small=dict(n=30, shift=50.0, seed=7, m=6, checkpoints=[8, 16, 24, 30], config=dict(kmax=30, tol=1e-7)),
+)
+DEFLATED_BOUND_RTOL = 1e-9   # card vs CPU certified bounds (d=3, n=30, reorthogonalized)
+DEFLATED_X_RTOL = 1e-12      # mid shape: twopass's x (pass 2's accumulation) vs full's (V·Yv), relative to max|x|
+
+
+def deflated_problem(tkt, q, device):
+    """reaction_diffusion(d, n, σ(κ)) and b from random_rhs(seed) with unit
+    rows, made on the CPU and copied."""
+    op = tkt.reaction_diffusion(q["d"], q["n"], sigma_for_kappa(q["n"], q["kappa"]), device="cpu")
+    b = tkt.random_rhs(q["d"], q["n"], seed=q["seed"])
+    b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
+    return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), b.to(device)
+
+
+def deflated_summary(res, wall, counts, dev):
+    from tensorkrylov_tpu_torch.experiments.northstar import interpret_cross_check
+
+    verdict = interpret_cross_check(res.measured_cp_residual, res.cp_residual_floor, res.certified_bound[-1],
+                                    DEFLATED["flagship"]["config"]["tol"])
+    return dict(status=res.status, niterations=res.niterations, checkpoints=res.checkpoints,
+                estimate=res.relative_residual, certified_bound=res.certified_bound, expsum_sup=res.expsum_sup,
+                expsum_rank=res.expsum_rank, measured_cp_residual=res.measured_cp_residual,
+                cp_residual_floor=res.cp_residual_floor, cross_check_verdict=verdict,
+                orthogonality_drift=res.orthogonality_drift,
+                pass2_gram_max=res.pass2_gram_max, pass2_beta_rel_dev=res.pass2_beta_rel_dev,
+                projection_leak=res.projection_leak, boundary_drift_max=res.boundary_drift_max, wall_s=wall,
+                iterations_per_s=res.niterations / wall, max_memory_allocated=peak_bytes(dev), launches=counts)
+
+
+def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED):
+    """Phase 11: (a) the κ = 1e6 flagship through solve_deflated, storage
+    'full', certified below tol with one banded_spmv launch per step and one
+    for the device cross-check; (b) at the mid shape, 'full' and 'twopass'
+    with plain Lanczos equal bit for bit in T and the bounds, 'segmented', and
+    a twopass stopped and resumed from its state cache equal to the
+    uninterrupted one; (c) the d=3, n=30 case on the card and the CPU. Each
+    solve runs with the launch counts set to 0 just before it and read just
+    after. Returns the phase's banded_spmv launches."""
+    from tensorkrylov_tpu_torch import deflate_light
+    from tensorkrylov_tpu_torch.ops.orth import deflation_project
+
+    t_phase = time.perf_counter()
+    out, launched = {}, 0
+    xc = int(dev.type == "cuda")   # the device cross-check's A·X (on the CPU the host's numpy check runs)
+
+    # (a) the flagship
+    q = p["flagship"]
+    op, b = deflated_problem(tkt, q, dev)
+    t0 = time.perf_counter()
+    basis = tkt.deflation_basis(op, q["m"])
+    setup_s = time.perf_counter() - t0
+    cfg = tkt.SolverConfig(**q["config"])
+    res, wall, counts = run_solve(tkt, op, b, cfg, "solve_deflated", basis=basis, checkpoints=q["checkpoints"],
+                                  storage="full")
+    k, tol = res.niterations, cfg.tol
+    x = res.x.factors
+    row = dict(d=q["d"], n=q["n"], kappa=q["kappa"], sigma=sigma_for_kappa(q["n"], q["kappa"]), m=q["m"],
+               config=q["config"], storage="full", setup_s=setup_s, **deflated_summary(res, wall, counts, dev),
+               lambda_min=res.lambda_min, lambda_max=res.lambda_max, x_shape=list(x.shape))
+    verdict = row["cross_check_verdict"]
+    out["flagship"] = row
+    emit("deflated_flagship", **row)
+    require(res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < tol,
+            f"deflated flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
+    require("CONTRADICT" not in verdict, f"deflated flagship: the cross-check contradicts the bound: {verdict}")
+    require(counts == {"banded_spmv": k + xc}, f"deflated flagship: launches {counts} in {k} steps (want {k + xc})")
+    require(x.shape[:2] == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device.type == dev.type,
+            f"deflated flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
+    launched += counts["banded_spmv"]
+    del res, x, basis, op, b
+
+    # (b) the storages at the mid shape
+    q = p["mid"]
+    op, b = deflated_problem(tkt, q, dev)
+    basis = tkt.deflation_basis(op, q["m"])
+    plain = tkt.SolverConfig(kmax=q["kmax"], tol=q["tol"], orth="lanczos")
+    mid, runs = dict(d=q["d"], n=q["n"], kappa=q["kappa"], m=q["m"], kmax=q["kmax"], tol=q["tol"]), {}
+    for storage in ("full", "twopass"):
+        runs[storage] = run_solve(tkt, op, b, plain, "solve_deflated", basis=basis, storage=storage)
+    (rf, _, cf), (rt, _, ct) = runs["full"], runs["twopass"]
+    k = rf.niterations
+    x_diff = float((rt.x.factors - rf.x.factors).abs().max() / rf.x.factors.abs().max())
+    # T and b̃ of the two storages' first passes, from their shared step (not the main path's launches)
+    U = torch.tensor(basis.U, device=dev)
+    b_perp = deflation_project(b, U)
+    states = [deflate_light._init_state(b_perp, q["kmax"] + 1) for _ in range(2)]
+    V = torch.zeros((k + 1, q["d"], q["n"]), dtype=torch.float64, device=dev)
+    V[0] = states[0].vp
+    deflate_light._advance(op, states[0], b_perp, U, 1, k + 1, V=V)
+    deflate_light._advance(op, states[1], b_perp, U, 1, k + 1, measure_leak=True)
+    t_equal = all(torch.equal(getattr(states[0], f), getattr(states[1], f)) for f in ("dg", "od", "btil"))
+    del V, states
+    mid["full"] = deflated_summary(rf, runs["full"][1], cf, dev)
+    mid["twopass"] = dict(deflated_summary(rt, runs["twopass"][1], ct, dev), x_max_rel_diff_vs_full=x_diff,
+                          dg_od_btil_bit_equal=t_equal)
+    require((rt.status, rt.niterations) == (rf.status, k), f"deflated mid: twopass {rt.status}/{rt.niterations} "
+                                                           f"vs full {rf.status}/{k}")
+    require(t_equal and rt.certified_bound == rf.certified_bound and rt.relative_residual == rf.relative_residual,
+            f"deflated mid: twopass's T equal {t_equal}, bounds {rt.certified_bound} vs {rf.certified_bound}")
+    require(x_diff <= DEFLATED_X_RTOL, f"deflated mid: twopass x differs from full's by {x_diff}")
+    require(cf == {"banded_spmv": k + xc} and ct == {"banded_spmv": 2 * k - 1 + xc},
+            f"deflated mid: launches full {cf}, twopass {ct} in {k} steps (want {k + xc}, {2 * k - 1 + xc})")
+    launched += cf["banded_spmv"] + ct["banded_spmv"]
+
+    res, wall, counts = run_solve(tkt, op, b, tkt.SolverConfig(kmax=q["kmax"], tol=q["tol"]), "solve_deflated",
+                                  basis=basis, storage="segmented", segment=q["segment"])
+    mid["segmented"] = dict(segment=q["segment"], **deflated_summary(res, wall, counts, dev))
+    require(res.boundary_drift_max is not None and math.isfinite(res.certified_bound[-1])
+            and counts == {"banded_spmv": res.niterations + xc},
+            f"deflated mid segmented: bound {res.certified_bound}, drift {res.boundary_drift_max}, "
+            f"launches {counts}")
+    launched += counts["banded_spmv"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "state.npz")
+        res, wall, counts = run_solve(tkt, op, b, plain, "solve_deflated", basis=basis, storage="twopass",
+                                      checkpoints=q["stop"], state_cache=cache)
+        launched += counts["banded_spmv"]
+        res, wall, counts = run_solve(tkt, op, b, plain, "solve_deflated", basis=basis, storage="twopass",
+                                      state_cache=cache)
+    stop = max(q["stop"])
+    want = (k - stop) + (k - 1) + xc
+    mid["resumed"] = dict(stopped_at=stop, **deflated_summary(res, wall, counts, dev))
+    require(res.certified_bound == rt.certified_bound and torch.equal(res.x.factors, rt.x.factors),
+            f"deflated mid: the resumed twopass differs from the uninterrupted one ({res.certified_bound} vs "
+            f"{rt.certified_bound})")
+    require(counts == {"banded_spmv": want}, f"deflated mid resumed: launches {counts}, want {want}")
+    launched += counts["banded_spmv"]
+    out["mid"] = mid
+    del runs, rf, rt, res, op, b, basis, U, b_perp
+
+    # (c) card against CPU
+    q = p["small"]
+    got = {}
+    for d_ in (dev, torch.device("cpu")):
+        op = tkt.laplace(3, q["n"], shift=q["shift"], device=d_)
+        b = tkt.random_rhs(3, q["n"], seed=q["seed"]).to(d_)
+        got[d_.type] = run_solve(tkt, op, b, tkt.SolverConfig(**q["config"]), "solve_deflated", m=q["m"],
+                                 checkpoints=q["checkpoints"])
+        if d_.type == dev.type:
+            launched += got[d_.type][2].get("banded_spmv", 0)
+            oracle = tkt.kron_residual_dense(op, got[d_.type][0].x, b)
+    g, c = got[dev.type][0], got["cpu"][0]
+    bound_err = max(abs(a - r) / r for a, r in zip(g.certified_bound, c.certified_bound))
+    out["card_vs_cpu"] = dict(n=q["n"], m=q["m"], status=g.status, niterations=g.niterations,
+                              certified_bound=g.certified_bound, bound_max_rel_err=bound_err,
+                              bound_rtol=DEFLATED_BOUND_RTOL, dense_oracle_residual=oracle)
+    require((g.status, g.niterations, g.checkpoints) == (c.status, c.niterations, c.checkpoints),
+            f"deflated card vs cpu: {g.status}/{g.niterations} vs {c.status}/{c.niterations}")
+    require(bound_err <= DEFLATED_BOUND_RTOL, f"deflated card vs cpu: bounds differ by {bound_err}")
+    require(oracle <= g.certified_bound[-1] + 1e-14, f"deflated: dense oracle {oracle} above the bound")
+    emit("deflated", **out, seconds=time.perf_counter() - t_phase)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1260,6 +1431,7 @@ def main():
         launches["resident_spmv"] = phase_entry_points(tkt, slice_trace)
         ring_launches, ring_times, worst["ring_spmv"] = phase_sharded(tkt)
         phase_solvers(tkt)
+        launches["banded_spmv"] += phase_deflated(tkt)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -11,7 +11,8 @@ runs the Krylov segments on the device and the projected stage on the host.
 Entry points: ``solve``, ``solve_host_projected``, ``solve_resumable``,
 ``solve_multi_rhs``, ``solve_block`` (a rank-R right-hand side in one shared
 block Krylov space), ``solve_two_pass`` (basis-free, O(d·n) basis memory),
-``solve_refined`` (restarted CP refinement), ``solve_tensorized_system``,
+``solve_refined`` (restarted CP refinement), ``solve_deflated`` (per-factor
+spectral deflation, the κ = 1e6 flagship's solver), ``solve_tensorized_system``,
 ``parallel.solve_sharded`` (the solve split over a mesh of shard slots); the CLI
 ``python -m tensorkrylov_tpu_torch solve|reproduce|info`` and the bench
 ``python -m tensorkrylov_tpu_torch.bench``.
@@ -21,6 +22,7 @@ from .solver import MultiRhsResult, solve, solve_host_projected, solve_multi_rhs
 from .block import solve_block
 from .twopass import solve_two_pass
 from .refine import RefinedResult, cp_residual, solve_refined
+from .deflate import DeflatedResult, DeflationBasis, deflation_basis, solve_deflated
 from .system import TensorizedSystem, multiple_rhs, random_rhs, solve_tensorized_system
 from .models import gallery
 from .models.gallery import (
@@ -52,6 +54,10 @@ __all__ = [
     "solve_two_pass",
     "solve_refined",
     "RefinedResult",
+    "solve_deflated",
+    "deflation_basis",
+    "DeflationBasis",
+    "DeflatedResult",
     "cp_residual",
     "cp_axpy",
     "cp_round",

@@ -9,7 +9,8 @@ port slices the active prefix ``V[:k]``, and it updates the state in place:
 ``lanczos_step`` writes column k of V, entries of H and b̃, and returns the
 same tensors. The sweeps over the prefix are one strided batched product in
 the compute dtype; the TPU's column chunking and emulated-f64 dot are not
-needed on the card.
+needed on the card. ``deflation_project`` keeps a deflated recurrence in the
+complement of the deflated eigenvectors U (``deflate.py``): two GEMMs over U.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from .banded import spmv
 from .fused_lanczos import fixed_order_sum, fused_lanczos_core
 
 __all__ = ["KrylovState", "init_state", "lanczos_step", "arnoldi_step", "orthogonality_loss", "lanczos_algorithm",
-           "arnoldi_algorithm"]
+           "arnoldi_algorithm", "deflation_project"]
 
 
 class KrylovState(NamedTuple):
@@ -138,22 +139,51 @@ def _auto_threshold(reorth_tol: float, dtype) -> float:
     return reorth_tol if reorth_tol > 0.0 else math.sqrt(torch.finfo(dtype).eps)
 
 
-def _replace_lucky(V, v_new, lucky, k, proj_dtype):
+def deflation_coeffs(u: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """c = U_sᵀ u_s per factor: (d, m). U is (1, n, m), shared by every
+    factor (one GEMM over U whatever d is), or (d, n, m)."""
+    U = U.to(u.dtype)
+    if U.shape[0] == 1:
+        return u @ U[0]
+    return torch.bmm(u[:, None, :], U)[:, 0]
+
+
+def deflation_subtract(u: torch.Tensor, U: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """u − U c per factor, with c from deflation_coeffs."""
+    U = U.to(u.dtype)
+    if U.shape[0] == 1:
+        return u - c @ U[0].T
+    return u - torch.bmm(c[:, None, :], U.transpose(1, 2))[:, 0]
+
+
+def deflation_project(u: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """u − U (Uᵀ u) per factor, in u's dtype: the projection onto the
+    complement of the deflated eigenvectors (two plain GEMMs; the JAX
+    package's column chunking bounds the TPU's emulated-f64 temporaries and
+    is not needed here)."""
+    return deflation_subtract(u, U, deflation_coeffs(u, U))
+
+
+def _replace_lucky(V, v_new, lucky, k, proj_dtype, deflate_U=None):
     """Lucky-breakdown restart: for factors whose new Krylov vector vanished
     (the space is A-invariant), continue with a fixed pseudo-random direction
     orthogonalized twice against the basis; an exhausted space gets a zero
-    column (A·0 = 0 and ⟨·,0⟩ = 0 keep it inert)."""
+    column (A·0 = 0 and ⟨·,0⟩ = 0 keep it inert). With deflate_U the
+    direction is also projected into the U-complement, where the deflated
+    recurrence lives."""
     K, d, n = V.shape
     vr = _restart_direction((0, n), (0, d), k, _acc_dtype(V.dtype, proj_dtype), V.device)
     nrm0 = torch.sqrt(torch.sum(vr.to(proj_dtype) ** 2, dim=1))
     for _ in range(2):
+        if deflate_U is not None:
+            vr = deflation_project(vr, deflate_U)
         vr = _subtract_span(V, vr, _project_coeffs(V, vr, k, proj_dtype), k)
     ok, den = _restart_ok(torch.sqrt(torch.sum(vr.to(proj_dtype) ** 2, dim=1)), nrm0)
     vr = torch.where(ok[:, None], vr / den.to(vr.dtype)[:, None], 0.0)
     return torch.where(lucky[:, None], vr.to(v_new.dtype), v_new)
 
 
-def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, k: int, *, reorth, proj_dtype, fused: bool = False, reorth_tol: float = 0.0):
+def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, k: int, *, reorth, proj_dtype, fused: bool = False, reorth_tol: float = 0.0, deflate_U=None):
     """One three-term-recurrence step producing basis vector k for all
     factors. Returns (state, orthogonality-loss estimate); the state's
     tensors are updated in place.
@@ -165,10 +195,19 @@ def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, 
 
     fused=True computes the recurrence core (SpMV, the α/β updates and the
     α, β², ⟨u, b⟩ sums) with ops.fused_lanczos in plain and auto modes.
+
+    deflate_U: (1, n, m) or (d, n, m) deflated eigenvectors; u is projected
+    into their complement after the α update (deflation_project), so that
+    roundoff does not regrow the deflated modes. The fused core has no room
+    for the projection between α and β², so fused=True with deflate_U raises
+    (the JAX package quietly takes its unfused step there).
     """
     V, H, btil, beta = state
     acc = _acc_dtype(V.dtype, proj_dtype)
     mode = _reorth_mode(reorth)
+    if fused and deflate_U is not None:
+        raise ValueError("lanczos_step: fused=True cannot take deflate_U (the fused core has no deflation "
+                         "projection); use fused=False (ROADMAP.md Queue 1, recorded divergences)")
     v_prev = V[k - 1].to(acc)
     v_pprev = V[max(k - 2, 0)].to(acc)
     b = b.to(acc)
@@ -183,6 +222,8 @@ def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, 
         u = u - beta.to(acc)[:, None] * v_pprev
         alpha = bdot(u, v_prev).to(proj_dtype)
         u = u - alpha.to(acc)[:, None] * v_prev
+        if deflate_U is not None:
+            u = deflation_project(u, deflate_U)
         if mode == "always":
             w = _project_coeffs(V, u, k, proj_dtype)
             u = _subtract_span(V, u, w, k)
@@ -207,7 +248,7 @@ def lanczos_step(op: KroneckerSumOperator, state: KrylovState, b: torch.Tensor, 
     # b̃_k = ⟨u/β, b⟩ = ub/β; a restart replaced v_new, so recompute it then
     bt_new = ub / safe
     if bool(lucky.any()):
-        v_new = _replace_lucky(V, v_new, lucky, k, proj_dtype)
+        v_new = _replace_lucky(V, v_new, lucky, k, proj_dtype, deflate_U=deflate_U)
         bt_new = bdot(v_new, b.to(u.dtype)).to(proj_dtype)
 
     V[k] = v_new.to(V.dtype)

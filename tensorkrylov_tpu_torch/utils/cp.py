@@ -7,10 +7,15 @@ forms run on the host in numpy ``longdouble`` (80-bit on x86), as in the JAX
 package.
 
 ``cp_residual_cross_check_device`` forms the Gram of the residual's distinct
-columns [B | X | A X] in native f64 on X's device, with A X from
-``ops.banded.spmv``. The JAX package's f32-pair GEMM, its column chunking, its
-1e-15 charge on the floor and its mesh branch work around the TPU's emulated
-f64 and are not ported: the floor charges f64 eps.
+columns [B | X | A X] on X's device in native f64, each entry a compensated
+dot product (``_gram_dot2``: an f64 pair carrying it to ~eps², whatever n is),
+with A X from ``ops.banded.spmv``; the host adds each pair in longdouble, and
+the floor charges longdouble eps. An f64 GEMM carries a length-n entry only to
+~√n·eps, and at d=10, n ≥ 16384 its noise in the cancelling pair sum already
+reads above an f64-eps floor where the residual is far below it. The JAX
+package's f32-pair GEMM, its
+column chunking, its 1e-15 charge and its mesh branch work around the TPU's
+emulated f64 and are not ported.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ __all__ = [
 ]
 
 _F64_EPS = float(np.finfo(np.float64).eps)
+_LD_EPS = float(np.finfo(np.longdouble).eps)
 
 
 def _host(t) -> np.ndarray:
@@ -150,12 +156,13 @@ def cp_residual_cross_check(op: KroneckerSumOperator, x: CPTensor, b) -> Residua
 
 
 def cp_residual_cross_check_device(op: KroneckerSumOperator, weights, X_dev, b_dev) -> ResidualCrossCheck:
-    """cp_residual_cross_check with the O(d·n·t²) Gram formed on X's device in
-    native f64, only the small (d, R+2t, R+2t) Gram moving to the host for the
-    longdouble rank-pair contraction. A X is one banded SpMV of the (d, t, n)
-    columns. X_dev: (d, n, t) solution factors; b_dev: (d, n) for a rank-1
-    right-hand side, or (R, d, n) for b = Σ_r ⊗_s b_dev[r, s] (the block
-    solvers' residual). The floor charges f64 eps on the Gram entries."""
+    """cp_residual_cross_check with the O(d·n·t²) Gram formed on X's device,
+    compensated (_gram_dot2), only the small (d, R+2t, R+2t) Gram, as f64
+    pairs, moving to the host for the longdouble rank-pair contraction. A X
+    is one banded SpMV of the (d, t, n) columns. X_dev: (d, n, t) solution
+    factors; b_dev: (d, n) for a rank-1 right-hand side, or (R, d, n) for
+    b = Σ_r ⊗_s b_dev[r, s] (the block solvers' residual). The floor charges
+    longdouble eps on the Gram entries."""
     X = torch.as_tensor(X_dev).to(torch.float64)
     dev = X.device
     d, n, t = X.shape
@@ -165,8 +172,50 @@ def cp_residual_cross_check_device(op: KroneckerSumOperator, weights, X_dev, b_d
     op64 = KroneckerSumOperator(op.bands.to(device=dev, dtype=torch.float64), op.offsets, op.symmetric)
     Xt = X.transpose(1, 2).contiguous()                                  # (d, t, n)
     C = torch.cat([B_rows, Xt, spmv(op64, Xt)], dim=1)                   # (d, R+2t, n)
-    G = torch.bmm(C, C.transpose(1, 2))
-    return _cross_check_from_gram(_host(G).astype(np.longdouble), _host(weights), d, t, R=R, b_weights=np.ones(R))
+    hi, lo = _gram_dot2(C)
+    G = _host(hi).astype(np.longdouble) + _host(lo).astype(np.longdouble)
+    return _cross_check_from_gram(G, _host(weights), d, t, R=R, b_weights=np.ones(R), entry_eps=_LD_EPS)
+
+
+_SPLITTER = 134217729.0   # 2^27 + 1: Dekker's split of an f64 into two halves of 26 bits
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, e) with s = fl(a + b) and a + b = s + e exactly (Knuth's TwoSum)."""
+    s = a + b
+    z = s - a
+    return s, (a - (s - z)) + (b - z)
+
+
+def _two_prod(a: torch.Tensor, b: torch.Tensor):
+    """(p, e) with p = fl(a·b) and a·b = p + e exactly (Dekker's TwoProduct;
+    each operation is its own rounded tensor op, none fused into an FMA)."""
+    p = a * b
+    ca, cb = _SPLITTER * a, _SPLITTER * b
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _gram_dot2(C: torch.Tensor):
+    """G = C Cᵀ per batch for C (d, P, n), as (hi, lo) f64 pairs (d, P, P):
+    each entry a compensated dot product (Ogita, Rump and Oishi's Dot2, its
+    sum a pairwise tree of TwoSums), so hi + lo carries the entry to about
+    eps²·log2(n) of Σ|c_i c_j| whatever n is, where an f64 GEMM carries it
+    to about √n·eps."""
+    d, P, n = C.shape
+    hi = torch.zeros((d, P, P), dtype=C.dtype, device=C.device)
+    lo = torch.zeros_like(hi)
+    for i in range(P):
+        p, e = _two_prod(C[:, i:, :], C[:, i:i + 1, :])                 # (d, P - i, n)
+        while p.shape[-1] > 1:
+            if p.shape[-1] % 2:
+                p, e = (torch.nn.functional.pad(t, (0, 1)) for t in (p, e))
+            s, err = _two_sum(p[..., 0::2], p[..., 1::2])
+            p, e = s, e[..., 0::2] + e[..., 1::2] + err
+        hi[:, i, i:], lo[:, i, i:] = p[..., 0], e[..., 0]
+        hi[:, i:, i], lo[:, i:, i] = p[..., 0], e[..., 0]
+    return hi, lo
 
 
 def cp_residual_cross_check_host_rankR(bands, offsets, weights, factors, B, b_weights=None) -> ResidualCrossCheck:

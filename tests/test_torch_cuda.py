@@ -693,3 +693,80 @@ def test_kron_apply_cp_on_card_equals_cpu(cuda):
     chk_cpu = cp_residual_cross_check_device(op, x.weights, x.factors, b)
     chk = cp_residual_cross_check_device(opc, x.weights.to(cuda), x.factors.to(cuda), b.to(cuda))
     np.testing.assert_allclose(chk.value, chk_cpu.value, rtol=1e-10)
+
+
+def _deflated_problem(device, n=30):
+    """tests/test_deflate.py's oracle case, laplace(3, n, shift=50) with
+    random_rhs seed 7, made on the CPU and copied."""
+    op = tkt.laplace(3, n, shift=50.0, device="cpu")
+    return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), tkt.random_rhs(3, n, seed=7).to(device)
+
+
+@pytest.mark.parametrize("storage,n", [("full", 30), ("twopass", 40), ("segmented", 40)])
+def test_solve_deflated_on_card_equals_cpu(cuda, storage, n):
+    """The deflated solve on the card: its status, steps and checkpoints as
+    on the CPU, the certified bounds within 1e-9, the dense oracle below the
+    bound, x on the card; one banded_spmv launch per step (twopass: pass 1's
+    k and pass 2's k - 1) and one for the device cross-check's A·X. The
+    storages without reorthogonalization run at n=40, where the deflated
+    space (n − m = 34) is not exhausted by the 24 steps: at exhaustion plain
+    Lanczos amplifies each device's rounding apart."""
+    cfg = tkt.SolverConfig(kmax=32, tol=1e-7, orth="lanczos" if storage == "twopass" else "lanczos_reorth")
+    kw = dict(m=6, checkpoints=[8, 16, 24, 32], storage=storage, segment=8)
+    ref = tkt.solve_deflated(*_deflated_problem("cpu", n), cfg, **kw)
+    _build.launches.clear()
+    op, b = _deflated_problem(cuda, n)
+    got = tkt.solve_deflated(op, b, cfg, **kw)
+    torch.cuda.synchronize()
+    k = got.niterations
+    assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
+    assert got.status == tkt.Status.CONVERGED and got.x.factors.device.type == "cuda"
+    # the boundary term's last row of y rounds to eps·‖y‖ absolute (tests/test_torch_deflate.py); plain
+    # Lanczos (twopass) amplifies each device's rounding apart, as test_solve_two_pass_on_card_equals_cpu's
+    rtol, atol = (1e-6, 0.0) if storage == "twopass" else (1e-9, 1e-15)
+    np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=rtol, atol=atol)
+    assert tkt.kron_residual_dense(op, got.x, b) <= got.certified_bound[-1] + 1e-14
+    steps = 2 * k - 1 if storage == "twopass" else k
+    assert dict(_build.launches) == {"banded_spmv": steps + 1}
+    assert got.cp_residual_floor is not None and got.measured_cp_residual is not None
+
+
+def test_deflated_twopass_replays_full_on_card(cuda):
+    """orth='lanczos': twopass runs full's step, so T and b̃ are equal bit for
+    bit on the card (one recurrence, the same cuBLAS shapes), and pass 2
+    repeats pass 1 (its replayed β deviates by at most 1e-14)."""
+    from tensorkrylov_tpu_torch import deflate_light
+    from tensorkrylov_tpu_torch.ops.orth import deflation_project
+
+    op = tkt.reaction_diffusion(4, 4099, 3e4, device=cuda)
+    b = tkt.random_rhs(4, 4099, seed=3).to(cuda)
+    U = torch.tensor(tkt.deflation_basis(op, 32).U, device=cuda)
+    b_perp = deflation_project(b, U)
+    k = 60
+    full, light = deflate_light._init_state(b_perp, k + 1), deflate_light._init_state(b_perp, k + 1)
+    V = torch.zeros((k + 1, 4, 4099), dtype=torch.float64, device=cuda)
+    V[0] = full.vp
+    deflate_light._advance(op, full, b_perp, U, 1, k + 1, V=V)
+    deflate_light._advance(op, light, b_perp, U, 1, k + 1, measure_leak=True)
+    for f in ("dg", "od", "btil"):
+        assert torch.equal(getattr(full, f), getattr(light, f)), f
+    cfg = tkt.SolverConfig(kmax=k, tol=1e-12, orth="lanczos")
+    r_full = tkt.solve_deflated(op, b, cfg, m=32, storage="full", checkpoints=[k])
+    r_two = tkt.solve_deflated(op, b, cfg, m=32, storage="twopass", checkpoints=[k])
+    assert r_two.certified_bound == r_full.certified_bound
+    assert r_two.pass2_beta_rel_dev <= 1e-14
+    xf, xt = r_full.x.factors, r_two.x.factors
+    assert float((xf - xt).abs().max()) <= 1e-12 * float(xf.abs().max())
+
+
+def test_gram_dot2_on_card_equals_cpu(cuda):
+    """The device cross-check's compensated Gram: every operation a rounded
+    IEEE op in the same tree order on both devices, so the card's (hi, lo)
+    pairs equal the CPU's bit for bit (no product fused into an FMA)."""
+    from tensorkrylov_tpu_torch.utils.cp import _gram_dot2
+
+    g = torch.Generator().manual_seed(5)
+    C = torch.randn((3, 7, 40001), dtype=torch.float64, generator=g) * torch.logspace(-4, 4, 40001, dtype=torch.float64)
+    hi, lo = _gram_dot2(C)
+    hi_c, lo_c = _gram_dot2(C.to(cuda))
+    assert torch.equal(hi_c.cpu(), hi) and torch.equal(lo_c.cpu(), lo)

@@ -1,13 +1,16 @@
 """The port's experiment modules (eigenvalue_distribution, parameterized_systems,
-plotting) on the CPU: against the JAX package's on the same inputs
-(tests/test_experiments.py's cases; its northstar case waits for the port of
-experiments/northstar.py)."""
+plotting, northstar) on the CPU: against the JAX package's on the same inputs
+(tests/test_experiments.py's cases), and the north-star runner end to end at a
+small size."""
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from tensorkrylov_tpu.experiments import eigenvalue_distribution as jed, parameterized_systems as jps
-from tensorkrylov_tpu_torch.experiments import eigenvalue_distribution as ed, parameterized_systems as ps, plotting
+from tensorkrylov_tpu.experiments import eigenvalue_distribution as jed, northstar as jns, parameterized_systems as jps
+from tensorkrylov_tpu_torch.experiments import eigenvalue_distribution as ed, northstar as ns, parameterized_systems as ps
+from tensorkrylov_tpu_torch.experiments import plotting
 
 # many small eigh calls: one intra-op thread per test worker (see test_torch_solve.py)
 torch.set_num_threads(1)
@@ -93,3 +96,43 @@ def test_plots_write_png(tmp_path):
     for p in paths:
         with open(p, "rb") as f:
             assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+
+
+def test_interpret_cross_check_branches():
+    """A measurement above the certified bound is labelled a contradiction,
+    never a confirmation; every branch's verdict is the JAX package's."""
+    f = ns.interpret_cross_check
+    assert f(None, 1e-9, 1e-9, 1e-8) is None
+    assert "<= floor" in f(1e-10, 1e-9, 5e-9, 1e-8)
+    assert "confirmation" in f(3e-9, 1e-9, 5e-9, 1e-8)
+    assert "CONTRADICTED" in f(9.8e-6, 3e-8, 5.4e-9, 1e-8)
+    assert "within tol" in f(8e-9, 1e-9, 5e-9, 1e-8)
+    assert "NOT confirmed" in f(5e-8, 1e-9, None, 1e-8)
+    for args in ((None, 1e-9, 1e-9, 1e-8), (1e-10, 1e-9, 5e-9, 1e-8), (3e-9, 1e-9, 5e-9, 1e-8),
+                 (9.8e-6, 3e-8, 5.4e-9, 1e-8), (8e-9, 1e-9, 5e-9, 1e-8), (5e-8, 1e-9, None, 1e-8)):
+        assert f(*args) == jns.interpret_cross_check(*args)
+    for n, kappa in ((131072, 1e6), (16384, 1e5), (256, 1e3)):
+        assert ns.sigma_for_kappa(n, kappa) == jns.sigma_for_kappa(n, kappa)
+
+
+def test_northstar_main_on_the_cpu(tmp_path):
+    """The runner end to end at d=3, n=256, κ=1e3, m=8, kmax=64 (short of
+    tol: 3.6e-5 at k=64, as the JAX package's solve): its artifact written
+    where --out says, the cross-check resolving the last estimate, the basis
+    cached and loaded on a second run."""
+    out, cache = tmp_path / "ns.json", str(tmp_path / "basis.npz")
+    argv = ["--cpu", "--d", "3", "--n", "256", "--m", "8", "--kappa", "1e3", "--kmax", "64", "--out", str(out),
+            "--basis-cache", cache]
+    art = ns.main(argv)
+    with open(out) as fh:
+        saved = json.load(fh)
+    assert saved == json.loads(json.dumps(art))
+    res = saved["result"]
+    assert res["checkpoints"] == [32, 64] and res["niterations"] == 64
+    assert res["certified_bound"][1] < res["certified_bound"][0] and res["certified_bound"][1] < 1e-4
+    assert abs(res["measured_cp_residual"] - res["relative_residual_estimate"][-1]) <= 1e-3 * res["measured_cp_residual"]
+    assert "NOT confirmed" in res["cp_residual_interpretation"]
+    assert saved["recipe"]["storage_resolved"] == "full" and saved["timing"]["device"] == "cpu"
+    assert not saved["timing"]["basis_loaded"] and ns.main(argv)["timing"]["basis_loaded"]
+    with pytest.raises(NotImplementedError, match="#6"):
+        ns.main(argv + ["--storage", "df64"])

@@ -1,7 +1,7 @@
 """Ragged per-mode sizes through the port's pad-to-max constructors, the
 scipy constructor, and the analytic Laplacian eigenvectors, on the CPU:
 against the JAX package and the dense ragged oracle (tests/test_ragged.py's
-cases; its deflated case waits for the port of deflate.py)."""
+cases)."""
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -61,6 +61,32 @@ def test_ragged_solve_matches_dense_oracle():
             t = np.kron(t, xf[s, :ns, j])
         x_cp += w[j] * t
     assert np.linalg.norm(x_cp - x_exact) / np.linalg.norm(x_exact) < 1e-7
+
+
+def test_ragged_deflated_solve():
+    """Deflation on a ragged operator: the U columns of the pad block are pad
+    eigenvectors, but b⊥ is zero there, so they are inert; the same solve as
+    the JAX package's (tests/test_ragged.py's case)."""
+    rng = np.random.default_rng(3)
+    sizes = (20, 14)
+    mats = [_lap(n, shift=30.0) for n in sizes]
+    b_fac = [rng.standard_normal(n) for n in sizes]
+    op, _ = tkt.operator_from_ragged_factors(mats, symmetric=True, device="cpu")
+    res = tkt.solve_deflated(op, tkt.pad_ragged_rhs(b_fac, device="cpu"), tkt.SolverConfig(kmax=14, tol=1e-9), m=4)
+    x_exact = _ragged_dense_solve(mats, b_fac)
+    xf, w = res.x.factors.numpy(), res.x.weights.numpy()
+    x_cp = np.zeros_like(x_exact)
+    for j in range(w.size):
+        t = np.array([1.0])
+        for s, ns in enumerate(sizes):
+            t = np.kron(t, xf[s, :ns, j])
+        x_cp += w[j] * t
+    assert np.linalg.norm(x_cp - x_exact) / np.linalg.norm(x_exact) < 1e-6
+    jop, _ = tk.operator_from_ragged_factors(mats, symmetric=True)
+    ref = tk.solve_deflated(jop, tk.pad_ragged_rhs(b_fac), tk.SolverConfig(kmax=14, tol=1e-9), m=4)
+    assert (res.status, res.niterations) == (int(ref.status), ref.niterations)
+    np.testing.assert_allclose(res.certified_bound, ref.certified_bound, rtol=1e-10, atol=1e-15)
+    np.testing.assert_allclose(xf, np.asarray(ref.x.factors), rtol=0, atol=1e-10)
 
 
 def test_ragged_constructors_match_jax():

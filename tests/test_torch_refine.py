@@ -119,8 +119,8 @@ def _dense_residual(op, w, X, b):
 def test_residual_cross_checks_match_jax(form):
     """Each cross-check's value against the JAX package's (to 1e-12) and the
     dense oracle; the floors equal, except the device form's, which charges
-    f64 eps on its native-f64 Gram where the JAX package charges 1e-15 on its
-    f32-pair GEMM."""
+    longdouble eps on its compensated Gram where the JAX package charges 1e-15
+    on its f32-pair GEMM."""
     R = 2 if form.endswith("rankR") else 1
     jop, op, w, X, b = _cross_check_inputs(R)
     bands = np.asarray(jop.bands)
@@ -144,7 +144,7 @@ def test_residual_cross_checks_match_jax(form):
         ref = jcp.cp_residual_cross_check_device(jop, w, jnp.asarray(X), jnp.asarray(b))
     np.testing.assert_allclose(got.value, ref.value, rtol=RTOL)
     np.testing.assert_allclose(got.value, _dense_residual(op, w, X, b), rtol=1e-10)
-    scale = np.sqrt(np.finfo(np.float64).eps / 1e-15) if form.startswith("device") else 1.0
+    scale = np.sqrt(np.finfo(np.longdouble).eps / 1e-15) if form.startswith("device") else 1.0
     np.testing.assert_allclose(got.floor, ref.floor * scale, rtol=1e-10)
     assert got.value > got.floor and "floor" in got.interpret()
 

@@ -203,7 +203,9 @@ def test_import_leaves_jax_out():
             " tensorkrylov_tpu_torch.parallel.halo, tensorkrylov_tpu_torch.parallel.krylov,"
             " tensorkrylov_tpu_torch.block, tensorkrylov_tpu_torch.twopass, tensorkrylov_tpu_torch.refine,"
             " tensorkrylov_tpu_torch.utils.cp, tensorkrylov_tpu_torch.experiments.eigenvalue_distribution,"
-            " tensorkrylov_tpu_torch.experiments.parameterized_systems, tensorkrylov_tpu_torch.experiments.plotting;"
+            " tensorkrylov_tpu_torch.experiments.parameterized_systems, tensorkrylov_tpu_torch.experiments.plotting,"
+            " tensorkrylov_tpu_torch.deflate, tensorkrylov_tpu_torch.deflate_light,"
+            " tensorkrylov_tpu_torch.experiments.northstar, tensorkrylov_tpu_torch.experiments.flagship_probe;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tensorkrylov_tpu.'))"
             " or m == 'tensorkrylov_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
