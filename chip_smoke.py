@@ -70,7 +70,18 @@ Phases, one output line each:
                at the JAX package's mid shape (d=10, n=16384, κ=1e5, m=256) 'full' and
                'twopass' with plain Lanczos, equal bit for bit in T and the bounds,
                'segmented', and a twopass stopped at k=64 and resumed from its state
-               cache equal to the uninterrupted one; d=3, n=30 on the card and the CPU.
+               cache equal to the uninterrupted one; d=3, n=30 on the card and the CPU;
+ 12. recorded — the recorded-relation certificates: the flagship through
+               storage='df64', final='device' with the TPU's recipe (phase 11's basis),
+               certified below 1e-8 on the measured full Gram, the cross-check not
+               contradicting it, one banded_spmv launch (the cross-check's), its bound's
+               components beside phase 11's and the TPU's, and the expansion step's
+               device operations and ms (its own line, recorded_flagship); config 4
+               through solve_block_recorded (m=512, kmax=360), certified below 1e-8 with
+               one launch; at the mid shape a df64 solve stopped at checkpoint 64 and
+               resumed from its state cache, equal bit for bit to the uninterrupted one;
+               eft_selfcheck on the card with defects of 0; both solvers at small sizes
+               on the card and the CPU.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -1285,7 +1296,7 @@ def deflated_summary(res, wall, counts, dev):
                 iterations_per_s=res.niterations / wall, max_memory_allocated=peak_bytes(dev), launches=counts)
 
 
-def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED):
+def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     """Phase 11: (a) the κ = 1e6 flagship through solve_deflated, storage
     'full', certified below tol with one banded_spmv launch per step and one
     for the device cross-check; (b) at the mid shape, 'full' and 'twopass'
@@ -1293,7 +1304,8 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED):
     a twopass stopped and resumed from its state cache equal to the
     uninterrupted one; (c) the d=3, n=30 case on the card and the CPU. Each
     solve runs with the launch counts set to 0 just before it and read just
-    after. Returns the phase's banded_spmv launches."""
+    after. Returns the phase's banded_spmv launches; `keep` (a dict) receives
+    the flagship's deflation basis and summary for phase 12."""
     from tensorkrylov_tpu_torch import deflate_light
     from tensorkrylov_tpu_torch.ops.orth import deflation_project
 
@@ -1317,6 +1329,8 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED):
                lambda_min=res.lambda_min, lambda_max=res.lambda_max, x_shape=list(x.shape))
     verdict = row["cross_check_verdict"]
     out["flagship"] = row
+    if keep is not None:
+        keep.update(flagship_basis=basis, flagship_full=row)
     emit("deflated_flagship", **row)
     require(res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < tol,
             f"deflated flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
@@ -1411,6 +1425,247 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED):
     return launched
 
 
+# phase 12: the recorded-relation certificates. The flagship and the mid shape with the TPU's df64 recipes
+# (tensorkrylov_tpu/experiments/data/northstar_d10_n131072_tpu.json, northstar_mid_d10_n16384_tpu.json), config 4
+# through solve_block_recorded with config4_block_d10_n10240_r4_m512.json's recipe, all uncut
+RECORDED = dict(
+    tpu_flagship_bound=6.357734000832074e-09, tpu_mid_bound=5.304078158081677e-09, tpu_config4_bound=5.276976435725474e-09,
+    flagship=DEFLATED["flagship"],
+    config4=dict(n=SOLVERS["block_n"], m=512, config=dict(kmax=360, tol=1e-8)),
+    mid=dict(DEFLATED["mid"], checkpoints=[64, 128, 256, 384], stop=64),
+    small_df64=dict(n=64, shift=30.0, seed=5, m=6, checkpoints=[8, 16, 24], config=dict(kmax=24, tol=1e-12)),
+    small_block=dict(n=48, shift=2000.0, seed=1, rank=2, config=dict(kmax=23, tol=1e-8)),
+    profile_steps=8,
+)
+# card vs CPU certified bounds: sup + boundary to 1e-9 relative; the relation terms (dev, η, r2 ∝ ρ²) are
+# roundoff records, which cuBLAS and the CPU's GEMMs round apart, so the bounds agree up to them
+RECORDED_BOUND_RTOL = 1e-9
+# the df64 solve's stages, deflate.py's functions timed by stage_times
+DF64_STAGES = ("pair_value", "_split_rounding", "_df64_init", "_deflation_residual", "_df64_advance",
+               "_evaluate_host_recorded", "_df64_gram_deviation_host", "_assemble", "cp_residual_cross_check_device")
+
+
+def bound_parts(res):
+    """The certified bound's components: sup, boundary (the rest), dev, η, r2."""
+    rel = res.relation_dev_term + res.relation_eta_term + res.relation_r2_term
+    return dict(sup=res.expsum_sup, boundary=res.certified_bound[-1] - res.expsum_sup - rel,
+                dev=res.relation_dev_term, eta=res.relation_eta_term, r2=res.relation_r2_term,
+                rho=res.perturbation_rho, gram_dev=res.gram_deviation, eps=res.eft_eps_measured)
+
+
+@contextlib.contextmanager
+def stage_times(module, names, dev):
+    """Wall seconds spent in each of module's functions `names` while the
+    block runs (each call synchronized at its end), into the yielded dict."""
+    spent = {name: 0.0 for name in names}
+    originals = {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in originals.items():
+            setattr(module, name, fn)
+
+
+def expansion_step_profile(op, b, basis, steps, dev):
+    """The df64 step alone at the solve's shape: device operations per step
+    and their device ms (torch.profiler over `steps` steps after two warm-up
+    steps), and the synchronized wall ms per step."""
+    from tensorkrylov_tpu_torch import df64_core
+    from tensorkrylov_tpu_torch.ops import expansion as ex
+    from tensorkrylov_tpu_torch.ops.orth import deflation_project
+
+    U = torch.tensor(basis.U, device=dev, dtype=torch.float64)
+    b_perp = deflation_project(b.to(torch.float64), U)
+    st, _, _ = df64_core._df64_init(b_perp.cpu().numpy(), 2 * steps + 3, basis.m, dev)
+    Upair = df64_core.pair_value(U)
+    del U
+    bh, bl = ex.pair_from_f64(op.bands.to(torch.float64))
+    df64_core._df64_advance(bh, bl, op.offsets, st, b_perp, Upair, 1, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    df64_core._df64_advance(bh, bl, op.offsets, st, b_perp, Upair, 3, steps)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        df64_core._df64_advance(bh, bl, op.offsets, st, b_perp, Upair, 3 + steps, steps)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3 / steps
+    return dict(steps=steps, wall_at_k=[3, 2 + steps], profiled_at_k=[3 + steps, 2 + 2 * steps],
+                wall_ms_per_step=wall, device_ops_per_step=len(ops) / steps if ops else None,
+                device_ms_per_step=dev_ms if ops else None)
+
+
+def phase_recorded(tkt, dev=torch.device("cuda"), p=RECORDED, keep=None):
+    """Phase 12: (a) the κ = 1e6 flagship through storage='df64',
+    final='device' (the TPU's recipe; phase 11's deflation basis when `keep`
+    holds it), certified below tol on the measured full Gram, the
+    cross-check not contradicting it, and one banded_spmv launch (the
+    cross-check's A·X); its bound's components beside phase 11's 'full'
+    bound and the TPU's, and the expansion step's device operations and ms;
+    (b) config 4 through solve_block_recorded (m=512, kmax=360), certified
+    below tol, one banded_spmv launch; (c) at the mid shape a df64 solve
+    stopped at checkpoint 64 and resumed from its state cache, equal bit for
+    bit to the uninterrupted one; (d) eft_selfcheck on the card, defects of
+    exactly 0; (e) both solvers at small sizes on the card and the CPU. Each
+    solve runs with the launch counts set to 0 just before it and read just
+    after. Returns the phase's banded_spmv launches."""
+    from tensorkrylov_tpu_torch import deflate
+    from tensorkrylov_tpu_torch.experiments.northstar import interpret_cross_check
+    from tensorkrylov_tpu_torch.ops import expansion as ex
+
+    t_phase = time.perf_counter()
+    out, launched = {}, 0
+    keep = keep or {}
+    one = {"banded_spmv": 1}    # the device cross-check's A·X: final='device' runs it on either device
+
+    # (d) the transforms on the card
+    chk = ex.eft_selfcheck(device=dev)
+    out["eft_selfcheck"] = chk
+    require(chk["two_sum"] == 0.0 and chk["two_prod"] == 0.0, f"eft_selfcheck on {dev}: {chk}")
+
+    # (a) the flagship, storage='df64', final='device'
+    q = p["flagship"]
+    op, b = deflated_problem(tkt, q, dev)
+    basis = keep.get("flagship_basis")
+    setup_s = 0.0
+    if basis is None:
+        t0 = time.perf_counter()
+        basis = tkt.deflation_basis(op, q["m"])
+        setup_s = time.perf_counter() - t0
+    cfg = tkt.SolverConfig(**q["config"])
+    with stage_times(deflate, DF64_STAGES, dev) as stages:
+        res, wall, counts = run_solve(tkt, op, b, cfg, "solve_deflated", basis=basis, checkpoints=q["checkpoints"],
+                                      storage="df64", final="device")
+    k, tol = res.niterations, cfg.tol
+    x = res.x.factors
+    full = keep.get("flagship_full", {})
+    row = dict(d=q["d"], n=q["n"], kappa=q["kappa"], m=q["m"], config=q["config"], storage="df64", final="device",
+               setup_s=setup_s, basis_from_phase_11="flagship_basis" in keep,
+               **deflated_summary(res, wall, counts, dev), stages_s=stages, components=bound_parts(res),
+               gram_source=res.gram_source,
+               full_storage_bound=(full.get("certified_bound") or [None])[-1], tpu_df64_bound=p["tpu_flagship_bound"])
+    verdict = row["cross_check_verdict"]
+    require(res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < tol,
+            f"recorded flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
+    require(res.gram_source == "measured full Gram", f"recorded flagship: gram source {res.gram_source}")
+    require("CONTRADICT" not in verdict, f"recorded flagship: the cross-check contradicts the bound: {verdict}")
+    require(counts == one, f"recorded flagship: launches {counts} (want {one}: the cross-check's)")
+    require(x.shape[:2] == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device.type == dev.type,
+            f"recorded flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
+    launched += counts.get("banded_spmv", 0)
+    del res, x
+    if dev.type == "cuda":
+        row["expansion_step"] = expansion_step_profile(op, b, basis, p["profile_steps"], dev)
+    out["flagship"] = row
+    emit("recorded_flagship", **row)
+    del op, b, basis
+    keep.pop("flagship_basis", None)
+
+    # (b) config 4 through solve_block_recorded, at the recipe's m and kmax
+    q = p["config4"]
+    op4, B = config4_problem(tkt, q["n"], dev)
+    n4, d4 = op4.n, op4.d
+    sigma = sigma_for_kappa(n4, SOLVERS["block_kappa"])
+    lam_min = d4 * (sigma + 4.0 * (n4 + 1) ** 2 * np.sin(np.pi / (2 * (n4 + 1))) ** 2)
+    t0 = time.perf_counter()
+    basis = tkt.deflation_basis(op4, q["m"])
+    setup_s = time.perf_counter() - t0
+    res, wall, counts = run_solve(tkt, op4, B, tkt.SolverConfig(**q["config"]), "solve_block_recorded",
+                                  lam_min=lam_min, basis=basis, final="device")
+    verdict = interpret_cross_check(res.measured_cp_residual, res.cp_residual_floor, res.certified_bound[-1],
+                                    q["config"]["tol"])
+    out["config4"] = dict(d=d4, n=n4, kappa=SOLVERS["block_kappa"], rank=B.shape[0], m=q["m"], config=q["config"],
+                          status=res.status, niterations=res.niterations, checkpoints=res.checkpoints,
+                          certified_bound=res.certified_bound, estimate=res.relative_residual,
+                          components=bound_parts(res), sweep_overlap=res.sweep_overlap,
+                          measured_cp_residual=res.measured_cp_residual, cp_residual_floor=res.cp_residual_floor,
+                          cross_check_verdict=verdict, setup_s=setup_s, wall_s=wall,
+                          max_memory_allocated=peak_bytes(dev), launches=counts,
+                          tpu_recorded_bound=p["tpu_config4_bound"])
+    require(res.converged and res.certified_bound[-1] < q["config"]["tol"],
+            f"recorded config 4: status {res.status} after {res.niterations}, bounds {res.certified_bound}")
+    require("CONTRADICT" not in verdict, f"recorded config 4: {verdict}")
+    require(counts == one, f"recorded config 4: launches {counts} (want {one})")
+    launched += counts.get("banded_spmv", 0)
+    del res, op4, B, basis
+
+    # (c) the mid shape: stopped at checkpoint 64, resumed from its state cache, against the uninterrupted solve
+    q = p["mid"]
+    op, b = deflated_problem(tkt, q, dev)
+    basis = tkt.deflation_basis(op, q["m"])
+    cfg = tkt.SolverConfig(kmax=q["kmax"], tol=q["tol"])
+    kw = dict(basis=basis, storage="df64", final="device", checkpoints=q["checkpoints"])
+    ref, wall, counts = run_solve(tkt, op, b, cfg, "solve_deflated", **kw)
+    launched += counts.get("banded_spmv", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "state.npz")
+        _, wall_stop, counts_stop = run_solve(tkt, op, b, cfg, "solve_deflated", **{
+            **kw, "checkpoints": [q["stop"]]}, state_cache=cache)
+        res, wall_res, counts_res = run_solve(tkt, op, b, cfg, "solve_deflated", **kw, state_cache=cache)
+    launched += counts_stop.get("banded_spmv", 0) + counts_res.get("banded_spmv", 0)
+    same = (res.certified_bound == ref.certified_bound and res.relative_residual == ref.relative_residual
+            and torch.equal(res.x.factors, ref.x.factors) and torch.equal(res.x.weights, ref.x.weights))
+    out["mid"] = dict(d=q["d"], n=q["n"], kappa=q["kappa"], m=q["m"], kmax=q["kmax"], tol=q["tol"],
+                      uninterrupted=dict(deflated_summary(ref, wall, counts, dev), components=bound_parts(ref)),
+                      stopped_at=q["stop"], stop_wall_s=wall_stop, resumed_wall_s=wall_res,
+                      resumed_bit_equal=same, tpu_df64_bound=p["tpu_mid_bound"])
+    require(ref.status == tkt.Status.CONVERGED and ref.certified_bound[-1] < q["tol"],
+            f"recorded mid: status {ref.status}, bounds {ref.certified_bound}")
+    require(same, f"recorded mid: the resumed solve differs from the uninterrupted one ({res.certified_bound} vs "
+                  f"{ref.certified_bound})")
+    require(counts == counts_stop == counts_res == one,
+            f"recorded mid: launches {counts}, {counts_stop}, {counts_res}")
+    del ref, res, op, b, basis
+
+    # (e) card against CPU, both solvers
+    q, qb = p["small_df64"], p["small_block"]
+    got = {}
+    for d_ in (dev, torch.device("cpu")):
+        op = tkt.laplace(2, q["n"], shift=q["shift"], device=d_)
+        b = tkt.random_rhs(2, q["n"], seed=q["seed"])
+        b = (b / torch.linalg.vector_norm(b, dim=1, keepdim=True)).to(d_)
+        r_df = run_solve(tkt, op, b, tkt.SolverConfig(**q["config"]), "solve_deflated", m=q["m"], storage="df64",
+                         final="device", checkpoints=q["checkpoints"])
+        opb = tkt.laplace(2, qb["n"], shift=qb["shift"], device=d_)
+        B = np.random.default_rng(qb["seed"]).standard_normal((qb["rank"], 2, qb["n"]))
+        lmin = 2 * float(np.linalg.eigvalsh(tkt.bands_to_dense(opb)[0])[0])
+        r_bl = run_solve(tkt, opb, B, tkt.SolverConfig(**qb["config"]), "solve_block_recorded", lam_min=lmin,
+                         final="device")
+        if d_.type == dev.type:
+            launched += r_df[2].get("banded_spmv", 0) + r_bl[2].get("banded_spmv", 0)
+            oracle = tkt.kron_residual_dense(op, r_df[0].x, b)
+        got[d_.type] = (r_df[0], r_bl[0])
+    cvc = {}
+    for i, name in enumerate(("df64", "block_recorded")):
+        g, c = got[dev.type][i], got["cpu"][i]
+        slack = max(bound_parts(x)["dev"] + bound_parts(x)["eta"] + bound_parts(x)["r2"] for x in (g, c))
+        err = max(max(abs(a - r) - slack, 0.0) / r for a, r in zip(g.certified_bound, c.certified_bound))
+        cvc[name] = dict(status=g.status, niterations=g.niterations, checkpoints=g.checkpoints,
+                         certified_bound=g.certified_bound, cpu_certified_bound=c.certified_bound,
+                         relation_slack=slack, bound_max_rel_err=err)
+        require((g.status, g.niterations, g.checkpoints) == (c.status, c.niterations, c.checkpoints),
+                f"recorded {name} card vs cpu: {g.status}/{g.niterations} vs {c.status}/{c.niterations}")
+        require(err <= RECORDED_BOUND_RTOL, f"recorded {name} card vs cpu: bounds differ by {err}")
+    require(oracle <= got[dev.type][0].certified_bound[-1], f"recorded df64: dense oracle {oracle} above the bound")
+    out["card_vs_cpu"] = dict(cvc, bound_rtol=RECORDED_BOUND_RTOL, df64_dense_oracle_residual=oracle)
+    emit("recorded", **{k_: v for k_, v in out.items() if k_ != "flagship"}, seconds=time.perf_counter() - t_phase)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1431,7 +1686,9 @@ def main():
         launches["resident_spmv"] = phase_entry_points(tkt, slice_trace)
         ring_launches, ring_times, worst["ring_spmv"] = phase_sharded(tkt)
         phase_solvers(tkt)
-        launches["banded_spmv"] += phase_deflated(tkt)
+        shared = {}
+        launches["banded_spmv"] += phase_deflated(tkt, keep=shared)
+        launches["banded_spmv"] += phase_recorded(tkt, keep=shared)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

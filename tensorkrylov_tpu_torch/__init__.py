@@ -10,9 +10,11 @@ runs the Krylov segments on the device and the projected stage on the host.
 
 Entry points: ``solve``, ``solve_host_projected``, ``solve_resumable``,
 ``solve_multi_rhs``, ``solve_block`` (a rank-R right-hand side in one shared
-block Krylov space), ``solve_two_pass`` (basis-free, O(d·n) basis memory),
+block Krylov space), ``solve_block_recorded`` (its noise-recording,
+certifying counterpart), ``solve_two_pass`` (basis-free, O(d·n) basis memory),
 ``solve_refined`` (restarted CP refinement), ``solve_deflated`` (per-factor
-spectral deflation, the κ = 1e6 flagship's solver), ``solve_tensorized_system``,
+spectral deflation, the κ = 1e6 flagship's solver; ``storage='df64'`` is its
+recorded-relation certificate), ``solve_tensorized_system``,
 ``parallel.solve_sharded`` (the solve split over a mesh of shard slots); the CLI
 ``python -m tensorkrylov_tpu_torch solve|reproduce|info`` and the bench
 ``python -m tensorkrylov_tpu_torch.bench``.
@@ -20,6 +22,7 @@ spectral deflation, the κ = 1e6 flagship's solver), ``solve_tensorized_system``
 from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
 from .solver import MultiRhsResult, solve, solve_host_projected, solve_multi_rhs, solve_resumable
 from .block import solve_block
+from .block_recorded import BlockRecordedResult, solve_block_recorded
 from .twopass import solve_two_pass
 from .refine import RefinedResult, cp_residual, solve_refined
 from .deflate import DeflatedResult, DeflationBasis, deflation_basis, solve_deflated
@@ -51,6 +54,8 @@ __all__ = [
     "solve_multi_rhs",
     "MultiRhsResult",
     "solve_block",
+    "solve_block_recorded",
+    "BlockRecordedResult",
     "solve_two_pass",
     "solve_refined",
     "RefinedResult",

@@ -8,12 +8,14 @@ Writes a JSON artifact with the per-checkpoint trace, the certificate and the
 timings.
 
 On the card:  python -m tensorkrylov_tpu_torch.experiments.northstar --m 2048 --checkpoints 384 448 512
+              (add --storage df64 --final device for the recorded-relation certificate, the TPU's recipe)
 On the CPU:   python -m tensorkrylov_tpu_torch.experiments.northstar --cpu --n 4096 --m 96
 
 The deflation basis is cached under the repository's build/ directory, keyed
-by (n, m, σ). The JAX runner's df64, tunnel and budget flags (--storage df64,
---final device, --advance-budget, --save-every) are accepted and raise
-NotImplementedError from solve_deflated, naming their ROADMAP.md item.
+by (n, m, σ), and so is the state of a twopass or df64 solve (keyed by
+storage, n, m, kmax): a solve finds its cache and resumes. --advance-budget N
+runs at most N steps past the cache, saves and exits without an evaluation
+(a bounded leg); --save-every N saves within a checkpoint segment.
 """
 from __future__ import annotations
 
@@ -101,16 +103,19 @@ def main(argv=None):
                    help="explicit certificate checkpoints (default: geometric from 32)")
     p.add_argument("--no-certify", action="store_true")
     p.add_argument("--storage", default="auto", choices=["auto", "full", "twopass", "segmented", "df64"])
-    p.add_argument("--sweep-every", type=int, default=1, help="df64 only (warns when > 1)")
+    p.add_argument("--sweep-every", type=int, default=1, help="df64: the recorded sweep's stride (warns when > 1)")
     p.add_argument("--project-every", type=int, default=1,
                    help="run the U-projection GEMM every p-th Lanczos step (the leak is measured)")
-    p.add_argument("--final", default="auto", choices=["auto", "host", "device"])
-    p.add_argument("--advance-budget", type=int, default=None, help="df64 only: not ported")
-    p.add_argument("--save-every", type=int, default=0, help="df64 only: not ported")
+    p.add_argument("--final", default="auto", choices=["auto", "host", "device"],
+                   help="df64: where x is assembled and cross-checked ('auto': the card when the "
+                        "operator is on it, else the host)")
+    p.add_argument("--advance-budget", type=int, default=None,
+                   help="df64: advance at most N steps past the resumed cache, save, and exit")
+    p.add_argument("--save-every", type=int, default=0, help="df64: save the state every N steps within a segment")
     p.add_argument("--no-state-save", action="store_true", help="use --state-cache for resume only")
     p.add_argument("--state-cache", default="auto",
-                   help="npz path of the twopass recurrence state ('auto': under build/, keyed by n/m/kmax; "
-                        "'none' disables)")
+                   help="npz path of the twopass or df64 recurrence state ('auto': under build/, keyed by "
+                        "storage/n/m/kmax; 'none' disables)")
     p.add_argument("--basis-cache", default=None,
                    help="npz path of the deflation basis (default: under build/, keyed by n/m/sigma; "
                         "'none' disables)")
@@ -145,7 +150,7 @@ def main(argv=None):
     state_cache = args.state_cache
     if state_cache == "auto":
         state_cache = (os.path.join(_BUILD, f"tk_ns_state_{storage}_n{args.n}_m{args.m}_k{args.kmax}.npz")
-                       if storage == "twopass" else None)
+                       if storage in ("twopass", "df64") else None)
     elif state_cache == "none":
         state_cache = None
     if state_cache:
@@ -164,6 +169,9 @@ def main(argv=None):
     t_solve = time.perf_counter() - t_solve0
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    if res.x is None:
+        print(f"bounded leg: state saved at k={res.niterations} ({t_solve:.1f}s); no evaluation this run", flush=True)
+        return {"status": res.status, "niterations": res.niterations, "state_cache": state_cache}
 
     print(f"status={res.status} k={res.niterations} (+{res.m} deflated) rank={res.expsum_rank}", flush=True)
     print("checkpoints:", res.checkpoints, flush=True)
@@ -176,6 +184,10 @@ def main(argv=None):
     if res.projection_leak is not None:
         print(f"projection leak max|U^T u|/|u|: {res.projection_leak:.3e} (project_every={args.project_every})",
               flush=True)
+    if res.relation_dev_term is not None:
+        print(f"recorded relation: dev {res.relation_dev_term:.3e}, eta {res.relation_eta_term:.3e}, "
+              f"r2 {res.relation_r2_term:.3e}, rho {res.perturbation_rho:.3e}, gram {res.gram_deviation:.3e}, "
+              f"eft eps {res.eft_eps_measured:.3e}", flush=True)
     if res.pass2_gram_max is not None:
         print(f"pass-2 audit: sampled pairwise gram max {res.pass2_gram_max:.3e}, "
               f"replayed-beta rel dev {res.pass2_beta_rel_dev:.3e}", flush=True)
@@ -199,8 +211,8 @@ def main(argv=None):
             "solver": "solve_deflated", "m": res.m, "kmax": args.kmax, "orth": cfg.orth, "basis_dtype": "float64",
             "expsum_rank": res.expsum_rank, "eigh_impl_requested": args.eigh_impl,
             "eigh_impl_resolved": "dense" if args.eigh_impl == "auto" else args.eigh_impl,
-            "storage_resolved": storage, "project_every": args.project_every,
-            "state_save": not args.no_state_save, "checkpoints_requested": args.checkpoints,
+            "storage_resolved": storage, "project_every": args.project_every, "sweep_every": args.sweep_every,
+            "final": args.final, "state_save": not args.no_state_save, "checkpoints_requested": args.checkpoints,
         },
         "result": {
             "status": res.status, "converged": bool(res.converged), "niterations": res.niterations,
@@ -210,6 +222,9 @@ def main(argv=None):
             "cp_residual_interpretation": cross_interp, "orthogonality_drift": res.orthogonality_drift,
             "pass2_gram_max": res.pass2_gram_max, "pass2_beta_rel_dev": res.pass2_beta_rel_dev,
             "projection_leak": res.projection_leak, "boundary_drift_max": res.boundary_drift_max,
+            "relation_dev_term": res.relation_dev_term, "relation_eta_term": res.relation_eta_term,
+            "relation_r2_term": res.relation_r2_term, "perturbation_rho": res.perturbation_rho,
+            "gram_deviation": res.gram_deviation, "eft_eps_measured": res.eft_eps_measured,
         },
         "timing": {
             "device": kind, "device_count": torch.cuda.device_count() if device.type == "cuda" else 0,

@@ -770,3 +770,71 @@ def test_gram_dot2_on_card_equals_cpu(cuda):
     hi, lo = _gram_dot2(C)
     hi_c, lo_c = _gram_dot2(C.to(cuda))
     assert torch.equal(hi_c.cpu(), hi) and torch.equal(lo_c.cpu(), lo)
+
+
+def test_expansion_arithmetic_on_card_equals_cpu(cuda):
+    """The error-free transforms on the card: eft_selfcheck's defects are 0,
+    and the pair SpMV and a commit chain give the CPU's bits (every step its
+    own rounded op, none contracted into an FMA)."""
+    from tensorkrylov_tpu_torch.ops import expansion as ex
+
+    chk = ex.eft_selfcheck(device=cuda)
+    assert chk["two_sum"] == 0.0 and chk["two_prod"] == 0.0
+    op = tkt.reaction_diffusion(3, 4099, 1.0 / 3.0, device="cpu")
+    v = torch.randn((3, 4099), dtype=torch.float64, generator=torch.Generator().manual_seed(2))
+
+    def chain(bands, vv):
+        z = ex.triple_spmv_pairs(*ex.pair_from_f64(bands), op.offsets, *ex.pair_from_f64(vv))
+        z = ex.triple_sub(z, ex.pair_scale_f64(*ex.pair_from_f64(vv), torch.full((3, 1), 0.7, dtype=vv.dtype,
+                                                                                   device=vv.device)))
+        return ex.triple_round_pair(ex.triple_scale_f64(z, torch.full((3, 1), 1.0 / 3.0, dtype=vv.dtype,
+                                                                          device=vv.device)))[0]
+
+    for a, c in zip(chain(op.bands.to(cuda), v.to(cuda)), chain(op.bands, v)):
+        assert torch.equal(a.cpu(), c)
+
+
+def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
+    """storage='df64', final='device' on the card: status, steps and
+    checkpoints as on the CPU, the bounds within 1e-9 (cuBLAS and the CPU
+    round the GEMMs apart), one banded_spmv launch (the cross-check's A·X),
+    x on the card; a solve stopped at 8 and resumed from its cache equals
+    the uninterrupted one bit for bit."""
+    def problem(device):
+        op = tkt.laplace(2, 64, shift=30.0, device=device)
+        b = tkt.random_rhs(2, 64, seed=5)
+        return op, (b / torch.linalg.vector_norm(b, dim=1, keepdim=True)).to(device)
+
+    cfg = tkt.SolverConfig(kmax=24, tol=1e-12)
+    kw = dict(m=6, storage="df64", final="device", checkpoints=[8, 16, 24])
+    ref = tkt.solve_deflated(*problem("cpu"), cfg, **kw)
+    op, b = problem(cuda)
+    _build.launches.clear()
+    got = tkt.solve_deflated(op, b, cfg, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"banded_spmv": 1}
+    assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
+    np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-9)
+    assert got.x.factors.device.type == cuda.type and got.gram_deviation < 1e-12
+    cache = str(tmp_path / "state.npz")
+    tkt.solve_deflated(op, b, cfg, **{**kw, "checkpoints": [8]}, state_cache=cache)
+    resumed = tkt.solve_deflated(op, b, cfg, **kw, state_cache=cache)
+    assert resumed.certified_bound == got.certified_bound and torch.equal(resumed.x.factors, got.x.factors)
+
+
+def test_solve_block_recorded_on_card_equals_cpu(cuda):
+    """solve_block_recorded on the card ('auto' is final='device' there):
+    status, steps and checkpoints as on the CPU, the bounds within 1e-9 up to
+    the relation terms, one banded_spmv launch (the rank-R cross-check's A·X)."""
+    B = np.random.default_rng(1).standard_normal((2, 2, 48))
+    cfg = tkt.SolverConfig(kmax=23, tol=1e-8)
+    ref = tkt.solve_block_recorded(tkt.laplace(2, 48, shift=2000.0, device="cpu"), B, cfg, m=4)
+    _build.launches.clear()
+    got = tkt.solve_block_recorded(tkt.laplace(2, 48, shift=2000.0, device=cuda), B, cfg, m=4)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"banded_spmv": 1} and got.x.factors.device.type == cuda.type
+    assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
+    # the relation terms (dev, η, r2 ∝ ρ²) are roundoff records, which cuBLAS and the CPU round apart
+    slack = max(r.relation_dev_term + r.relation_eta_term + r.relation_r2_term for r in (got, ref))
+    for a, r in zip(got.certified_bound, ref.certified_bound):
+        assert abs(a - r) <= 1e-9 * r + slack, (a, r, slack)

@@ -1,6 +1,7 @@
 """The port's deflated solver on the CPU, alone: the storages against each
 other ('full', 'twopass', 'segmented'), the state cache, the options that
-are not ported, and the fast twins of tests/test_deflate.py's slow tests,
+are not ported, and the fast twins of tests/test_deflate.py's slow tests
+(storage='df64': tests/test_torch_df64.py),
 held to the dense oracle and to the JAX tests' bounds
 (tests/test_torch_deflate.py holds the port against the JAX package)."""
 import warnings
@@ -121,17 +122,14 @@ def test_deflated_input_validation():
 
 
 @pytest.mark.parametrize("kwargs, config, item", [
-    (dict(storage="df64"), {}, "#6"),
-    (dict(final="device"), {}, "#6"),
-    (dict(advance_budget=8), {}, "#6"),
-    (dict(save_every=8), {}, "#6"),
     (dict(mesh=object()), {}, "#8.3"),
     ({}, dict(eigh_impl="tridiag_mixed"), "#10"),
 ])
 def test_not_ported_options_raise_naming_their_item(kwargs, config, item):
-    """The JAX package's tests of these (tests/test_deflate.py's df64 tests,
+    """The JAX package's tests of these (the sharded deflated solve,
     test_deflated_eigh_impl_tridiag_mixed_matches_dense) wait for their
-    ROADMAP.md items; until then each option raises, naming it."""
+    ROADMAP.md items; until then each option raises, naming it (the df64
+    options are ported: tests/test_torch_df64.py)."""
     op = tkt.laplace(2, 16, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1,? {item}"):
         tkt.solve_deflated(op, tkt.random_rhs(2, 16, seed=0), tkt.SolverConfig(kmax=8, **config), m=2, **kwargs)

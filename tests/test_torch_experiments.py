@@ -119,7 +119,9 @@ def test_northstar_main_on_the_cpu(tmp_path):
     """The runner end to end at d=3, n=256, κ=1e3, m=8, kmax=64 (short of
     tol: 3.6e-5 at k=64, as the JAX package's solve): its artifact written
     where --out says, the cross-check resolving the last estimate, the basis
-    cached and loaded on a second run."""
+    cached and loaded on a second run; then with --storage df64 --final
+    device, the recorded-relation certificate of the same solve, its bounds
+    within 1e-3 of storage 'full''s and its evidence in the artifact."""
     out, cache = tmp_path / "ns.json", str(tmp_path / "basis.npz")
     argv = ["--cpu", "--d", "3", "--n", "256", "--m", "8", "--kappa", "1e3", "--kmax", "64", "--out", str(out),
             "--basis-cache", cache]
@@ -134,5 +136,29 @@ def test_northstar_main_on_the_cpu(tmp_path):
     assert "NOT confirmed" in res["cp_residual_interpretation"]
     assert saved["recipe"]["storage_resolved"] == "full" and saved["timing"]["device"] == "cpu"
     assert not saved["timing"]["basis_loaded"] and ns.main(argv)["timing"]["basis_loaded"]
-    with pytest.raises(NotImplementedError, match="#6"):
-        ns.main(argv + ["--storage", "df64"])
+    df64 = ns.main(argv + ["--storage", "df64", "--final", "device", "--state-cache", "none"])
+    rec, res = df64["recipe"], df64["result"]
+    assert rec["storage_resolved"] == "df64" and rec["final"] == "device"
+    assert res["checkpoints"] == [32, 64] and res["niterations"] == 64
+    np.testing.assert_allclose(res["certified_bound"], saved["result"]["certified_bound"], rtol=1e-3)
+    assert res["gram_deviation"] < 1e-12 and res["relation_dev_term"] >= 0.0 and res["eft_eps_measured"] > 0.0
+
+
+def test_config4_block_main_on_the_cpu(tmp_path):
+    """The config-4 runner at d=3, n=128, κ=20: solve_block with the
+    solve_multi_rhs comparison, then --recorded with deflation, each
+    artifact written where --out says; the recorded run certifies tol."""
+    from tensorkrylov_tpu_torch.experiments import config4_block
+
+    base = ["--cpu", "--d", "3", "--n", "128", "--kappa", "20", "--kmax", "30", "--rank", "2"]
+    plain = config4_block.main(base + ["--out", str(tmp_path / "plain.json")])
+    assert plain["block"]["solver"] == "solve_block" and plain["block"]["status"] == 1
+    assert plain["multi_rhs"]["status"] == [1, 1] and plain["block_vs_multi_matvec_ratio"] > 0.0
+    rec = config4_block.main(base + ["--recorded", "--m", "8", "--final", "device", "--skip-multi",
+                                     "--out", str(tmp_path / "rec.json")])
+    with open(tmp_path / "rec.json") as fh:
+        assert json.load(fh) == json.loads(json.dumps(rec))
+    blk = rec["block"]
+    assert blk["solver"] == "solve_block_recorded" and blk["status"] == 1 and blk["deflation_m"] == 8
+    assert blk["certified_bound"][-1] < 1e-8 and "multi_rhs" not in rec
+    assert "CONTRADICT" not in blk["interpretation"]
