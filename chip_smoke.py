@@ -81,7 +81,17 @@ Phases, one output line each:
                one launch; at the mid shape a df64 solve stopped at checkpoint 64 and
                resumed from its state cache, equal bit for bit to the uninterrupted one;
                eft_selfcheck on the card with defects of 0; both solvers at small sizes
-               on the card and the CPU.
+               on the card and the CPU;
+ 13. sharded_deflated — solve_deflated(mesh=) on 4 mode shards of cuda:0 with phase 11's
+               basis: the flagship on storage='twopass', comm='ring' (one ring launch per
+               SpMV of both passes), certified below 1e-8, its bound beside phase 11's;
+               the flagship on storage='df64', comm='gspmd', final='device', certified
+               below 1e-8 within 1e-6 relative of phase 12's bound, its components beside
+               phase 12's; both cross-checks not contradicting; the mid shape on 'full'
+               with gspmd (4 banded_spmv launches per step) against the unsharded solve,
+               the bounds within 1e-9 (beside 1e-15); examples/03_sharded_torch.py; and the nonsymmetric
+               runner (experiments/nonsym_scale.py) at the TPU artifact's recipe (d=10,
+               n=16384, κ=1e4, kmax=384, tmax=801), unsharded, beside the TPU's numbers.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -1572,8 +1582,8 @@ def phase_recorded(tkt, dev=torch.device("cuda"), p=RECORDED, keep=None):
         row["expansion_step"] = expansion_step_profile(op, b, basis, p["profile_steps"], dev)
     out["flagship"] = row
     emit("recorded_flagship", **row)
+    keep["flagship_df64"] = row
     del op, b, basis
-    keep.pop("flagship_basis", None)
 
     # (b) config 4 through solve_block_recorded, at the recipe's m and kmax
     q = p["config4"]
@@ -1666,6 +1676,190 @@ def phase_recorded(tkt, dev=torch.device("cuda"), p=RECORDED, keep=None):
     return launched
 
 
+# phase 13: the mode-sharded deflated solve on SHARDS shards of cuda:0 (phase 11's basis), the TPU's two
+# production modes on the flagship (tensorkrylov_tpu/deflate.py:682-683, __graft_entry__.py:79-108), the mid
+# shape on 'full', example 03 and the nonsymmetric runner at the TPU artifact's recipe
+# (tensorkrylov_tpu/experiments/data/nonsym_scale_d10_n16384.json), all uncut
+SHARDED_DEFLATED = dict(
+    flagship=DEFLATED["flagship"],
+    mid=dict(DEFLATED["mid"], config=dict(kmax=384, tol=1e-8)),
+    example_argv=[],
+    nonsym_argv=[],
+    tpu_nonsym=dict(niterations=320, relative_residual=1.011799785729646e-08,
+                    measured_cp_residual=1.0563509031222946e-07, solve_s=131.78391633200226),
+)
+SHARDED_DF64_RTOL = 1e-6    # the df64 flagship's bound over 4 shards against phase 12's unsharded one
+# the mid shape's bounds over 4 shards against the unsharded ones (reorthogonalized): 1e-9 relative beside
+# 1e-15 absolute, the boundary row being small against y and rounding to eps·‖y‖ (tests/test_torch_deflate.py)
+SHARDED_MID_RTOL, SHARDED_MID_ATOL = 1e-9, 1e-15
+
+
+def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED, keep=None):
+    """Phase 13: solve_deflated(mesh=) on SHARDS mode shards of one device:
+    (a) the flagship on storage='twopass', comm='ring' (the JAX package's
+    sharded production mode), certified below tol with one ring launch per
+    SpMV of both passes and one banded_spmv launch (the cross-check's A·X),
+    its bound beside phase 11's 'full' one; (b) the flagship on
+    storage='df64', comm='gspmd', final='device' (the certifying mode),
+    certified below tol within SHARDED_DF64_RTOL of phase 12's bound, one
+    launch (the cross-check's; the pair SpMV is torch ops), its components and
+    stage times beside phase 12's; (c) the mid shape on 'full' with gspmd
+    (SHARDS banded_spmv launches per step) against the unsharded solve, the
+    bounds within SHARDED_MID_RTOL beside SHARDED_MID_ATOL; (d) examples/03_sharded_torch.py and the
+    nonsymmetric runner at the TPU artifact's recipe, unsharded, beside the
+    TPU's numbers. Each path runs with the launch counts set to 0 just before
+    it and read just after; the counts are checked on the card. Returns the
+    phase's (banded_spmv, ring_spmv) launches. `keep` holds phase 11's basis
+    and both phases' flagship rows where they ran."""
+    import runpy
+
+    from tensorkrylov_tpu_torch import deflate
+    from tensorkrylov_tpu_torch.experiments import nonsym_scale
+    from tensorkrylov_tpu_torch.ops import _build
+    from tensorkrylov_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    keep = keep if keep is not None else {}
+    on_card = dev.type == "cuda"
+    out, launched = {}, {"banded_spmv": 0, "ring_spmv": 0}
+
+    def count(counts):
+        for name in launched:
+            launched[name] += counts.get(name, 0)
+
+    def expect(counts, want, what):
+        if on_card:
+            require(counts == want, f"sharded_deflated {what}: launches {counts}, want {want}")
+
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    q = p["flagship"]
+    op, b = deflated_problem(tkt, q, dev)
+    basis = keep.pop("flagship_basis", None)
+    setup_s = 0.0
+    if basis is None:
+        t0 = time.perf_counter()
+        basis = tkt.deflation_basis(op, q["m"])
+        setup_s = time.perf_counter() - t0
+    cfg = tkt.SolverConfig(**q["config"])
+    tol = cfg.tol
+    common = dict(d=q["d"], n=q["n"], kappa=q["kappa"], m=q["m"], config=q["config"], shards=SHARDS,
+                  devices=[str(dev)] * SHARDS, setup_s=setup_s, basis_from_phase_11=setup_s == 0.0)
+
+    # (a) the flagship, storage='twopass', comm='ring'
+    res, wall, counts = run_solve(tkt, op, b, cfg, "solve_deflated", basis=basis, checkpoints=q["checkpoints"],
+                                  storage="twopass", mesh=mesh, comm="ring")
+    k, x = res.niterations, res.x.factors
+    full = (keep.get("flagship_full", {}).get("certified_bound") or [None])[-1]
+    row = dict(common, storage="twopass", comm="ring", **deflated_summary(res, wall, counts, dev),
+               phase_11_full_bound=full,
+               bound_rel_diff_vs_phase_11=None if full is None else abs(res.certified_bound[-1] - full) / full)
+    out["twopass_ring"] = row
+    require(res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < tol,
+            f"sharded twopass flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
+    require("CONTRADICT" not in row["cross_check_verdict"],
+            f"sharded twopass flagship: the cross-check contradicts the bound: {row['cross_check_verdict']}")
+    expect(counts, {"ring_spmv": 2 * k - 1, "banded_spmv": 1}, "twopass flagship")
+    require(tuple(x.shape[:2]) == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device == dev,
+            f"sharded twopass flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
+    count(counts)
+    del res, x
+
+    # (b) the flagship, storage='df64', comm='gspmd', final='device'
+    with stage_times(deflate, DF64_STAGES, dev) as stages:
+        res, wall, counts = run_solve(tkt, op, b, cfg, "solve_deflated", basis=basis, checkpoints=q["checkpoints"],
+                                      storage="df64", final="device", mesh=mesh, comm="gspmd")
+    k, x = res.niterations, res.x.factors
+    df = keep.get("flagship_df64", {})
+    ref = (df.get("certified_bound") or [None])[-1]
+    diff = None if ref is None else abs(res.certified_bound[-1] - ref) / ref
+    row = dict(common, storage="df64", comm="gspmd", final="device", **deflated_summary(res, wall, counts, dev),
+               stages_s=stages, components=bound_parts(res), gram_source=res.gram_source,
+               phase_12_bound=ref, bound_rel_diff_vs_phase_12=diff, bound_rtol=SHARDED_DF64_RTOL,
+               phase_12_components=df.get("components"), phase_12_stages_s=df.get("stages_s"),
+               phase_12_wall_s=df.get("wall_s"))
+    out["df64_gspmd"] = row
+    require(res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < tol,
+            f"sharded df64 flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
+    require(res.gram_source == "measured full Gram", f"sharded df64 flagship: gram source {res.gram_source}")
+    require("CONTRADICT" not in row["cross_check_verdict"],
+            f"sharded df64 flagship: the cross-check contradicts the bound: {row['cross_check_verdict']}")
+    require(diff is None or diff <= SHARDED_DF64_RTOL,
+            f"sharded df64 flagship: bound {res.certified_bound[-1]} vs phase 12's {ref} (relative {diff})")
+    expect(counts, {"banded_spmv": 1}, "df64 flagship")
+    require(tuple(x.shape[:2]) == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device == dev,
+            f"sharded df64 flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
+    count(counts)
+    emit("sharded_deflated_flagship", **out)
+    del res, x, op, b, basis
+
+    # (c) the mid shape on 'full', gspmd, against the unsharded solve (reorthogonalized)
+    q = p["mid"]
+    op, b = deflated_problem(tkt, q, dev)
+    basis = tkt.deflation_basis(op, q["m"])
+    cfg = tkt.SolverConfig(**q["config"])
+    ref, wall_ref, counts_ref = run_solve(tkt, op, b, cfg, "solve_deflated", basis=basis, storage="full")
+    res, wall, counts = run_solve(tkt, op, b, cfg, "solve_deflated", basis=basis, storage="full", mesh=mesh,
+                                  comm="gspmd")
+    k = res.niterations
+    diff = max(abs(a - r) / r for a, r in zip(res.certified_bound, ref.certified_bound))
+    mid = dict(d=q["d"], n=q["n"], kappa=q["kappa"], m=q["m"], config=q["config"], shards=SHARDS,
+               sharded=deflated_summary(res, wall, counts, dev),
+               unsharded=deflated_summary(ref, wall_ref, counts_ref, dev), bound_max_rel_diff=diff,
+               bound_max_abs_diff=max(abs(a - r) for a, r in zip(res.certified_bound, ref.certified_bound)),
+               bound_rtol=SHARDED_MID_RTOL, bound_atol=SHARDED_MID_ATOL)
+    require((res.status, k, res.checkpoints) == (ref.status, ref.niterations, ref.checkpoints),
+            f"sharded mid: {res.status}/{k} at {res.checkpoints} vs unsharded {ref.status}/{ref.niterations}")
+    require(all(abs(a - r) <= SHARDED_MID_RTOL * r + SHARDED_MID_ATOL
+                for a, r in zip(res.certified_bound, ref.certified_bound)),
+            f"sharded mid: bounds differ by {diff} relative ({res.certified_bound} vs {ref.certified_bound})")
+    expect(counts, {"banded_spmv": SHARDS * k + 1}, "mid full gspmd")
+    expect(counts_ref, {"banded_spmv": ref.niterations + 1}, "mid unsharded")
+    count(counts)
+    count(counts_ref)
+    del res, ref, op, b, basis
+
+    # (d) example 03, then the nonsymmetric runner at the TPU artifact's recipe
+    main03 = runpy.run_path(os.path.join(REPO, "examples", "03_sharded_torch.py"), run_name="example")["main"]
+    if on_card:
+        torch.cuda.synchronize()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rs, rd = main03(list(p["example_argv"]))
+    if on_card:
+        torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, dict(_build.launches)
+    ks, kd = rs.niterations, rd.niterations
+    ex03 = dict(printed=printed.getvalue().splitlines(), wall_s=wall, launches=counts,
+                solve_sharded=dict(status=rs.status, niterations=ks), solve_deflated=dict(
+                    status=rd.status, niterations=kd, certified_bound=rd.certified_bound,
+                    measured_cp_residual=rd.measured_cp_residual, cp_residual_floor=rd.cp_residual_floor))
+    require(bool(torch.isfinite(rs.x.factors).all()) and bool(torch.isfinite(rd.x.factors).all())
+            and rd.status == tkt.Status.CONVERGED, f"example 03: {ex03}")
+    # solve_sharded on the 2 x 2 mesh: gspmd, one banded_spmv launch per shard and step; the deflated
+    # twopass on the ring route: one launch per SpMV of both passes, and the cross-check's A·X
+    expect(counts, {"banded_spmv": SHARDS * ks + 1, "ring_spmv": 2 * kd - 1}, "example 03")
+    count(counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        if on_card:
+            torch.cuda.synchronize()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            art = nonsym_scale.main(list(p["nonsym_argv"]) + ["--out", os.path.join(tmp, "nonsym.json")])
+        wall, counts = time.perf_counter() - t0, dict(_build.launches)
+    r = art["result"]
+    nonsym = dict(art, printed=printed.getvalue().splitlines(), wall_s=wall, launches=counts, tpu=p["tpu_nonsym"])
+    require(r["converged"] and math.isfinite(r["relative_residual"]) and math.isfinite(r["measured_cp_residual"]),
+            f"nonsym_scale: {r}")
+    # one banded_spmv launch per Arnoldi step, and the device cross-check's A·X
+    expect(counts, {"banded_spmv": r["niterations"] + 1}, "nonsym_scale")
+    count(counts)
+    emit("sharded_deflated", mid=mid, example_03=ex03, nonsym_scale=nonsym, launches=launched,
+         seconds=time.perf_counter() - t_phase)
+    return launched["banded_spmv"], launched["ring_spmv"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1689,6 +1883,9 @@ def main():
         shared = {}
         launches["banded_spmv"] += phase_deflated(tkt, keep=shared)
         launches["banded_spmv"] += phase_recorded(tkt, keep=shared)
+        banded, ring = phase_sharded_deflated(tkt, keep=shared)
+        launches["banded_spmv"] += banded
+        ring_launches["ring_spmv"] += ring
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

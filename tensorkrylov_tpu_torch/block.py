@@ -50,7 +50,7 @@ def _orthonormalize_column(V, u, c, B, proj_dtype):
     h_new, lucky, safe = _breakdown(h_new, torch.sum(torch.abs(h), dim=1) + _TINY, acc)
     q = u / safe.to(acc)[:, None]
     if bool(lucky.any()):
-        q = _replace_lucky(V, q, lucky, c, proj_dtype)
+        q = _replace_lucky(None, [V], [q], lucky, c, proj_dtype)[0]
     bt_row = torch.einsum("dn,rdn->dr", q, B.to(acc)).to(proj_dtype)
     return h, q, h_new, bt_row
 

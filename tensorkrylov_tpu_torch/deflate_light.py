@@ -11,20 +11,27 @@ basis (``'full'``), the basis-free first pass and its replay (``'twopass'``),
 and the segmented basis (``'segmented'``). Because pass 2 runs the very code
 of pass 1 in the same order, with the same shapes for the projection's
 products, it regenerates pass 1's vectors bit for bit; ``Pass2Audit`` measures
-that. Every SpMV goes through ``ops.banded.spmv``: on a CUDA tensor the
-banded-SpMV kernel.
+that. Every SpMV goes through ``ops.banded.spmv`` (on a CUDA tensor the
+banded-SpMV kernel), or over shard pieces through the sharded SpMV.
+
+The step is written over shard pieces (``parallel/krylov.py``): with a
+``ShardedOperator`` the live vectors, b⊥, U (``(1 | d_f, n_local, m)``) and a
+stored V (``(K, d_f, n_local)``) are lists of per-shard slabs, the SpMV is the
+sharded one of op.comm, and α, β², ⟨u, b⊥⟩, the projection's c = Uᵀu and the
+sweep's coefficients are per-piece partials summed by ``psum``; T, b̃ and the
+audit stay on the lead device. One piece is the unsharded step, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from .ops.banded import spmv
-from .ops.orth import (_TINY, _auto_threshold, _breakdown, _drift_probe, _project_coeffs, _sqrt_rn, _subtract_span,
-                       bdot, deflation_coeffs, deflation_project, deflation_subtract)
+from .ops.orth import (_TINY, _auto_threshold, _breakdown, _deflate, _dot, _drift_probe, _project, _sqrt_rn,
+                       _subtract, bdot, deflation_project)
+from .parallel.krylov import like, norms, pieces, psum, scatter, spmv_pieces
 
 __all__ = ["Pass2Audit"]
 
@@ -42,38 +49,44 @@ class _DeflState:
     dg: torch.Tensor        # (d, K)
     od: torch.Tensor        # (d, K)
     btil: torch.Tensor      # (d, K)
-    vp: torch.Tensor        # (d, n) v_{k-1}
-    vpp: torch.Tensor       # (d, n) v_{k-2}
+    vp: torch.Tensor        # (d, n) v_{k-1} (or its pieces)
+    vpp: torch.Tensor       # (d, n) v_{k-2} (or its pieces)
     beta: torch.Tensor      # (d,) last off-diagonal
     leak: torch.Tensor      # () max pre-projection U-leak max|Uᵀu|/‖u‖ (measured on request)
     beta_dev: torch.Tensor  # () pass 2: max |‖u‖ − recorded β|/β
 
 
-def _init_state(b_perp: torch.Tensor, K: int) -> _DeflState:
+def _init_state(b_perp, K: int, op=None) -> _DeflState:
     """v₀ = b⊥/‖b⊥_s‖ per factor; a factor whose b⊥_s is zero (b_s inside
-    span(U_s)) starts, and stays, at the zero vector instead of NaN."""
-    d, n = b_perp.shape
-    b_norms = torch.linalg.vector_norm(b_perp, dim=1)
-    v0 = b_perp / torch.where(b_norms > 0, b_norms, 1.0)[:, None]
+    span(U_s)) starts, and stays, at the zero vector instead of NaN. b_perp
+    is (d, n), or its pieces with op the ShardedOperator (the norm is then
+    the square root of the psum of the pieces' squares)."""
+    bp = pieces(b_perp)
+    b_norms = norms(op, bp, dim=1)
+    safe = torch.where(b_norms > 0, b_norms, 1.0)
+    v0 = [x / sf[:, None] for x, sf in zip(bp, scatter(op, safe))]
+    d = b_norms.shape[0]
 
     def zeros(*shape):
-        return torch.zeros(shape, dtype=b_perp.dtype, device=b_perp.device)
+        return torch.zeros(shape, dtype=b_norms.dtype, device=b_norms.device)
 
     btil = zeros(d, K)
     btil[:, 0] = b_norms
-    return _DeflState(zeros(d, K), zeros(d, K), btil, v0, torch.zeros_like(v0), zeros(d), zeros(), zeros())
+    return _DeflState(zeros(d, K), zeros(d, K), btil, like(b_perp, v0), like(b_perp, [torch.zeros_like(v) for v in v0]),
+                      zeros(d), zeros(), zeros())
 
 
-def _sweep(V: torch.Tensor, u: torch.Tensor, k: int) -> torch.Tensor:
-    """One classical Gram–Schmidt sweep of u against the stored V[:k]."""
-    return _subtract_span(V, u, _project_coeffs(V, u, k, u.dtype), k)
+def _sweep(op, V, u, k: int):
+    """One classical Gram–Schmidt sweep of u (pieces) against the stored V[:k]."""
+    return _subtract(op, V, u, _project(op, V, u, k, u[0].dtype), k)
 
 
-def _step(op, st: _DeflState, b_perp, U, k: int, *, V: Optional[torch.Tensor] = None, reorth: str = "never",
+def _step(op, st: _DeflState, b_perp, U, k: int, *, V=None, reorth: str = "never",
           reorth_tol: float = 0.0, project_every: int = 1, measure_leak: bool = False,
-          replay: bool = False) -> torch.Tensor:
+          replay: bool = False):
     """Deflated Lanczos step k (producing v_k) for all d factors, in place on
-    st; returns v_k.
+    st; returns v_k (in st.vp's form: a tensor, or the pieces with op a
+    ShardedOperator).
 
     u = A v_{k-1} − β v_{k-2}; α = ⟨u, v_{k-1}⟩; u −= α v_{k-1}; u ← u − U Uᵀu
     on the steps where k % project_every == 0; then the optional sweep over
@@ -88,45 +101,49 @@ def _step(op, st: _DeflState, b_perp, U, k: int, *, V: Optional[torch.Tensor] = 
     value whose divergence would compound), T and b̃ are not written, and
     st.beta_dev takes the replayed ‖u‖ against it.
     """
-    u = spmv(op, st.vp) - st.beta[:, None] * st.vpp
-    alpha = bdot(u, st.vp)
-    u = u - alpha[:, None] * st.vp
+    vp, vpp, bp = pieces(st.vp), pieces(st.vpp), pieces(b_perp)
+    u = [ui - bt[:, None] * x for ui, bt, x in zip(spmv_pieces(op, vp), scatter(op, st.beta), vpp)]
+    alpha = _dot(op, u, vp)
+    u = [ui - a[:, None] * x for ui, a, x in zip(u, scatter(op, alpha), vp)]
     if k % project_every == 0:
-        c = deflation_coeffs(u, U)
+        un = torch.sqrt(_dot(op, u, u)) if measure_leak else None
+        u, c = _deflate(op, u, pieces(U))
         if measure_leak:
-            un = torch.sqrt(bdot(u, u))
             st.leak = torch.maximum(st.leak, torch.max(c.abs().amax(dim=1) / (un + _TINY)))
-        u = deflation_subtract(u, U, c)
     if reorth == "always":
-        u = _sweep(V, u, k)
-    beta_sq = bdot(u, u)
+        u = _sweep(op, pieces(V), u, k)
+    beta_sq = _dot(op, u, u)
     if replay:
         beta_new = st.od[:, k]
         safe = torch.where(beta_new > 0, beta_new, 1.0)
-        v_new = torch.where((beta_new > 0)[:, None], u / safe[:, None], 0.0)
+        v_new = [torch.where((b > 0)[:, None], ui / sf[:, None], 0.0)
+                 for ui, b, sf in zip(u, scatter(op, beta_new), scatter(op, safe))]
         dev = torch.where(beta_new > 0, torch.abs(_sqrt_rn(torch.clamp(beta_sq, min=0.0)) - beta_new) / safe, 0.0)
         st.beta_dev = torch.maximum(st.beta_dev, torch.max(dev))
     else:
-        ub = bdot(u, b_perp)
-        if reorth == "auto" and bool(_drift_probe(ub, st.btil[:, 0], beta_sq) > _auto_threshold(reorth_tol, u.dtype)):
-            u = _sweep(V, u, k)
-            beta_sq, ub = bdot(u, u), bdot(u, b_perp)
+        ub = _dot(op, u, bp)
+        if reorth == "auto" and bool(_drift_probe(ub, st.btil[:, 0], beta_sq) > _auto_threshold(reorth_tol, u[0].dtype)):
+            u = _sweep(op, pieces(V), u, k)
+            beta_sq, ub = _dot(op, u, u), _dot(op, u, bp)
         beta_new, lucky, safe = _breakdown(_sqrt_rn(torch.clamp(beta_sq, min=0.0)), torch.abs(alpha) + st.beta + _TINY,
-                                           u.dtype)
-        v_new = torch.where(lucky[:, None], 0.0, u / safe[:, None])
+                                           u[0].dtype)
+        v_new = [torch.where(lk[:, None], 0.0, ui / sf[:, None])
+                 for ui, lk, sf in zip(u, scatter(op, lucky), scatter(op, safe))]
         st.dg[:, k - 1] = alpha
         st.od[:, k] = beta_new
         st.btil[:, k] = ub / safe
+    v_new = like(st.vp, v_new)
     st.vp, st.vpp, st.beta = v_new, st.vp, beta_new
     return v_new
 
 
-def _advance(op, st: _DeflState, b_perp, U, k0: int, k1: int, *, V: Optional[torch.Tensor] = None, **step) -> None:
-    """Steps k0..k1-1; with V, each writes its column V[k]."""
+def _advance(op, st: _DeflState, b_perp, U, k0: int, k1: int, *, V=None, **step) -> None:
+    """Steps k0..k1-1; with V, each writes its column V[k] (on every piece)."""
     for k in range(k0, k1):
         v = _step(op, st, b_perp, U, k, V=V, **step)
         if V is not None:
-            V[k] = v
+            for Vi, vi in zip(pieces(V), pieces(v)):
+                Vi[k] = vi
 
 
 def _advance_store(op, st: _DeflState, b_perp, U, k0: int, S: int, project_every: int = 1) -> torch.Tensor:
@@ -186,30 +203,35 @@ class Pass2Audit(NamedTuple):
 
 
 def _pass2_accumulate(op, b_perp, U, od, Yv, k_done: int, n_probes: int = 0,
-                      project_every: int = 1) -> Tuple[torch.Tensor, Pass2Audit]:
+                      project_every: int = 1):
     """Pass 2 on the device: rerun the recurrence with β replayed from the
     recorded od and accumulate X[s, :, j] = Σ_k v_k[s]·Yv[s, k, j] for
     k = 0..k_done. Probe slots fill every ⌈K/n_probes⌉ steps, after the
-    vector's own dot, so a vector is never audited against itself."""
-    d, n = b_perp.shape
+    vector's own dot, so a vector is never audited against itself. Over
+    pieces (op a ShardedOperator) X is per piece, (d_f, n_local, t), and the
+    probes' dots are summed by psum; the audit is on the lead device."""
     K = od.shape[1]
-    st = _init_state(b_perp, K)
+    st = _init_state(b_perp, K, op)
     st.od = od
-    X = st.vp[:, :, None] * Yv[:, 0, None, :]
+    Yvs = scatter(op, Yv)
+    X = [v[:, :, None] * y[:, 0, None, :] for v, y in zip(pieces(st.vp), Yvs)]
     np_ = max(int(n_probes), 0)
     stride = max(1, -(-K // np_)) if np_ else 1
-    probes = torch.empty((np_, d, n), dtype=b_perp.dtype, device=b_perp.device)
+    probes = [torch.empty((np_,) + tuple(v.shape), dtype=v.dtype, device=v.device) for v in pieces(st.vp)]
     filled = 0
-    gmax = torch.zeros((), dtype=b_perp.dtype, device=b_perp.device)
+    gmax = torch.zeros((), dtype=od.dtype, device=od.device)
     for k in range(1, int(k_done) + 1):
-        v = _step(op, st, b_perp, U, k, project_every=project_every, replay=True)
-        X.addcmul_(v[:, :, None], Yv[:, k, None, :])
+        v = pieces(_step(op, st, b_perp, U, k, project_every=project_every, replay=True))
+        for Xi, vi, y in zip(X, v, Yvs):
+            Xi.addcmul_(vi[:, :, None], y[:, k, None, :])
         if filled:
-            gmax = torch.maximum(gmax, torch.max(torch.abs(torch.einsum("pdn,dn->pd", probes[:filled], v))))
+            g = psum(op, [torch.einsum("pdn,dn->pd", p[:filled], vi) for p, vi in zip(probes, v)])
+            gmax = torch.maximum(gmax, torch.max(torch.abs(g)))
         if k % stride == 0 and filled < np_:
-            probes[filled] = v
+            for p, vi in zip(probes, v):
+                p[filled] = vi
             filled += 1
-    return X, Pass2Audit(float(gmax), float(st.beta_dev))
+    return like(b_perp, X), Pass2Audit(float(gmax), float(st.beta_dev))
 
 
 def _pass2_host(bands, offsets, b_perp, U, od, Yv, k_done: int, project_every: int = 1, n_probes: int = 16,

@@ -33,6 +33,16 @@ W and C keep the JAX package's width (K padded to a multiple of
 ``RECORD_COLS``) so that a state cache written by either package loads in
 the other.
 
+Shard pieces. The step is written once over pieces (``parallel/krylov.py``):
+unsharded, the vectors and V are tensors; on a mesh (comm='gspmd', as in the
+JAX package) they are lists of per-shard slabs, the pair SpMV runs on each
+shard's halo-extended slab (``parallel/halo.triple_spmv_pairs_sharded``,
+bit-equal to the whole row's), and α, the norms, the deviation, ⟨z, b⊥⟩, the
+sweep, the projection and the Gram sum per-piece partials through ``psum``.
+W, C, dg, od, btil, dev, the leak and the overlap stay on the lead device.
+The once-per-solve charges (the bands' rounding, b's split, the deflated
+block's defect) are per-piece partials combined the same way.
+
 Beside the JAX package's terms the port charges four measured or a-priori
 defects to the dev term, in both recording solvers: the bands' f32-pair
 rounding (``_band_rounding``), the f64 GEMMs' rounding in applying the
@@ -50,6 +60,9 @@ import torch
 
 from .ops import expansion as ex
 from .ops.orth import _TINY, _project_coeffs, _sqrt_rn, bdot, deflation_coeffs
+from .parallel.halo import halo_slabs, triple_spmv_pairs_sharded
+from .parallel.krylov import like, norms, pieces, psum, scatter
+from .parallel.sharding import shard_rhs
 
 RECORD_COLS = 16
 
@@ -79,24 +92,25 @@ class _Df64State:
     dg: torch.Tensor             # (d, K) f64
     od: torch.Tensor             # (d, K) f64
     btil: torch.Tensor           # (d, K) f64 drift telemetry (the RHS is β₀e₀)
-    vp_h: torch.Tensor           # (d, n) f32 v_{k-1}, the stored pair
+    vp_h: torch.Tensor           # (d, n) f32 v_{k-1}, the stored pair (or its pieces)
     vp_l: torch.Tensor
-    vq_h: torch.Tensor           # (d, n) f32 v_{k-2}
+    vq_h: torch.Tensor           # (d, n) f32 v_{k-2} (or its pieces)
     vq_l: torch.Tensor
     beta: torch.Tensor           # (d,) f64
     leak: torch.Tensor           # () f64 max pre-projection |Uᵀz|/‖z‖
     sweep_overlap: torch.Tensor  # () f64 max pre-sweep |⟨z, v_j⟩|/‖z‖
-    V: torch.Tensor              # (K, d, n) f64 holding the basis pairs' values
+    V: torch.Tensor              # (K, d, n) f64 holding the basis pairs' values (or (K, d_f, n_local) pieces)
     W: torch.Tensor              # (d, Kp, Kp) f32: W[s, j, k-1] = sweep coefficient of column j at step k
     C: torch.Tensor              # (d, m, Kp) f32: projection coefficients at step k
     dev: torch.Tensor            # (d, K) f64 ‖z − β_k v_k‖₂ per step
 
 
-def _df64_init(b_perp_np: np.ndarray, K: int, m: int, device):
+def _df64_init(b_perp_np: np.ndarray, K: int, m: int, device, sop=None):
     """The host-exact start: v₀ = b⊥/‖b⊥_s‖ rounded to an f32 pair, and the
     exact representation deviation dev0 = ‖b⊥ − ‖b⊥_s‖(vh₀ + vl₀)‖ in
     longdouble (charged to the certificate's dev term). Returns (state,
-    b0_norms, dev0)."""
+    b0_norms, dev0). With a ShardedOperator sop the vectors and V are its
+    pieces; device is then the lead device."""
     d, n = b_perp_np.shape
     b0 = np.linalg.norm(b_perp_np, axis=1)
     v0 = b_perp_np / np.where(b0 > 0, b0, 1.0)[:, None]
@@ -111,37 +125,64 @@ def _df64_init(b_perp_np: np.ndarray, K: int, m: int, device):
         return torch.zeros(shape, dtype=torch.float64, device=device)
 
     vh, vl = torch.from_numpy(vh0).to(device), torch.from_numpy(vl0).to(device)
-    V = f64(K, d, n)
-    V[0] = vh.to(torch.float64) + vl.to(torch.float64)
+    if sop is not None:
+        vh, vl = shard_rhs(vh, sop.mesh, d), shard_rhs(vl, sop.mesh, d)
+    V = [torch.zeros((K,) + tuple(h.shape), dtype=torch.float64, device=h.device) for h in pieces(vh)]
+    for Vi, h, l in zip(V, pieces(vh), pieces(vl)):
+        Vi[0] = h.to(torch.float64) + l.to(torch.float64)
     btil = f64(d, K)
     btil[:, 0] = torch.from_numpy(b0).to(device)
-    st = _Df64State(dg=f64(d, K), od=f64(d, K), btil=btil, vp_h=vh, vp_l=vl, vq_h=torch.zeros_like(vh),
-                    vq_l=torch.zeros_like(vl), beta=f64(d), leak=f64(), sweep_overlap=f64(), V=V,
+    st = _Df64State(dg=f64(d, K), od=f64(d, K), btil=btil, vp_h=vh, vp_l=vl,
+                    vq_h=like(vh, [torch.zeros_like(h) for h in pieces(vh)]),
+                    vq_l=like(vl, [torch.zeros_like(x) for x in pieces(vl)]), beta=f64(d), leak=f64(),
+                    sweep_overlap=f64(), V=like(vh, V),
                     W=torch.zeros((d, Kp, Kp), dtype=torch.float32, device=device),
                     C=torch.zeros((d, m, Kp), dtype=torch.float32, device=device), dev=f64(d, K))
     return st, b0, dev0
 
 
-def _band_rounding(bands: np.ndarray, offsets) -> np.ndarray:
+def _band_rounding(bands, offsets, sop=None) -> np.ndarray:
     """Per factor, a bound on ‖A_s − Ã_s‖₂, Ã_s holding the bands' f32-pair
     values (the operator the recurrence applies): √(‖E‖₁‖E‖∞) of the exact
     remainder E. The η model charges the expansion arithmetic's rounding, which
     is exact here, and not this; the solvers add it to each step's recorded
-    deviation. Zero for bands exact in 48 bits."""
-    bands = np.asarray(bands, np.float64)
-    r = bands - bands.astype(np.float32).astype(np.float64)
-    return _band_norm(np.abs(r - r.astype(np.float32).astype(np.float64)), offsets)
+    deviation. Zero for bands exact in 48 bits. bands: (d, nb, n) numpy, or
+    with sop the list of the gspmd shards' padded (d_f, nb, n_local + 2H)
+    bands (_band_norm)."""
+    def rest(x):
+        x = np.asarray(x, np.float64)
+        r = x - x.astype(np.float32).astype(np.float64)
+        return np.abs(r - r.astype(np.float32).astype(np.float64))
+
+    return _band_norm([rest(x) for x in bands] if sop is not None else rest(bands), offsets, sop)
 
 
-def _band_norm(E: np.ndarray, offsets) -> np.ndarray:
-    """Per factor, √(‖E‖₁‖E‖∞) ≥ ‖E‖₂ of the banded matrix whose bands are
-    |E| (E[s, b, i] = E_s[i, i + off_b])."""
+def _band_parts(E: np.ndarray, offsets, lo: int, hi: int):
+    """(max row sum, max column sum) per factor of the banded matrix with
+    bands |E| (E[s, b, i] = E_s[i, i + off_b]) over its rows and columns
+    [lo, hi)."""
     n = E.shape[2]
     cols = np.zeros((E.shape[0], n))
     for b, off in enumerate(offsets):
-        lo, hi = max(0, -off), min(n, n - off)
-        cols[:, lo + off:hi + off] += E[:, b, lo:hi]
-    return np.sqrt(E.sum(axis=1).max(axis=1) * cols.max(axis=1))
+        a, z = max(0, -off), min(n, n - off)
+        cols[:, a + off:z + off] += E[:, b, a:z]
+    return E.sum(axis=1)[:, lo:hi].max(axis=1), cols[:, lo:hi].max(axis=1)
+
+
+def _band_norm(E, offsets, sop=None) -> np.ndarray:
+    """Per factor, √(‖E‖₁‖E‖∞) ≥ ‖E‖₂ of the banded matrix whose bands are
+    |E|: E (d, nb, n), or with sop each gspmd shard's slab (d_f, nb,
+    n_local + 2H), whose interior rows and columns see every entry they sum
+    (the slab holds the H neighbouring rows, zero beyond the chain ends); the
+    maxima are taken over each factor's shards, so the norm is the whole's."""
+    if sop is None:
+        rows, cols = _band_parts(E, offsets, 0, E.shape[2])
+    else:
+        H, P = sop.halo, sop.n_mode
+        parts = [_band_parts(e, offsets, H, e.shape[2] - H) for e in E]
+        rows, cols = (np.concatenate([np.max([parts[g * P + p][i] for p in range(P)], axis=0)
+                                      for g in range(len(parts) // P)]) for i in (0, 1))
+    return np.sqrt(rows * cols)
 
 
 # ‖v‖ of a stored column: its pair rounds a unit vector, so ≤ 1 + 2^-47; the charge takes 1 + 1e-12
@@ -169,21 +210,32 @@ def _application_rounding(W: np.ndarray, C: np.ndarray, k: int) -> np.ndarray:
     return (_gamma(np.arange(1, k + 1)) * absW + _gamma(C.shape[1]) * absC) * (1.0 + 2.0 ** -20)
 
 
-def _split_rounding(U: torch.Tensor, Upair: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> np.ndarray:
+def _split_rounding(U, Upair, b, c: torch.Tensor, op=None, shared=None) -> np.ndarray:
     """A bound on ‖b_s − Ũ_s c_s − b⊥_s‖ per factor and column, b⊥ = b − U c
     formed by f64 GEMMs with the f64 basis U while the evaluations represent b
     through the pair basis Ũ: ‖U − Ũ‖_F‖c_s‖ + γ_{m+1}(‖b_s‖ + ‖|U_s||c_s|‖),
     with the factor 1 + 2^-20 for these norms' own rounding. U, Upair
     (1 | d, n, m), b (d, n, q), c (d, m, q) → (d, q); charged with the start
-    block's deviation."""
-    gap = torch.linalg.vector_norm(U - Upair)
-    absUc = torch.matmul(U.abs(), c.abs())
-    nb, nc, nUc = (torch.linalg.vector_norm(t, dim=1) for t in (b, c, absUc))
-    return (gap * nc + _gamma(U.shape[2] + 1) * (nb + nUc)).cpu().numpy() * (1.0 + 2.0 ** -20)
+    block's deviation. Over shard pieces (op a ShardedOperator) U, Upair and
+    b are pieces, the norms over n sum the pieces' squares, and shared says
+    whether U was one (1, n, m) basis for every factor (its pieces then repeat
+    in every factor group; a piece of either kind may be (1, n_local, m))."""
+    Us, Ups, bs = pieces(U), pieces(Upair), pieces(b)
+    gaps = [u - up for u, up in zip(Us, Ups)]
+    if len(gaps) == 1:
+        gap = torch.linalg.vector_norm(gaps[0])
+    else:
+        # the Frobenius norm of the basis once: a shared U repeats in every factor group
+        once = gaps[:op.n_mode] if shared else gaps
+        gap = torch.sqrt(sum(torch.sum(g * g).to(op.device) for g in once))
+    absUc = [torch.matmul(u.abs(), ci.abs()) for u, ci in zip(Us, scatter(op, c))]
+    nb, nUc = norms(op, bs, dim=1), norms(op, absUc, dim=1)
+    nc = torch.linalg.vector_norm(c, dim=1)
+    return (gap * nc + _gamma(Us[0].shape[2] + 1) * (nb + nUc)).cpu().numpy() * (1.0 + 2.0 ** -20)
 
 
-def _deflation_residual(bands: torch.Tensor, offsets, U: torch.Tensor, lam: np.ndarray, eps_elem: float,
-                        lam_gersh_f: np.ndarray) -> np.ndarray:
+def _deflation_residual(bands, offsets, U, lam: np.ndarray, eps_elem: float, lam_gersh_f: np.ndarray,
+                        sop=None) -> np.ndarray:
     """Per factor s and deflation column j, a bound on ‖A_s ũ_j − λ_j ũ_j‖,
     ũ_j the stored column the recurrence projects against (U holds pair
     values) and λ_j the value the evaluations invert: the recorded relation
@@ -192,26 +244,45 @@ def _deflation_residual(bands: torch.Tensor, offsets, U: torch.Tensor, lam: np.n
     the f32 rest (f64 norms, the factor 1 + 1e-9 for their rounding), plus
     that arithmetic's elementwise rounding (8 ε (λ_g + |λ_j|), the η model's
     form) and √(‖E‖₁‖E‖∞) of any rest below f32's range. Identical factors
-    that share U are measured once. (d, m) numpy."""
+    that share U are measured once. (d, m) numpy.
+
+    With sop (comm='gspmd') bands and U are its pieces: each shard's padded
+    bands and its U rows with the neighbours' H rows on either side
+    (parallel/halo.halo_slabs), the products on the slab, the squares of the
+    interior summed over the shards by psum."""
     d, m = lam.shape
-    bands = bands.to(torch.float64)
-    bh, bl = ex.pair_from_f64(bands)
-    rest = bands - bh.to(torch.float64) - bl.to(torch.float64)        # exact
-    br = rest.to(torch.float32)
-    left = _band_norm((rest - br.to(torch.float64)).abs().cpu().numpy(), offsets)
-    out = np.zeros((d, m))
-    for s in range(d):
-        su = 0 if U.shape[0] == 1 else s
-        if s > 0 and su == 0 and torch.equal(bands[s], bands[0]) and np.array_equal(lam[s], lam[0]):
-            out[s] = out[0]
-            continue
-        for j0 in range(0, m, _RESIDUAL_COLS):
-            uh, ul = ex.pair_from_f64(U[su, :, j0:j0 + _RESIDUAL_COLS].T.contiguous())   # exact: pair values
-            lj = torch.tensor(lam[s, j0:j0 + uh.shape[0]], dtype=torch.float64, device=U.device)
-            z = ex.triple_add(ex.triple_spmv_pairs(bh[s:s + 1], bl[s:s + 1], offsets, uh, ul),
-                              ex.triple_spmv_pairs(br[s:s + 1], torch.zeros_like(br[s:s + 1]), offsets, uh, ul))
-            zf = ex.triple_to_f64(ex.triple_sub(z, ex.pair_scale_f64(uh, ul, lj[:, None])))
-            out[s, j0:j0 + uh.shape[0]] = torch.sqrt(bdot(zf, zf)).cpu().numpy()
+    H = 0 if sop is None else sop.halo
+    Us = pieces(U)
+    slabs = [u.transpose(1, 2) for u in Us]                           # (1 | d_f, m, n_local)
+    if sop is not None:
+        slabs = halo_slabs(sop, slabs)
+    partial, rests = [], []
+    ranges = [(0, d)] if sop is None else [sh.factors for sh in sop.shards]
+    for B, slab, (s0, s1) in zip(pieces(bands), slabs, ranges):
+        B = B.to(torch.float64)
+        bh, bl = ex.pair_from_f64(B)
+        rest = B - bh.to(torch.float64) - bl.to(torch.float64)        # exact
+        br = rest.to(torch.float32)
+        rests.append((rest - br.to(torch.float64)).abs().cpu().numpy())
+        nl = B.shape[2] - 2 * H
+        sq = torch.zeros((s1 - s0, m), dtype=torch.float64, device=B.device)
+        for sl in range(s1 - s0):
+            s = s0 + sl
+            su = 0 if slab.shape[0] == 1 else sl
+            if sl > 0 and su == 0 and torch.equal(B[sl], B[0]) and np.array_equal(lam[s], lam[s0]):
+                sq[sl] = sq[0]
+                continue
+            for j0 in range(0, m, _RESIDUAL_COLS):
+                uh, ul = ex.pair_from_f64(slab[su, j0:j0 + _RESIDUAL_COLS].contiguous())   # exact: pair values
+                lj = torch.tensor(lam[s, j0:j0 + uh.shape[0]], dtype=torch.float64, device=B.device)
+                z = ex.triple_add(ex.triple_spmv_pairs(bh[sl:sl + 1], bl[sl:sl + 1], offsets, uh, ul),
+                                  ex.triple_spmv_pairs(br[sl:sl + 1], torch.zeros_like(br[sl:sl + 1]), offsets,
+                                                       uh, ul))
+                zf = ex.triple_to_f64(ex.triple_sub(z, ex.pair_scale_f64(uh, ul, lj[:, None])))[:, H:H + nl]
+                sq[sl, j0:j0 + uh.shape[0]] = bdot(zf, zf)
+        partial.append(sq)
+    out = torch.sqrt(psum(sop, partial)).cpu().numpy()
+    left = _band_norm(rests if sop is not None else rests[0], offsets, sop)
     rounding = 8.0 * eps_elem * (lam_gersh_f[:, None] + np.abs(lam)) + left[:, None]
     return out * (1.0 + 1e-9) + rounding * BAND_CHARGE_SCALE
 
@@ -236,99 +307,130 @@ def _lift(U: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return torch.bmm(U, c[:, :, None])[:, :, 0]
 
 
-def _rel_max(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """max over factors of max_j |w[s, j]| / ‖z_s‖ (() tensor; 0 for no columns)."""
+def _rel_max(w: torch.Tensor, zf, op=None) -> torch.Tensor:
+    """max over factors of max_j |w[s, j]| / ‖z_s‖ (() tensor; 0 for no
+    columns); zf one f64 vector or its pieces."""
+    zf = pieces(zf)
     if w.shape[1] == 0:
-        return torch.zeros((), dtype=z.dtype, device=z.device)
-    return torch.max(w.abs().amax(dim=1) / (torch.sqrt(bdot(z, z)) + _TINY))
+        return torch.zeros((), dtype=zf[0].dtype, device=w.device)
+    return torch.max(w.abs().amax(dim=1) / (torch.sqrt(psum(op, [bdot(x, x) for x in zf])) + _TINY))
 
 
-def _sweep_pair(V: torch.Tensor, z: ex.Triple, k: int):
-    """One recorded CGS pass of the expansion vector z ((d, n) Triple) against
-    the stored columns < k: (z − Σ_j w_j V[j], w, overlap), w (d, k) the
-    applied coefficients (the exact value of their f32 split; its f32
-    rounding is the f64 coefficient's) and the overlap max|w|/‖z‖."""
-    zf = ex.triple_to_f64(z)
-    w = pair_value(_project_coeffs(V, zf, k, torch.float64))
-    return ex.triple_sub_f64(z, _span(V, w, k)), w, _rel_max(w, zf)
+def _sweep_pair(V, z, k: int, op=None):
+    """One recorded CGS pass of the expansion vector z ((d, n) Triple, or
+    its pieces with op the ShardedOperator) against the stored columns < k:
+    (z − Σ_j w_j V[j], w, overlap), w (d, k) the applied coefficients (the
+    exact value of their f32 split; its f32 rounding is the f64
+    coefficient's) and the overlap max|w|/‖z‖."""
+    Vs, zs = pieces(V), pieces(z)
+    zf = [ex.triple_to_f64(zi) for zi in zs]
+    w = pair_value(psum(op, [_project_coeffs(Vi, x, k, torch.float64) for Vi, x in zip(Vs, zf)]))
+    out = [ex.triple_sub_f64(zi, _span(Vi, wi, k)) for zi, Vi, wi in zip(zs, Vs, scatter(op, w))]
+    return like(z, out), w, _rel_max(w, zf, op)
 
 
-def _project_pair_recorded(U: torch.Tensor, z: ex.Triple):
-    """The recorded deflation projection of z against the pair basis U
-    ((1, n, m) shared or (d, n, m)): (z − U c, c, leak), c (d, m) the applied
-    coefficients and the leak max|c|/‖z‖."""
-    zf = ex.triple_to_f64(z)
-    c = pair_value(deflation_coeffs(zf, U))
-    return ex.triple_sub_f64(z, _lift(U, c)), c, _rel_max(c, zf)
+def _project_pair_recorded(U, z, op=None):
+    """The recorded deflation projection of z (a Triple or its pieces)
+    against the pair basis U ((1, n, m) shared or (d, n, m), or its pieces):
+    (z − U c, c, leak), c (d, m) the applied coefficients and the leak
+    max|c|/‖z‖."""
+    Us, zs = pieces(U), pieces(z)
+    zf = [ex.triple_to_f64(zi) for zi in zs]
+    c = pair_value(psum(op, [deflation_coeffs(x, Ui) for x, Ui in zip(zf, Us)]))
+    out = [ex.triple_sub_f64(zi, _lift(Ui, ci)) for zi, Ui, ci in zip(zs, Us, scatter(op, c))]
+    return like(z, out), c, _rel_max(c, zf, op)
 
 
-def _norm(z: ex.Triple) -> torch.Tensor:
-    """‖z_s‖ per factor of a Triple (of its f64 value)."""
-    zf = ex.triple_to_f64(z)
-    return _sqrt_rn(torch.clamp(bdot(zf, zf), min=0.0))
+def _norm(z, op=None) -> torch.Tensor:
+    """‖z_s‖ per factor of a Triple or its pieces (of its f64 value)."""
+    zf = [ex.triple_to_f64(zi) for zi in pieces(z)]
+    return _sqrt_rn(torch.clamp(psum(op, [bdot(x, x) for x in zf]), min=0.0))
 
 
-def _round_pair(z: ex.Triple, nrm: torch.Tensor):
+def _round_pair(z, nrm: torch.Tensor, op=None):
     """z/nrm rounded to the stored f32 pair (a zero norm divides by 1)."""
     safe = torch.where(nrm > 0, nrm, 1.0)
-    (vh, vl), _ = ex.triple_round_pair(ex.triple_scale_f64(z, (1.0 / safe)[:, None]))
-    return vh, vl
+    pairs = [ex.triple_round_pair(ex.triple_scale_f64(zi, r[:, None]))[0]
+             for zi, r in zip(pieces(z), scatter(op, 1.0 / safe))]
+    return like(z, [h for h, _ in pairs]), like(z, [lo for _, lo in pairs])
 
 
-def _deviation(z: ex.Triple, vh, vl, nrm) -> torch.Tensor:
+def _deviation(z, vh, vl, nrm, op=None) -> torch.Tensor:
     """The exact commit deviation ‖z − nrm·(vh + vl)‖ per factor."""
-    devf = ex.triple_to_f64(ex.triple_sub(z, ex.pair_scale_f64(vh, vl, nrm[:, None])))
-    return _sqrt_rn(bdot(devf, devf))
+    parts = []
+    for zi, h, lo, ni in zip(pieces(z), pieces(vh), pieces(vl), scatter(op, nrm)):
+        devf = ex.triple_to_f64(ex.triple_sub(zi, ex.pair_scale_f64(h, lo, ni[:, None])))
+        parts.append(bdot(devf, devf))
+    return _sqrt_rn(psum(op, parts))
 
 
-def _df64_step(bands_h, bands_l, offsets, st: _Df64State, b_perp, U, k: int, project: bool, sweep: bool) -> None:
-    """Step k (producing v_k) for all d factors, in place on st."""
-    z = ex.triple_spmv_pairs(bands_h, bands_l, offsets, st.vp_h, st.vp_l)
-    z = ex.triple_sub(z, ex.pair_scale_f64(st.vq_h, st.vq_l, st.beta[:, None]))
-    vpf = st.vp_h.to(torch.float64) + st.vp_l.to(torch.float64)
-    alpha = bdot(ex.triple_to_f64(z), vpf)
-    z = ex.triple_sub(z, ex.pair_scale_f64(st.vp_h, st.vp_l, alpha[:, None]))
+def _pair_spmv(bands_h, bands_l, offsets, vh, vl, sop=None):
+    """A·v in expansion arithmetic over pieces: triple_spmv_pairs on one
+    piece; on a mesh, each shard's padded pair bands (lists bands_h,
+    bands_l) on its halo-extended slab."""
+    if sop is None:
+        return [ex.triple_spmv_pairs(bands_h, bands_l, offsets, vh[0], vl[0])]
+    return triple_spmv_pairs_sharded(sop, list(zip(bands_h, bands_l)), vh, vl)
+
+
+def _df64_step(bands_h, bands_l, offsets, st: _Df64State, b_perp, U, k: int, project: bool, sweep: bool,
+               sop=None) -> None:
+    """Step k (producing v_k) for all d factors, in place on st. One piece,
+    or with sop the ShardedOperator (comm='gspmd') its pieces: b⊥, U and the
+    state's vectors and V are then lists, and bands_h, bands_l the lists of
+    each shard's padded pair bands."""
+    f64 = torch.float64
+    vph, vpl = pieces(st.vp_h), pieces(st.vp_l)
+    z = _pair_spmv(bands_h, bands_l, offsets, vph, vpl, sop)
+    z = [ex.triple_sub(zi, ex.pair_scale_f64(h, lo, bt[:, None]))
+         for zi, h, lo, bt in zip(z, pieces(st.vq_h), pieces(st.vq_l), scatter(sop, st.beta))]
+    vpf = [h.to(f64) + lo.to(f64) for h, lo in zip(vph, vpl)]
+    alpha = psum(sop, [bdot(ex.triple_to_f64(zi), v) for zi, v in zip(z, vpf)])
+    z = [ex.triple_sub(zi, ex.pair_scale_f64(h, lo, a[:, None])) for zi, h, lo, a in zip(z, vph, vpl, scatter(sop, alpha))]
 
     if project:
-        z, c, leak = _project_pair_recorded(U, z)
+        z, c, leak = _project_pair_recorded(U, z, sop)
         st.leak = torch.maximum(st.leak, leak)
         st.C[:, :, k - 1] = c.to(torch.float32)
     if sweep:
-        z, w, overlap = _sweep_pair(st.V, z, k)
+        z, w, overlap = _sweep_pair(st.V, z, k, sop)
         st.sweep_overlap = torch.maximum(st.sweep_overlap, overlap)
         st.W[:, :k, k - 1] = w.to(torch.float32)
 
     # β, the breakdown guard, and the commit with its exact deviation
-    ub = bdot(ex.triple_to_f64(z), b_perp)
-    beta_new = _norm(z)
-    lucky = beta_new < 256.0 * torch.finfo(torch.float64).eps * (torch.abs(alpha) + st.beta + _TINY)
+    ub = psum(sop, [bdot(ex.triple_to_f64(zi), b) for zi, b in zip(z, pieces(b_perp))])
+    beta_new = _norm(z, sop)
+    lucky = beta_new < 256.0 * torch.finfo(f64).eps * (torch.abs(alpha) + st.beta + _TINY)
     beta_new = torch.where(lucky, 0.0, beta_new)
-    vh, vl = _round_pair(z, beta_new)
-    vh = torch.where(lucky[:, None], 0.0, vh)
-    vl = torch.where(lucky[:, None], 0.0, vl)
+    vh, vl = _round_pair(z, beta_new, sop)
+    lk = scatter(sop, lucky)
+    vh = [torch.where(x[:, None], 0.0, h) for h, x in zip(vh, lk)]
+    vl = [torch.where(x[:, None], 0.0, lo) for lo, x in zip(vl, lk)]
 
-    st.V[k] = vh.to(torch.float64) + vl.to(torch.float64)
+    for Vi, h, lo in zip(pieces(st.V), vh, vl):
+        Vi[k] = h.to(f64) + lo.to(f64)
     st.dg[:, k - 1] = alpha
     st.od[:, k] = beta_new
     st.btil[:, k] = ub / torch.where(beta_new > 0, beta_new, 1.0)
-    st.dev[:, k] = _deviation(z, vh, vl, beta_new)
-    st.vq_h, st.vq_l, st.vp_h, st.vp_l = st.vp_h, st.vp_l, vh, vl
+    st.dev[:, k] = _deviation(z, vh, vl, beta_new, sop)
+    st.vq_h, st.vq_l = st.vp_h, st.vp_l
+    st.vp_h, st.vp_l = like(st.vq_h, vh), like(st.vq_l, vl)
     st.beta = beta_new
 
 
 def _df64_advance(bands_h, bands_l, offsets, st: _Df64State, b_perp, U, k0: int, S: int, project_every: int = 1,
-                  sweep_every: int = 1) -> None:
+                  sweep_every: int = 1, sop=None) -> None:
     """Steps k0..k0+S-1; the projection runs on the steps k % project_every
     == 0 and the sweep on k % sweep_every == 0 (a skipped one records zeros)."""
     for k in range(k0, k0 + S):
-        _df64_step(bands_h, bands_l, offsets, st, b_perp, U, k, k % project_every == 0, k % sweep_every == 0)
+        _df64_step(bands_h, bands_l, offsets, st, b_perp, U, k, k % project_every == 0, k % sweep_every == 0, sop)
 
 
-def _df64_gram_deviation_host(V: torch.Tensor, k: int) -> float:
+def _df64_gram_deviation_host(V, k: int, op=None) -> float:
     """max |VᵀV − I| over the active columns < k of every factor: one batched
-    f64 Gram per factor on V's device."""
-    Vk = V[:k].transpose(0, 1)                                   # (d, k, n), strided
-    G = torch.bmm(Vk, V[:k].permute(1, 2, 0))
+    f64 Gram per factor on V's device (over pieces: the psum of the pieces'
+    Grams)."""
+    G = psum(op, [torch.bmm(Vi[:k].transpose(0, 1), Vi[:k].permute(1, 2, 0)) for Vi in pieces(V)])
     G.diagonal(dim1=1, dim2=2).sub_(1.0)
     return float(G.abs().max())
 

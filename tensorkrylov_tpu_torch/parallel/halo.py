@@ -20,6 +20,11 @@ the ShardedOperator and reused by every call. The gspmd route uses it on a
 side stream of the receiving device, after events that mark the senders' v as
 written and the receiver's earlier reads of the buffers as queued; the CPU
 route of 'ring' and the plain version on the card copy on the current stream.
+``halo_slabs`` joins the halos into each shard's slab ``[left halo | v |
+right halo]``. A v may stack several vectors on a leading axis: the df64
+recurrence exchanges its f32 pair (hi, lo) as one (2, d_f, n_local) tensor,
+and ``triple_spmv_pairs_sharded`` runs the pair SpMV of ``ops/expansion.py``
+on the slabs.
 
 Layout contract: arrays are split on their last axis over the mode shards,
 n % n_mode == 0, and a shard is at least H wide. The halos of one call are
@@ -32,12 +37,14 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops import expansion as ex
 from ..ops.banded import spmv
 from ..ops.ring_spmv import Source, ring_spmv_edge, ring_spmv_interior, ring_spmv_local
 from ..types import KroneckerSumOperator
 from .sharding import Mesh, ShardedOperator, gather, shard_operator, shard_rhs
 
-__all__ = ["exchange_halos", "ring_sources", "spmv_halo_local", "spmv_sharded", "make_halo_spmv", "spmv_halo"]
+__all__ = ["exchange_halos", "halo_slabs", "ring_sources", "spmv_halo_local", "spmv_sharded",
+           "triple_spmv_pairs_sharded", "make_halo_spmv", "spmv_halo"]
 
 
 def _halo_buffers(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
@@ -151,17 +158,45 @@ def spmv_sharded(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[torch
     H = sop.halo
     if sop.ring:
         return _spmv_ring_cuda(sop, vs)
-    halos, events = exchange_halos(sop, vs)
     if sop.comm == "ring":
+        halos, _ = exchange_halos(sop, vs)
         us = [ring_spmv_interior(sh.op, v) for sh, v in zip(sop.shards, vs)]
         return [ring_spmv_edge(sh.op, u, lh, rh) for sh, u, (lh, rh) in zip(sop.shards, us, halos)]
     out = []
+    for sh, slab, v in zip(sop.shards, halo_slabs(sop, vs), vs):
+        nl = v.shape[-1]
+        with torch.cuda.device(sh.device) if sh.device.type == "cuda" else contextlib.nullcontext():
+            out.append(spmv(sh.op, slab)[..., H:H + nl])
+    return out
+
+
+def halo_slabs(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each shard's slab [left halo | v | right halo], (…, n_local + 2H) on
+    its device, after exchange_halos: the halos of the chain ends are zeros.
+    The current stream of each shard waits for its halos' event first."""
+    halos, events = exchange_halos(sop, vs)
+    slabs = []
     for sh, v, (lh, rh), ev in zip(sop.shards, vs, halos, events):
         if ev is not None:
             torch.cuda.current_stream(sh.device).wait_event(ev)
+        slabs.append(torch.cat([lh, v, rh], dim=-1))
+    return slabs
+
+
+def triple_spmv_pairs_sharded(sop: ShardedOperator, bands: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                              vh: Sequence[torch.Tensor], vl: Sequence[torch.Tensor]) -> List[ex.Triple]:
+    """ops/expansion.triple_spmv_pairs on every shard (comm='gspmd'): the
+    pair v = (vh, vl) exchanged as one stacked tensor, the SpMV on each
+    shard's slab with its padded pair bands ((d_f, nb, n_local + 2H) hi and
+    lo of the shard's gspmd bands), the interior kept. Every output takes the
+    same products in the same band order as on the whole row, so the result
+    is bit-equal to the unsharded pair SpMV."""
+    H = sop.halo
+    out = []
+    for (bh, bl), slab, v in zip(bands, halo_slabs(sop, [torch.stack([h, l]) for h, l in zip(vh, vl)]), vh):
         nl = v.shape[-1]
-        with torch.cuda.device(sh.device) if sh.device.type == "cuda" else contextlib.nullcontext():
-            out.append(spmv(sh.op, torch.cat([lh, v, rh], dim=-1))[..., H:H + nl])
+        z = ex.triple_spmv_pairs(bh, bl, sop.offsets, slab[0], slab[1])
+        out.append(ex.Triple(*(t[..., H:H + nl] for t in z)))
     return out
 
 

@@ -32,7 +32,7 @@ from ..ops import _build
 from ..ops.ring_spmv import RingLaunch, halo_width
 from ..types import KroneckerSumOperator, SolveResult, SolverConfig
 
-__all__ = ["Mesh", "Shard", "ShardedOperator", "make_mesh", "shard_operator", "shard_rhs", "gather",
+__all__ = ["Mesh", "Shard", "ShardedOperator", "make_mesh", "shard_operator", "shard_rhs", "shard_basis", "gather",
            "solve_sharded"]
 
 COMMS = ("gspmd", "ring")
@@ -213,6 +213,23 @@ def shard_rhs(b: torch.Tensor, mesh: Mesh, d: Optional[int] = None) -> List[torc
     shard, (d_f, …, n / n_mode) on its device."""
     b = torch.as_tensor(b)
     return _split(b, mesh, d or b.shape[0])
+
+
+def shard_basis(U: torch.Tensor, mesh: Mesh, d: int) -> List[torch.Tensor]:
+    """A deflation basis U (1 | d, n, m), n on axis 1, split as shard_rhs
+    splits b: n over the mode shards and, for distinct factors (d, n, m), d
+    over the factor groups; a shared U (1, n, m) goes to every group whole
+    in its factor axis. One piece (1 | d_f, n / n_mode, m) per shard."""
+    P = mesh.shape["mode"]
+    n = U.shape[1]
+    if n % P:
+        raise ValueError(f"n={n} is not a multiple of the {P} mode shards")
+    nl = n // P
+    out = []
+    for g, (s0, s1) in enumerate(_factor_groups(mesh, d)):
+        rows = U if U.shape[0] == 1 else U[s0:s1]
+        out += [rows[:, p * nl:(p + 1) * nl].contiguous().to(mesh.devices[g][p]) for p in range(P)]
+    return out
 
 
 def gather(pieces: Sequence[torch.Tensor], mesh: Mesh, axis: int = -1, factor_axis: int = 0) -> torch.Tensor:

@@ -379,10 +379,10 @@ def solve_on_mesh(op: KroneckerSumOperator, b, config: SolverConfig, mesh, comm:
                   tables: Optional[BHTables] = None) -> SolveResult:
     """solve() with the operator, b and the Krylov bases split over mesh
     (parallel/sharding.py:solve_sharded checks comm and forces the step).
-    The same _segment loop runs the sharded Krylov step of parallel/krylov.py
+    The same _segment loop runs the ops/orth.py step over the shard pieces
     and projected_step on the lead device; the lift x_s = V_sᵀ Y_s runs on
     each shard and is gathered to the lead device."""
-    from .parallel import krylov
+    from .parallel.krylov import scatter
     from .parallel.sharding import gather, shard_operator, shard_rhs
 
     b = _check_problem(op, b, config)
@@ -395,13 +395,13 @@ def solve_on_mesh(op: KroneckerSumOperator, b, config: SolverConfig, mesh, comm:
     op_c = op.astype(_acc_dtype(config.basis_dtype, pdt))
     sop = shard_operator(op_c, mesh, comm)
     bs = shard_rhs(b, mesh, d)
-    state, b_norms = krylov.init_state(sop, bs, config.kmax, pdt, config.basis_dtype)
+    state, b_norms = init_state(sop, bs, config.kmax, pdt, config.basis_dtype)
     W_A = dense_minor_window(op_c, config.kmax + 1).to(pdt).to(lead) if config.spectral_source == "A_minor" else None
-    problem = _Problem(sop, bs, config, tables, krylov.step_fn(config), torch.prod(b_norms), W_A, op.symmetric)
+    problem = _Problem(sop, bs, config, tables, _step_fn(config), torch.prod(b_norms), W_A, op.symmetric)
     carry = _initial_carry(state, config, d, lead)
 
     def lift(V, Y, niter):
-        return gather([_lift(Vi, Yi, niter) for Vi, Yi in zip(V, krylov.scatter(sop, Y))], mesh, axis=1)
+        return gather([_lift(Vi, Yi, niter) for Vi, Yi in zip(V, scatter(sop, Y))], mesh, axis=1)
 
     return _finalize(problem, _segment(problem, carry, config.kmax), lift)
 

@@ -838,3 +838,57 @@ def test_solve_block_recorded_on_card_equals_cpu(cuda):
     slack = max(r.relation_dev_term + r.relation_eta_term + r.relation_r2_term for r in (got, ref))
     for a, r in zip(got.certified_bound, ref.certified_bound):
         assert abs(a - r) <= 1e-9 * r + slack, (a, r, slack)
+
+
+def _sharded_deflated_problem(device):
+    op = tkt.laplace(3, 256, shift=3000.0, device=device)
+    b = tkt.random_rhs(3, 256, seed=5)
+    return op, (b / torch.linalg.vector_norm(b, dim=1, keepdim=True)).to(device)
+
+
+def test_sharded_deflated_twopass_ring_on_card(cuda):
+    """solve_deflated(storage='twopass', comm='ring') on 4 mode shards of one
+    card against the unsharded solve on the card: status, steps and
+    checkpoints equal, the bounds within 1e-6 (plain Lanczos: the pieces'
+    sums round apart and the recurrence amplifies it, 1e-7 on the CPU), x
+    gathered on the card within 1e-10; one ring launch per SpMV of both
+    passes (k + k − 1) and one banded_spmv launch (the cross-check's A·X)."""
+    op, b = _sharded_deflated_problem(cuda)
+    cfg = tkt.SolverConfig(kmax=48, tol=1e-8)
+    kw = dict(m=8, storage="twopass", checkpoints=[16, 32, 48])
+    ref = tkt.solve_deflated(op, b, cfg, **kw)
+    _build.launches.clear()
+    got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), comm="ring", **kw)
+    torch.cuda.synchronize()
+    k = got.niterations
+    assert dict(_build.launches) == {"ring_spmv": 2 * k - 1, "banded_spmv": 1}
+    assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
+    assert got.status == tkt.Status.CONVERGED
+    np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
+    assert got.x.factors.device.type == cuda.type
+    np.testing.assert_allclose(got.x.factors.cpu().numpy(), ref.x.factors.cpu().numpy(), rtol=0, atol=1e-10)
+
+
+def test_sharded_deflated_df64_gspmd_on_card(cuda):
+    """solve_deflated(storage='df64', final='device') on 4 mode shards of one
+    card (comm='gspmd') against the unsharded solve on the card: status and
+    steps equal, the bounds within 1e-6 (the smoke's flagship requirement:
+    the recorded relation's terms and the interim checkpoints' estimates are
+    roundoff records that the pieces' sums and the card's GEMMs move, 3e-8
+    relative at the flagship), the cross-checks within twice the larger
+    floor, one banded_spmv launch (the cross-check's: the pair SpMV is
+    expansion arithmetic in torch ops on each shard's halo-extended slab)."""
+    op, b = _sharded_deflated_problem(cuda)
+    cfg = tkt.SolverConfig(kmax=48, tol=1e-8)
+    kw = dict(m=8, storage="df64", final="device", checkpoints=[16, 32, 48])
+    ref = tkt.solve_deflated(op, b, cfg, **kw)
+    _build.launches.clear()
+    got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"banded_spmv": 1}
+    assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
+    assert got.status == tkt.Status.CONVERGED
+    np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
+    band = 2 * max(got.cp_residual_floor, ref.cp_residual_floor)
+    assert abs(got.measured_cp_residual - ref.measured_cp_residual) <= band
+    assert got.x.factors.device.type == cuda.type and got.gram_source == "measured full Gram"

@@ -497,11 +497,15 @@ def test_final_auto_is_host_on_the_cpu(monkeypatch):
 
 
 def test_df64_option_validation():
-    """mesh= with df64 still raises, naming ROADMAP #8.3; final='device' and
-    the df64 leg options on another storage are refused."""
+    """mesh= with df64 takes comm='gspmd' only, as in the JAX package
+    (deflate.py:847-852): comm='ring' raises naming 'gspmd'; final='device'
+    and the df64 leg options on another storage are refused."""
+    from tensorkrylov_tpu_torch.parallel import make_mesh
+
     op, b = _problem()
-    with pytest.raises(NotImplementedError, match="#8.3"):
-        tkt.solve_deflated(op, b, tkt.SolverConfig(kmax=8), m=2, storage="df64", mesh=object())
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="comm='gspmd'"):
+        tkt.solve_deflated(op, b, tkt.SolverConfig(kmax=8), m=2, storage="df64", mesh=mesh, comm="ring")
     with pytest.raises(ValueError, match="final='device'"):
         tkt.solve_deflated(op, b, tkt.SolverConfig(kmax=8), m=2, storage="full", final="device")
     for kw in (dict(advance_budget=4), dict(save_every=8)):

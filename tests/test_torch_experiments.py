@@ -1,7 +1,8 @@
 """The port's experiment modules (eigenvalue_distribution, parameterized_systems,
-plotting, northstar) on the CPU: against the JAX package's on the same inputs
-(tests/test_experiments.py's cases), and the north-star runner end to end at a
-small size."""
+plotting, northstar, nonsym_scale) on the CPU: against the JAX package's on the
+same inputs (tests/test_experiments.py's cases), the north-star runner end to
+end at a small size, and the nonsymmetric runner against the JAX runner at
+the JAX runner's documented CPU size."""
 import json
 
 import numpy as np
@@ -162,3 +163,44 @@ def test_config4_block_main_on_the_cpu(tmp_path):
     assert blk["solver"] == "solve_block_recorded" and blk["status"] == 1 and blk["deflation_m"] == 8
     assert blk["certified_bound"][-1] < 1e-8 and "multi_rhs" not in rec
     assert "CONTRADICT" not in blk["interpretation"]
+
+
+def test_nonsym_scale_main_matches_jax(tmp_path, monkeypatch):
+    """The nonsymmetric runner at the JAX runner's CPU size (--cpu --n 512
+    --kappa 1e3 --kmax 120: d=10, tmax=801, Arnoldi) against the JAX runner
+    at the same size: the same σ, status, steps and exp-sum rank, the last
+    recorded estimate to 1e-6 (the Arnoldi traces' tolerance,
+    tests/test_torch_nonsym.py), the cross-checks within twice the floor.
+    Both cross-checks read the exp-sum's active columns: the JAX runner's
+    host function is given only those (a zero-weight column adds exact
+    zeros to its contraction), which spares it the (1 + d·801)² longdouble
+    products. The JAX runner's compilation cache stays off."""
+    import sys
+
+    from tensorkrylov_tpu.experiments import nonsym_scale as jnsc
+    from tensorkrylov_tpu.utils import cache as jcache, cp as jcp
+    from tensorkrylov_tpu_torch.experiments import nonsym_scale as nsc
+
+    host_check = jcp.cp_residual_cross_check_host
+
+    def active_only(bands, offsets, weights, factors, b):
+        act = np.flatnonzero(np.asarray(weights) != 0)
+        return host_check(bands, offsets, np.asarray(weights)[act], np.asarray(factors)[:, :, act], b)
+
+    monkeypatch.setattr(jcp, "cp_residual_cross_check_host", active_only)
+    monkeypatch.setattr(jcache, "enable_compilation_cache", lambda *a, **k: None)
+    size = ["--cpu", "--n", "512", "--kappa", "1e3", "--kmax", "120"]
+    monkeypatch.setattr(sys, "argv", ["nonsym_scale"] + size + ["--out", str(tmp_path / "jax.json")])
+    jnsc.main()
+    with open(tmp_path / "jax.json") as fh:
+        ref = json.load(fh)
+    art = nsc.main(size + ["--out", str(tmp_path / "port.json")])
+    with open(tmp_path / "port.json") as fh:
+        assert json.load(fh) == json.loads(json.dumps(art))
+    assert art["problem"] == ref["problem"] and art["timing"]["device"] == "cpu"
+    mine, theirs = art["result"], ref["result"]
+    for key in ("status", "converged", "niterations", "expsum_rank"):
+        assert mine[key] == theirs[key], key
+    np.testing.assert_allclose(mine["relative_residual"], theirs["relative_residual"], rtol=1e-6)
+    assert mine["cp_residual_floor"] == pytest.approx(theirs["cp_residual_floor"], rel=1e-6)
+    assert abs(mine["measured_cp_residual"] - theirs["measured_cp_residual"]) <= 2 * mine["cp_residual_floor"]

@@ -1,8 +1,8 @@
 """The port's mode-sharded solve on 8 CPU shard slots against the JAX
 package: solve_sharded with comm='ring' and comm='gspmd' against the JAX
 package's single-device solve and its own solve_sharded on 8 virtual devices,
-the factor-parallel mesh, Arnoldi, the sharded steps against JAX's steps on a
-state carried across, and the error paths. Inputs are made with numpy and
+the factor-parallel mesh, Arnoldi, the ops/orth.py steps over shard pieces
+against JAX's steps on a state carried across, and the error paths. Inputs are made with numpy and
 handed to both packages."""
 import dataclasses
 import functools
@@ -23,7 +23,8 @@ from tensorkrylov_tpu_torch.interop import (config_from_fields, operator_from_nu
                                             sharded_state_to_numpy)
 from tensorkrylov_tpu_torch.ops import _build
 from tensorkrylov_tpu_torch.ops.orth import init_state, lanczos_step
-from tensorkrylov_tpu_torch.parallel import krylov, make_mesh, shard_operator, shard_rhs, solve_sharded
+from tensorkrylov_tpu_torch.parallel import make_mesh, shard_operator, shard_rhs, solve_sharded
+from tensorkrylov_tpu_torch.solver import _step_fn
 from tensorkrylov_tpu_torch.utils.cp import kron_residual_dense
 
 # many small eigh and einsum calls per solve: one intra-op thread per test
@@ -121,7 +122,7 @@ def test_sharded_steps_match_jax_steps(comm, orth):
     mesh = make_mesh(devices=CPU8, factor_parallel=1)
     sop = sharded_operator_from_numpy(np.asarray(jop.bands), jop.offsets, mesh, jop.symmetric, comm)
     st = sharded_state_from_numpy(*(np.asarray(a) for a in jst), sop)
-    step = krylov.step_fn(tkt.SolverConfig(orth=orth))
+    step = _step_fn(tkt.SolverConfig(orth=orth))
     bs = shard_rhs(b, mesh)
     for k in range(7, 10):
         jst, _ = jstep(jop, jst, jb, k)
@@ -142,10 +143,10 @@ def test_lucky_restart_gives_the_unsharded_vector():
     sop = shard_operator(op, mesh, "ring")
     bs = shard_rhs(b, mesh)
     st, _ = init_state(op, b, 9, torch.float64)
-    sst, _ = krylov.init_state(sop, bs, 9, torch.float64)
+    sst, _ = init_state(sop, bs, 9, torch.float64)
     for k in range(1, 10):
         st, _ = lanczos_step(op, st, b, k, reorth=True, proj_dtype=torch.float64)
-        sst, _ = krylov.lanczos_step(sop, sst, bs, k, reorth=True, proj_dtype=torch.float64)
+        sst, _ = lanczos_step(sop, sst, bs, k, reorth=True, proj_dtype=torch.float64)
     assert float(st.H[0, 8, 7]) == 0.0 == float(sst.H[0, 8, 7])   # β = 0 at k = 8: the restart
     V = sharded_state_to_numpy(sst, sop).V
     np.testing.assert_allclose(V, st.V.numpy(), rtol=0, atol=1e-12)
