@@ -91,7 +91,17 @@ Phases, one output line each:
                with gspmd (4 banded_spmv launches per step) against the unsharded solve,
                the bounds within 1e-9 (beside 1e-15); examples/03_sharded_torch.py; and the nonsymmetric
                runner (experiments/nonsym_scale.py) at the TPU artifact's recipe (d=10,
-               n=16384, κ=1e4, kmax=384, tmax=801), unsharded, beside the TPU's numbers.
+               n=16384, κ=1e4, kmax=384, tmax=801), unsharded, beside the TPU's numbers;
+ 14. sharded_solvers — the JAX dry run's sharded call forms on shard slots of cuda:0:
+               config 4 through solve_block(shard_operator(op, mesh, comm), shard_rhs(B,
+               mesh, d)) on 4 mode shards, gspmd (4 banded_spmv launches per block step)
+               and ring (1 ring launch per block step), each against the unsharded block
+               solve; the slice through solve_two_pass(sop, shard_rhs(b, mesh)) on ring (one
+               launch per SpMV of both passes) and gspmd (4 per SpMV) against the unsharded
+               two-pass; phase 8's rank-2 input through solve_multi_rhs on a (rhs=2,
+               factor=1, mode=2) mesh against phase 8's lanes; and every call of
+               __graft_entry__.py:dryrun_multichip at its own sizes on 8 slots, a (2, 4) and
+               a (2, 2, 2) mesh (experiments/dryrun_multichip.py).
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -843,10 +853,11 @@ def same_bits(a, b):
             and torch.equal(a.x.weights, b.x.weights) and torch.equal(a.x.factors, b.x.factors))
 
 
-def phase_entry_points(tkt, slice_trace):
+def phase_entry_points(tkt, slice_trace, keep=None):
     """The entry points a user calls: the bench, the CLI, the system API, the
     reproduction runner, solve_multi_rhs and solve_resumable. Returns the
-    bench run's resident_spmv launches (the kernel's only caller)."""
+    bench run's resident_spmv launches (the kernel's only caller); `keep`
+    takes solve_multi_rhs's lanes for phase 14."""
     from tensorkrylov_tpu_torch import bench
     from tensorkrylov_tpu_torch.__main__ import main as cli
     from tensorkrylov_tpu_torch.experiments.reproduction import run_reproduction
@@ -923,6 +934,8 @@ def phase_entry_points(tkt, slice_trace):
     require(counts.get("banded_spmv", 0) == int(res.niterations.sum()), f"solve_multi_rhs: launches {counts}")
     out["multi_rhs"] = dict(statuses=res.status.tolist(), niterations=res.niterations.tolist(), wall_s=wall,
                             launches=counts, lane0_equals_solve=True)
+    if keep is not None:
+        keep["multi_rhs"] = multi_rhs_lanes(res, wall)
     del mr, x, res
 
     # (f) solve_resumable on the slice's problem with kmax=40: segmented with a checkpoint after
@@ -1860,6 +1873,208 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
     return launched["banded_spmv"], launched["ring_spmv"]
 
 
+# phase 14: the JAX dry run's sharded call forms (__graft_entry__.py:112-165) on shard slots of cuda:0: config 4
+# through solve_block, the slice through solve_two_pass, phase 8's rank-2 input through solve_multi_rhs on a
+# ('rhs', 'factor', 'mode') mesh, and dryrun_multichip itself at its own sizes
+SHARDED_SOLVERS = dict(SOLVERS, multi_rhs_mesh=dict(rhs_parallel=2, factor_parallel=1), multi_rhs_slots=4,
+                       dryrun_slots=8)
+# the two-pass over 4 shards against the unsharded one: steps within one (the JAX dry run's rule,
+# __graft_entry__.py:75-79), x relative to max|x| and the final estimate within 1e-6 relative. The unfused
+# route's b̃_k = ⟨v_k, b⟩ carries the plain recurrence's v_0 drift (its `orthogonality` trace, ~4e-12 at the
+# slice), which another sum order redraws: the estimate may move by d·√k·(drift of both runs)·‖b‖ more, the
+# most that a change of that size in the rank-1 b̃ moves ‖(Σ⊕H) y − b̃‖; λ_min and λ_max (from H alone) hold
+# to SHARDED_TRACE_RTOL
+TWO_PASS_SHARDED_RTOL, TWO_PASS_SHARDED_STEPS = 1e-6, 1
+
+
+def multi_rhs_lanes(res, wall):
+    """solve_multi_rhs's per-lane statuses, steps and traces, on the host."""
+    return dict(status=res.status.tolist(), niterations=res.niterations.tolist(), wall_s=wall,
+                **{f: getattr(res, f).cpu() for f in ("relative_residual", "lambda_min", "lambda_max")})
+
+
+def within(a, r, rtol, atol):
+    """Whether a is r to rtol beside atol at every step r recorded; and the largest relative difference."""
+    a, r = np.asarray(a), np.asarray(r)
+    ok = np.isfinite(r) & (r != 0)
+    return bool(np.all(np.abs(a[ok] - r[ok]) <= atol + rtol * np.abs(r[ok]))), float(
+        np.max(np.abs(a[ok] - r[ok]) / np.abs(r[ok])))
+
+
+def phase_sharded_solvers(tkt, dev=torch.device("cuda", 0), p=SHARDED_SOLVERS, keep=None):
+    """Phase 14: the sharded block, two-pass and multi-RHS solves on shard
+    slots of one device. (a) config 4 through solve_block on SHARDS mode
+    shards, comm='gspmd' (SHARDS banded_spmv launches per block step) and
+    'ring' (one ring launch per block step), each against the unsharded
+    solve_block: the same status and block steps, the traces within
+    SHARDED_TRACE_RTOL beside SHARDED_TRACE_ATOL. (b) the slice through
+    solve_two_pass on ring (one launch per SpMV of both passes) and gspmd
+    (SHARDS per SpMV) against the unsharded solve_two_pass (steps within
+    one, x and the estimate within TWO_PASS_SHARDED_RTOL, the estimate beside
+    the v_0 drift's allowance). (c) phase 8's rank-2 solve_multi_rhs input on
+    a (rhs=2, factor=1, mode=2) mesh: each lane against phase 8's unsharded
+    lane (its status, steps and traces), status of shape (2,). (d)
+    experiments/dryrun_multichip.run on 8 slots: every call of the JAX dry
+    run with its own checks, on a (2, 4) and a (2, 2, 2) mesh. Each path
+    runs with the launch counts set to 0 just before it and read just after;
+    the counts are checked on the card. Returns the phase's (banded_spmv,
+    ring_spmv) launches."""
+    from tensorkrylov_tpu_torch.experiments import dryrun_multichip
+    from tensorkrylov_tpu_torch.ops import _build
+    from tensorkrylov_tpu_torch.parallel import make_mesh, shard_operator, shard_rhs
+
+    t_phase = time.perf_counter()
+    keep = keep if keep is not None else {}
+    on_card = dev.type == "cuda"
+    out, launched = {}, {"banded_spmv": 0, "ring_spmv": 0}
+
+    def count(counts):
+        for name in launched:
+            launched[name] += counts.get(name, 0)
+
+    def expect(counts, want, what):
+        if on_card:
+            require(counts == want, f"sharded_solvers {what}: launches {counts}, want {want}")
+
+    def summary(res, wall, counts):
+        k = res.niterations
+        return dict(status=res.status, niterations=k, wall_s=wall, iterations_per_s=k / wall,
+                    final_rel_residual=float(res.relative_residual[k]), max_memory_allocated=peak_bytes(dev),
+                    launches=counts)
+
+    mesh = make_mesh(devices=[dev] * SHARDS)
+
+    # (a) config 4 through solve_block on SHARDS mode shards, both routes, against the unsharded solve
+    op4, B = config4_problem(tkt, p["block_n"], dev, p)
+    cfg = tkt.SolverConfig(**p["block"])
+    ref, wall, counts = run_solve(tkt, op4, B, cfg, "solve_block")
+    block = dict(d=op4.d, n=op4.n, kappa=p["block_kappa"], rank=p["block_rank"], config=p["block"], shards=SHARDS,
+                 trace_rtol=SHARDED_TRACE_RTOL, trace_atol=SHARDED_TRACE_ATOL,
+                 unsharded=summary(ref, wall, counts))
+    count(counts)
+    ref_status, k_ref = ref.status, ref.niterations
+    ref_traces = {f: getattr(ref, f).cpu().numpy() for f in ("relative_residual", "lambda_min", "lambda_max")}
+    del ref
+    for comm in ("gspmd", "ring"):
+        sop = shard_operator(op4, mesh, comm)
+        res, wall, counts = run_solve(tkt, sop, shard_rhs(B, mesh, op4.d), cfg, "solve_block")
+        k, x = res.niterations, res.x.factors
+        row = summary(res, wall, counts)
+        held = {f: within(getattr(res, f).cpu().numpy(), r, SHARDED_TRACE_RTOL, SHARDED_TRACE_ATOL)
+                for f, r in ref_traces.items()}
+        row["trace_max_rel_diff"] = {f: h[1] for f, h in held.items()}
+        require((res.status, k) == (ref_status, k_ref) and res.status != tkt.Status.BREAKDOWN,
+                f"sharded block {comm}: {res.status}/{k} vs unsharded {ref_status}/{k_ref}")
+        require(all(h[0] for h in held.values()), f"sharded block {comm}: traces differ by {row['trace_max_rel_diff']}")
+        require(tuple(x.shape) == (op4.d, op4.n, cfg.tmax * p["block_rank"]) and bool(torch.isfinite(x).all())
+                and x.device == dev, f"sharded block {comm}: bad solution (shape {tuple(x.shape)}, device {x.device})")
+        # all shards share the card: one ring launch per block step, or one banded_spmv launch per shard and step
+        expect(counts, {"ring_spmv": k} if comm == "ring" else {"banded_spmv": SHARDS * k}, f"block {comm}")
+        count(counts)
+        block[comm] = row
+        del res, x, sop
+    out["block_config4"] = block
+    del op4, B
+
+    # (b) the slice through solve_two_pass on both routes, against the unsharded two-pass
+    op, b = slice_problem(tkt, p["slice_n"], dev)
+    cfg = tkt.SolverConfig(**p["two_pass"])
+    ref, wall, counts = run_solve(tkt, op, b, cfg, "solve_two_pass")
+    two = dict(d=op.d, n=op.n, config=p["two_pass"], shards=SHARDS, rtol=TWO_PASS_SHARDED_RTOL,
+               steps_within=TWO_PASS_SHARDED_STEPS, unsharded=summary(ref, wall, counts))
+    count(counts)
+    kr, x_ref = ref.niterations, ref.x.factors
+    est_ref, xmax = float(ref.relative_residual[kr]), float(x_ref.abs().max())
+    drift_ref = float(ref.orthogonality[1:kr + 1].max())
+    lam_ref = {f: getattr(ref, f).cpu().numpy()[:kr + 1] for f in ("lambda_min", "lambda_max")}
+    del ref
+    for comm in ("ring", "gspmd"):
+        sop = shard_operator(op, mesh, comm)
+        res, wall, counts = run_solve(tkt, sop, shard_rhs(b, mesh), cfg, "solve_two_pass")
+        k, x = res.niterations, res.x.factors
+        est = float(res.relative_residual[k])
+        drift = float(res.orthogonality[1:k + 1].max())
+        allowance = op.d * math.sqrt(max(k, kr)) * (drift + drift_ref)
+        x_diff = float((x - x_ref).abs().max()) / xmax
+        m = min(k, kr) + 1
+        held = {f: within(getattr(res, f).cpu().numpy()[:m], r[:m], SHARDED_TRACE_RTOL, 0.0)
+                for f, r in lam_ref.items()}
+        row = dict(summary(res, wall, counts), x_max_rel_diff=x_diff, final_rel_diff=abs(est - est_ref) / est_ref,
+                   final_abs_diff=abs(est - est_ref), v0_drift=drift, v0_drift_unsharded=drift_ref,
+                   drift_allowance=allowance, lambda_max_rel_diff={f: h[1] for f, h in held.items()})
+        require(res.status == tkt.Status.CONVERGED and abs(k - kr) <= TWO_PASS_SHARDED_STEPS,
+                f"sharded two_pass {comm}: status {res.status} after {k} steps, unsharded {kr}")
+        require(x_diff <= TWO_PASS_SHARDED_RTOL and bool(torch.isfinite(x).all()) and x.device == dev,
+                f"sharded two_pass {comm}: x differs by {x_diff} of max|x|")
+        require(abs(est - est_ref) <= TWO_PASS_SHARDED_RTOL * est_ref + allowance,
+                f"sharded two_pass {comm}: final estimate {est} vs {est_ref} (drift allowance {allowance})")
+        require(all(h[0] for h in held.values()), f"sharded two_pass {comm}: λ traces {row['lambda_max_rel_diff']}")
+        expect(counts, {"ring_spmv": 2 * k} if comm == "ring" else {"banded_spmv": SHARDS * 2 * k},
+               f"two_pass {comm}")
+        count(counts)
+        two[comm] = row
+        del res, x, sop
+    out["two_pass"] = two
+    del x_ref
+
+    # (c) phase 8's rank-2 input through solve_multi_rhs on a (rhs=2, factor=1, mode=2) mesh
+    b2 = tkt.random_rhs(op.d, op.n, seed=1235)
+    B = torch.stack([b, (b2 / torch.linalg.vector_norm(b2, dim=1, keepdim=True)).to(dev)])
+    cfg = tkt.SolverConfig(**CONFIGS["default"])
+    lanes = keep.get("multi_rhs")
+    if lanes is None:   # phase 8 did not run
+        mr, wall, counts = run_solve(tkt, op, B, cfg, "solve_multi_rhs")
+        lanes = multi_rhs_lanes(mr.results, wall)
+        count(counts)
+        del mr
+    mesh3 = make_mesh(devices=[dev] * p["multi_rhs_slots"], **p["multi_rhs_mesh"])
+    mr, wall, counts = run_solve(tkt, op, B, cfg, "solve_multi_rhs", mesh=mesh3)
+    res = mr.results
+    ks = res.niterations.tolist()
+    held = {f: within(getattr(res, f).cpu().numpy(), lanes[f].numpy(), SHARDED_TRACE_RTOL, SHARDED_TRACE_ATOL)
+            for f in ("relative_residual", "lambda_min", "lambda_max")}
+    multi = dict(mesh=mesh3.shape, slots=[str(dev)] * p["multi_rhs_slots"], statuses=res.status.tolist(),
+                 niterations=ks, wall_s=wall, iterations_per_s=sum(ks) / wall, max_memory_allocated=peak_bytes(dev),
+                 launches=counts, unsharded=dict(statuses=lanes["status"], niterations=lanes["niterations"],
+                                                 wall_s=lanes["wall_s"]),
+                 trace_max_rel_diff={f: h[1] for f, h in held.items()}, trace_rtol=SHARDED_TRACE_RTOL,
+                 trace_atol=SHARDED_TRACE_ATOL)
+    require(tuple(res.status.shape) == (2,) and res.status.tolist() == lanes["status"]
+            and ks == lanes["niterations"] and mr.converged,
+            f"multi_rhs on {mesh3.shape}: {res.status.tolist()}/{ks} vs unsharded {lanes['status']}/"
+            f"{lanes['niterations']}")
+    require(all(h[0] for h in held.values()), f"multi_rhs on {mesh3.shape}: traces {multi['trace_max_rel_diff']}")
+    require(tuple(mr.x.factors.shape) == (op.d, op.n, 2 * cfg.tmax) and bool(torch.isfinite(mr.x.factors).all()),
+            f"multi_rhs on {mesh3.shape}: bad solution (shape {tuple(mr.x.factors.shape)})")
+    # each lane over its group's 2 mode shards on the gspmd route: 2 banded_spmv launches per step
+    expect(counts, {"banded_spmv": mesh3.shape["mode"] * sum(ks)}, "multi_rhs")
+    count(counts)
+    out["multi_rhs"] = multi
+    del mr, res, op, b, B
+
+    # (d) the JAX dry run's every call, at its own sizes, on 8 slots
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    t0 = time.perf_counter()
+    try:
+        dry = dryrun_multichip.run([dev] * p["dryrun_slots"])
+    except AssertionError as e:
+        raise Failed(str(e)) from e
+    if on_card:
+        torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, dict(_build.launches)
+    if on_card:
+        require(counts.get("banded_spmv", 0) > 0 and counts.get("ring_spmv", 0) > 0,
+                f"dryrun_multichip: launches {counts}")
+    count(counts)
+    out["dryrun_multichip"] = dict(dry, slots=p["dryrun_slots"], wall_s=wall, max_memory_allocated=peak_bytes(dev),
+                                   launches=counts)
+    emit("sharded_solvers", **out, launches=launched, seconds=time.perf_counter() - t_phase)
+    return launched["banded_spmv"], launched["ring_spmv"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1877,13 +2092,16 @@ def main():
         launches, slice_trace = phase_slice(tkt)
         phase_card_vs_cpu(tkt)
         launches["resident_lanczos"] = phase_host_projected(tkt)
-        launches["resident_spmv"] = phase_entry_points(tkt, slice_trace)
+        shared = {}
+        launches["resident_spmv"] = phase_entry_points(tkt, slice_trace, keep=shared)
         ring_launches, ring_times, worst["ring_spmv"] = phase_sharded(tkt)
         phase_solvers(tkt)
-        shared = {}
         launches["banded_spmv"] += phase_deflated(tkt, keep=shared)
         launches["banded_spmv"] += phase_recorded(tkt, keep=shared)
         banded, ring = phase_sharded_deflated(tkt, keep=shared)
+        launches["banded_spmv"] += banded
+        ring_launches["ring_spmv"] += ring
+        banded, ring = phase_sharded_solvers(tkt, keep=shared)
         launches["banded_spmv"] += banded
         ring_launches["ring_spmv"] += ring
     except Failed as e:

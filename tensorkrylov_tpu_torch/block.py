@@ -16,6 +16,15 @@ subspace per factor, K_k(A_s, [b_{s,1} … b_{s,R}]):
 
 As in ``solve``, the iteration is a host loop on the operator's device, the
 projected stage every ``check_every`` block steps.
+
+The steps are written once, over shard pieces (``parallel/krylov.py``): with
+a ``ShardedOperator`` the basis is per-shard slabs ``(Kb, d_f, n_local)`` and
+B its pieces ``(R, d_f, n_local)``; the block's SpMV is the sharded one of
+op.comm, every n-sized sum (the CGS2 coefficients, the norms, the b̃ rows,
+b's Gram) a per-piece partial summed by ``psum`` on the lead device, where
+H, b̃ and the projected stage live; the lucky restart takes each piece's
+columns of the whole. x_s = V_sᵀ Y_s runs per shard and is gathered. One
+piece runs the unsharded operations, bit for bit.
 """
 from __future__ import annotations
 
@@ -25,90 +34,94 @@ from typing import Optional, Tuple
 import torch
 
 from .coeffs.tables import BHTables, load_tables
-from .ops.banded import spmv
-from .ops.orth import (_TINY, KrylovState, _acc_dtype, _breakdown, _project_coeffs, _replace_lucky, _sqrt_rn,
-                       _subtract_span, bdot)
-from .solver import _check_identical_factors, _new_history, _record_check, _resolve_config, _result, projected_step
-from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
+from .ops.orth import _TINY, KrylovState, _acc_dtype, _breakdown, _dot, _project, _replace_lucky, _sqrt_rn, _subtract
+from .parallel.krylov import like, norms, pieces, psum, scatter, spmv_pieces
+from .solver import (_check_block, _check_identical_factors, _lift_pieces, _new_history, _record_check,
+                     _resolve_config, _result, projected_step)
+from .types import CPTensor, SolveResult, SolverConfig, Status
 
 __all__ = ["solve_block", "block_krylov_step", "init_block_state"]
 
 
-def _orthonormalize_column(V, u, c, B, proj_dtype):
-    """CGS2 of u (d, n) against the basis columns < c. Returns the coefficient
-    column (d, c), the new unit vector in the compute dtype (the restart where
-    it vanished), its norm (0 on breakdown) and the new b̃ row ⟨q, b_r⟩ (d, R)."""
-    acc = _acc_dtype(V.dtype, proj_dtype)
-    u = u.to(acc)
-    w1 = _project_coeffs(V, u, c, proj_dtype)
-    u = _subtract_span(V, u, w1, c)
-    w2 = _project_coeffs(V, u, c, proj_dtype)
-    u = _subtract_span(V, u, w2, c)
+def _orthonormalize_column(op, V, u, c, B, proj_dtype):
+    """CGS2 of u (d, n) against the basis columns < c, over pieces (V, u and
+    B lists of per-piece tensors). Returns the coefficient column (d, c), the
+    new unit vector's pieces in the compute dtype (the restart where it
+    vanished), its norm (0 on breakdown) and the new b̃ row ⟨q, b_r⟩ (d, R)."""
+    acc = _acc_dtype(V[0].dtype, proj_dtype)
+    u = [x.to(acc) for x in u]
+    w1 = _project(op, V, u, c, proj_dtype)
+    u = _subtract(op, V, u, w1, c)
+    w2 = _project(op, V, u, c, proj_dtype)
+    u = _subtract(op, V, u, w2, c)
     h = w1 + w2
 
-    h_new = _sqrt_rn(bdot(u, u).to(proj_dtype))
+    h_new = _sqrt_rn(_dot(op, u, u).to(proj_dtype))
     h_new, lucky, safe = _breakdown(h_new, torch.sum(torch.abs(h), dim=1) + _TINY, acc)
-    q = u / safe.to(acc)[:, None]
+    q = [x / sf.to(acc)[:, None] for x, sf in zip(u, scatter(op, safe))]
     if bool(lucky.any()):
-        q = _replace_lucky(None, [V], [q], lucky, c, proj_dtype)[0]
-    bt_row = torch.einsum("dn,rdn->dr", q, B.to(acc)).to(proj_dtype)
+        q = _replace_lucky(op, V, q, lucky, c, proj_dtype)
+    bt_row = psum(op, [torch.einsum("dn,rdn->dr", qi, Bi.to(acc)) for qi, Bi in zip(q, B)]).to(proj_dtype)
     return h, q, h_new, bt_row
 
 
-def init_block_state(op: KroneckerSumOperator, B: torch.Tensor, kmax: int, R: int, proj_dtype,
-                     basis_dtype=None) -> Tuple[KrylovState, torch.Tensor]:
+def init_block_state(op, B, kmax: int, R: int, proj_dtype, basis_dtype=None) -> Tuple[KrylovState, torch.Tensor]:
     """Orthonormalize the R starting vectors of every factor into V[0:R] and
     record their b̃ rows; returns (state, ‖b‖ of the whole rank-R RHS).
 
     State layout: V (Kb, d, n), H (d, Kb, Kb), b̃ (d, Kb, R), Kb = (kmax+1)·R.
+    op and B: a KroneckerSumOperator and (R, d, n), or a ShardedOperator and
+    B's pieces (R, d_f, n_local) (state.V is then the per-shard slabs).
     """
-    d, n = B.shape[1], B.shape[2]
     Kb = (kmax + 1) * R
     dtype = basis_dtype if basis_dtype is not None else op.dtype
     acc = _acc_dtype(dtype, proj_dtype)
-    B = B.to(acc)
-    V = torch.zeros((Kb, d, n), dtype=dtype, device=B.device)
-    H = torch.zeros((d, Kb, Kb), dtype=proj_dtype, device=B.device)
-    btil = torch.zeros((d, Kb, R), dtype=proj_dtype, device=B.device)
+    Bs = [x.to(acc) for x in pieces(B)]
+    V = [torch.zeros((Kb,) + tuple(x.shape[1:]), dtype=dtype, device=x.device) for x in Bs]
+    Gb = psum(op, [torch.einsum("rdn,qdn->drq", x, x) for x in Bs]).to(proj_dtype)
+    lead = Gb.device
+    H = torch.zeros((op.d, Kb, Kb), dtype=proj_dtype, device=lead)
+    btil = torch.zeros((op.d, Kb, R), dtype=proj_dtype, device=lead)
     for r in range(R):
-        _, q, _, bt_row = _orthonormalize_column(V, B[r], r, B, proj_dtype)
-        V[r] = q.to(dtype)
+        _, q, _, bt_row = _orthonormalize_column(op, V, [x[r] for x in Bs], r, Bs, proj_dtype)
+        for Vi, qi in zip(V, q):
+            Vi[r] = qi.to(dtype)
         btil[:, r, :] = bt_row
-    Gb = torch.einsum("rdn,qdn->drq", B, B).to(proj_dtype)
     b_norm = torch.sqrt(torch.clamp(torch.sum(torch.prod(Gb, dim=0)), min=0.0))
-    return KrylovState(V, H, btil, torch.zeros((d,), dtype=proj_dtype, device=B.device)), b_norm
+    return KrylovState(like(B, V), H, btil, torch.zeros((op.d,), dtype=proj_dtype, device=lead)), b_norm
 
 
-def block_krylov_step(op: KroneckerSumOperator, state: KrylovState, B: torch.Tensor, k: int, R: int, *,
-                      proj_dtype) -> KrylovState:
+def block_krylov_step(op, state: KrylovState, B, k: int, R: int, *, proj_dtype) -> KrylovState:
     """Block step k: basis columns [kR, (k+1)R) from A times block k−1, one
-    banded SpMV of (d, R, n), then R column-sequential CGS2 passes against the
-    whole prefix. H, V and b̃ are written in place."""
+    SpMV of (d, R, n) (over pieces: the sharded SpMV of (d_f, R, n_local)),
+    then R column-sequential CGS2 passes against the whole prefix. H, V and
+    b̃ are written in place."""
     V, H, btil, _ = state
+    Vs, Bs = pieces(V), pieces(B)
     kc = k * R
-    acc = _acc_dtype(V.dtype, proj_dtype)
-    U = spmv(op, V[kc - R:kc].to(acc).transpose(0, 1).contiguous())     # (d, R, n)
+    acc = _acc_dtype(Vs[0].dtype, proj_dtype)
+    U = spmv_pieces(op, [Vi[kc - R:kc].to(acc).transpose(0, 1).contiguous() for Vi in Vs])     # (d, R, n)
     for r in range(R):
         c = kc + r
-        hcol, q, h_new, bt_row = _orthonormalize_column(V, U[:, r, :], c, B, proj_dtype)
+        hcol, q, h_new, bt_row = _orthonormalize_column(op, Vs, [Ui[:, r, :] for Ui in U], c, Bs, proj_dtype)
         # H column c − R: the CGS coefficients and the norm at row c
         H[:, :c, c - R] = hcol
         H[:, c, c - R] = h_new
-        V[c] = q.to(V.dtype)
+        for Vi, qi in zip(Vs, q):
+            Vi[c] = qi.to(Vi.dtype)
         btil[:, c, :] = bt_row
     return KrylovState(V, H, btil, state.beta)
 
 
-def _solve_block(op: KroneckerSumOperator, B: torch.Tensor, tables: Optional[BHTables], config: SolverConfig,
-                 R: int) -> SolveResult:
-    d, n = B.shape[1], B.shape[2]
+def _solve_block(op, B, tables: Optional[BHTables], config: SolverConfig, R: int) -> SolveResult:
+    d, n = op.d, op.n
     K = config.kmax + 1
     pdt = config.proj_dtype
     dev = op.device
     op_c = op.astype(_acc_dtype(config.basis_dtype, pdt))
     state, b_norm = init_block_state(op_c, B, config.kmax, R, pdt, config.basis_dtype)
     # per-term RHS norms for the drift probe: (d, 1, R)
-    Bn = torch.linalg.vector_norm(B.to(pdt), dim=2).transpose(0, 1)[:, None, :] + _TINY
+    Bn = norms(op, [x.to(pdt).transpose(0, 1) for x in pieces(B)], dim=2)[:, None, :] + _TINY
 
     weights = torch.zeros((config.tmax * R,), dtype=pdt, device=dev)
     Y = torch.zeros((d, K * R, config.tmax * R), dtype=pdt, device=dev)
@@ -130,13 +143,11 @@ def _solve_block(op: KroneckerSumOperator, B: torch.Tensor, tables: Optional[BHT
         k += 1
 
     niter = k - 1
-    m = (niter + 1) * R   # the basis columns built; the rest of V is zero
-    return _result(CPTensor(weights, torch.bmm(state.V[:m].to(pdt).permute(1, 2, 0), Y[:, :m])), status, niter, h,
-                   config)
+    # the basis columns built, (niter + 1)·R; the rest of V is zero
+    return _result(CPTensor(weights, _lift_pieces(op, state.V, Y, (niter + 1) * R - 1)), status, niter, h, config)
 
 
-def solve_block(op: KroneckerSumOperator, B, config: Optional[SolverConfig] = None,
-                tables: Optional[BHTables] = None) -> SolveResult:
+def solve_block(op, B, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None) -> SolveResult:
     """Solve A x = b for a rank-R RHS b = Σ_r ⊗_s B[r, s] in one shared block
     Krylov subspace (global tensorized Krylov), on the operator's device.
 
@@ -146,13 +157,17 @@ def solve_block(op: KroneckerSumOperator, B, config: Optional[SolverConfig] = No
     Returns a SolveResult whose x is a rank-(tmax·R) CPTensor;
     relative_residual is that of the whole rank-R system. `kmax` counts block
     iterations (each adds R basis vectors per factor).
+
+    op may be a ShardedOperator (the JAX dry run's
+    ``solve_block(shard_operator(op, mesh), B_sharded, cfg)``): B whole (it
+    is split) or its pieces, ``shard_rhs(B, mesh, d)``; the block steps run
+    over the pieces, the projected stage on the lead device, and x is
+    gathered there.
     """
     config = _resolve_config(config or SolverConfig(), op)
-    B = torch.as_tensor(B, device=op.device)
-    if B.dim() != 3 or B.shape[1] != op.d or B.shape[2] != op.n:
-        raise ValueError(f"B must be (R, d, n) = (R, {op.d}, {op.n}), got {tuple(B.shape)}")
+    B = _check_block(op, B)
     _check_identical_factors(config, op, B)
-    R = B.shape[0]
+    R = pieces(B)[0].shape[0]
     if not op.symmetric and config.orth != "arnoldi":
         raise ValueError("nonsymmetric operators require orth='arnoldi'")
     if config.spectral_source == "analytic_laplace":

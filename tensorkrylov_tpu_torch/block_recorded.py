@@ -44,6 +44,7 @@ from .df64_core import (BAND_CHARGE_SCALE, _band_rounding, _deflation_residual, 
                         pair_value)
 from .ops import expansion as ex
 from .ops.orth import _TINY
+from .parallel.sharding import ShardedOperator
 from .types import CPTensor, KroneckerSumOperator, SolverConfig, Status
 from .utils.cp import cp_residual_cross_check_device, cp_residual_cross_check_host_rankR
 
@@ -384,6 +385,10 @@ def solve_block_recorded(
     It needs a shared deflation basis (identical factors).
     """
     config = config or SolverConfig()
+    if isinstance(op, ShardedOperator):
+        raise NotImplementedError(
+            "solve_block_recorded has no mesh: the JAX package's has none either (VERDICT r5's one open gap); "
+            "run it on the unsharded operator, or solve_block(sop, B) for the uncertified sharded block solve")
     dev = op.device
     B = torch.as_tensor(B)
     if B.dim() != 3 or B.shape[1] != op.d or B.shape[2] != op.n:

@@ -61,7 +61,7 @@ from .ops.expsum import cp_solve_sym
 from .ops.gram import residual_norm_sq
 from .ops.orth import deflation_coeffs, deflation_subtract
 from .parallel.krylov import like, pieces, scatter, whole
-from .parallel.sharding import _split, shard_basis, shard_operator, shard_rhs
+from .parallel.sharding import ShardedOperator, _split, shard_basis, shard_operator, shard_rhs
 from .types import CPTensor, KroneckerSumOperator, SolverConfig, Status
 from .utils.cp import cp_residual_cross_check_device, cp_residual_cross_check_host
 
@@ -740,6 +740,10 @@ def solve_deflated(
     (cp_residual_cross_check_host) on the CPU; for df64, where final says.
     """
     config = config or SolverConfig()
+    if isinstance(op, ShardedOperator):
+        raise ValueError("solve_deflated shards the problem itself (b's split and the basis need the whole "
+                         "operator): call solve_deflated(op, b, mesh=sop.mesh, comm=sop.comm) with the unsharded "
+                         "operator")
     if mesh is not None and op.device != mesh.lead:
         op = KroneckerSumOperator(op.bands.to(mesh.lead), op.offsets, op.symmetric)
     dev = op.device

@@ -33,7 +33,7 @@ from .ops.orth import (_TINY, _auto_threshold, _breakdown, _deflate, _dot, _drif
                        _subtract, bdot, deflation_project)
 from .parallel.krylov import like, norms, pieces, psum, scatter, spmv_pieces
 
-__all__ = ["Pass2Audit"]
+__all__ = ["Pass2Audit", "accumulate_replay"]
 
 
 @dataclasses.dataclass
@@ -202,27 +202,25 @@ class Pass2Audit(NamedTuple):
     beta_rel_dev: float
 
 
-def _pass2_accumulate(op, b_perp, U, od, Yv, k_done: int, n_probes: int = 0,
-                      project_every: int = 1):
-    """Pass 2 on the device: rerun the recurrence with β replayed from the
-    recorded od and accumulate X[s, :, j] = Σ_k v_k[s]·Yv[s, k, j] for
-    k = 0..k_done. Probe slots fill every ⌈K/n_probes⌉ steps, after the
-    vector's own dot, so a vector is never audited against itself. Over
-    pieces (op a ShardedOperator) X is per piece, (d_f, n_local, t), and the
-    probes' dots are summed by psum; the audit is on the lead device."""
-    K = od.shape[1]
-    st = _init_state(b_perp, K, op)
-    st.od = od
-    Yvs = scatter(op, Yv)
-    X = [v[:, :, None] * y[:, 0, None, :] for v, y in zip(pieces(st.vp), Yvs)]
+def accumulate_replay(op, v0, Y, k_done: int, regenerate, n_probes: int = 0, K=None):
+    """A pass 2's lift over pieces: X[s, :, j] = Σ_k v_k[s]·Y[s, k, j] for
+    k = 0..k_done, with v_k = regenerate(k) (its pieces) for k ≥ 1, X per
+    piece (d_f, n_local, t). With n_probes, a bank of that many vectors
+    sampled every ⌈K/n_probes⌉ steps, each filled after the vector's own dot
+    so that a vector is never audited against itself, and the largest
+    |⟨v_k, p⟩| (psum over pieces) on the lead device. Returns (X's pieces,
+    that maximum or None). The deflated replay (_pass2_accumulate) and the
+    two-pass solve's (twopass._lift_pass2) both accumulate here."""
+    Ys = scatter(op, Y)
+    X = [v[:, :, None] * y[:, 0, None, :] for v, y in zip(pieces(v0), Ys)]
     np_ = max(int(n_probes), 0)
     stride = max(1, -(-K // np_)) if np_ else 1
-    probes = [torch.empty((np_,) + tuple(v.shape), dtype=v.dtype, device=v.device) for v in pieces(st.vp)]
+    probes = [torch.empty((np_,) + tuple(v.shape), dtype=v.dtype, device=v.device) for v in pieces(v0)]
     filled = 0
-    gmax = torch.zeros((), dtype=od.dtype, device=od.device)
+    gmax = torch.zeros((), dtype=Y.dtype, device=Y.device) if np_ else None
     for k in range(1, int(k_done) + 1):
-        v = pieces(_step(op, st, b_perp, U, k, project_every=project_every, replay=True))
-        for Xi, vi, y in zip(X, v, Yvs):
+        v = pieces(regenerate(k))
+        for Xi, vi, y in zip(X, v, Ys):
             Xi.addcmul_(vi[:, :, None], y[:, k, None, :])
         if filled:
             g = psum(op, [torch.einsum("pdn,dn->pd", p[:filled], vi) for p, vi in zip(probes, v)])
@@ -231,7 +229,23 @@ def _pass2_accumulate(op, b_perp, U, od, Yv, k_done: int, n_probes: int = 0,
             for p, vi in zip(probes, v):
                 p[filled] = vi
             filled += 1
-    return like(b_perp, X), Pass2Audit(float(gmax), float(st.beta_dev))
+    return X, gmax
+
+
+def _pass2_accumulate(op, b_perp, U, od, Yv, k_done: int, n_probes: int = 0,
+                      project_every: int = 1):
+    """Pass 2 on the device: rerun the recurrence with β replayed from the
+    recorded od and accumulate X[s, :, j] = Σ_k v_k[s]·Yv[s, k, j] for
+    k = 0..k_done (accumulate_replay), with its probe audit. Over pieces (op
+    a ShardedOperator) X is per piece, (d_f, n_local, t); the audit is on the
+    lead device."""
+    K = od.shape[1]
+    st = _init_state(b_perp, K, op)
+    st.od = od
+    X, gmax = accumulate_replay(op, st.vp, Yv, k_done,
+                                lambda k: _step(op, st, b_perp, U, k, project_every=project_every, replay=True),
+                                n_probes, K)
+    return like(b_perp, X), Pass2Audit(0.0 if gmax is None else float(gmax), float(st.beta_dev))
 
 
 def _pass2_host(bands, offsets, b_perp, U, od, Yv, k_done: int, project_every: int = 1, n_probes: int = 16,

@@ -75,6 +75,17 @@ def bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...n,...n->...", a, b)
 
 
+def unit_start(op, bs: List[torch.Tensor], proj_dtype) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """v_0 = b_s/‖b_s‖ over pieces bs (in the compute dtype): (v_0's pieces,
+    ‖b_s‖ (d,), ⟨v_0, b_s⟩ (d,)), the sums in the fused kernel's fixed order.
+    A recurrence that is not reorthogonalized amplifies their rounding, so
+    every solve that starts a Lanczos recurrence (init_state, the two-pass
+    solve's two passes) starts here, from the same bits on every device."""
+    b_norms = _sqrt_rn(psum(op, [fixed_order_sum(x * x) for x in bs])).to(proj_dtype)
+    v0 = [x / nrm[:, None] for x, nrm in zip(bs, scatter(op, b_norms.to(bs[0].dtype)))]
+    return v0, b_norms, psum(op, [fixed_order_sum(v * x) for v, x in zip(v0, bs)]).to(proj_dtype)
+
+
 def init_state(op, b, kmax: int, proj_dtype, basis_dtype=None) -> Tuple[KrylovState, torch.Tensor]:
     """Normalize b per factor into V[0]; returns (state, b_norms (d,)).
     op and b: a KroneckerSumOperator and (d, n), or a ShardedOperator and
@@ -83,12 +94,7 @@ def init_state(op, b, kmax: int, proj_dtype, basis_dtype=None) -> Tuple[KrylovSt
     K = kmax + 1
     dtype = basis_dtype if basis_dtype is not None else op.dtype
     acc = _acc_dtype(dtype, proj_dtype)
-    bs = [x.to(acc) for x in bs]
-    # the start's sums in the fused kernel's fixed order: a recurrence that is
-    # not reorthogonalized amplifies their rounding, so it must start from the
-    # same bits on every device
-    b_norms = _sqrt_rn(psum(op, [fixed_order_sum(x * x) for x in bs])).to(proj_dtype)
-    v0 = [x / nrm[:, None] for x, nrm in zip(bs, scatter(op, b_norms.to(acc)))]
+    v0, b_norms, bt0 = unit_start(op, [x.to(acc) for x in bs], proj_dtype)
     V = []
     for x, v in zip(bs, v0):
         Vi = torch.zeros((K,) + tuple(x.shape), dtype=dtype, device=x.device)
@@ -97,7 +103,7 @@ def init_state(op, b, kmax: int, proj_dtype, basis_dtype=None) -> Tuple[KrylovSt
     lead = b_norms.device
     H = torch.zeros((op.d, K, K), dtype=proj_dtype, device=lead)
     btil = torch.zeros((op.d, K), dtype=proj_dtype, device=lead)
-    btil[:, 0] = psum(op, [fixed_order_sum(v * x) for v, x in zip(v0, bs)]).to(proj_dtype)
+    btil[:, 0] = bt0
     beta = torch.zeros((op.d,), dtype=proj_dtype, device=lead)
     return KrylovState(like(b, V), H, btil, beta), b_norms
 

@@ -210,7 +210,7 @@ def make_halo_spmv(mesh: Mesh, offsets: Tuple[int, ...], comm: str = "ring"):
     def fn(bands: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         if cache.get("bands") is not bands:
             cache.update(bands=bands, sop=shard_operator(KroneckerSumOperator(bands, tuple(offsets)), mesh, comm))
-        return gather(spmv_sharded(cache["sop"], shard_rhs(v, mesh, bands.shape[0])), mesh)
+        return gather(spmv_sharded(cache["sop"], shard_rhs(v, mesh, bands.shape[0], factor_axis=0)), mesh)
 
     return fn
 

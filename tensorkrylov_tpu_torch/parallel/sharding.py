@@ -18,7 +18,10 @@ shard has a side stream for its halo copies (a peer copy across cards).
     the JAX package would replicate it over the factor axis.
 
 The k-sized projected stage runs on the lead device (the first slot), as the
-JAX package replicates it.
+JAX package replicates it. A mesh may carry an 'rhs' axis over its grid
+(``make_mesh(rhs_parallel=G)``): G groups, each a ('factor', 'mode') grid of
+its own, over which solve_multi_rhs spreads its right-hand sides; an operator
+or a vector is split over one grid.
 """
 from __future__ import annotations
 
@@ -32,27 +35,36 @@ from ..ops import _build
 from ..ops.ring_spmv import RingLaunch, halo_width
 from ..types import KroneckerSumOperator, SolveResult, SolverConfig
 
-__all__ = ["Mesh", "Shard", "ShardedOperator", "make_mesh", "shard_operator", "shard_rhs", "shard_basis", "gather",
-           "solve_sharded"]
+__all__ = ["Mesh", "Shard", "ShardedOperator", "make_mesh", "shard_operator", "shard_rhs", "rhs_pieces", "shard_basis",
+           "gather", "solve_sharded"]
 
 COMMS = ("gspmd", "ring")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (factor_parallel, n_mode) grid of shard slots."""
+    """A (factor_parallel, n_mode) grid of shard slots; with rhs groups, a
+    ('rhs', 'factor', 'mode') mesh: groups[g] is rhs group g's grid, and
+    devices is group 0's. A solve shards over one grid: rhs_groups() gives
+    each group's grid as a mesh of its own (solver.solve_multi_rhs)."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
-    axis_names: Tuple[str, str] = ("factor", "mode")
+    axis_names: Tuple[str, ...] = ("factor", "mode")
+    groups: Tuple[Tuple[Tuple[torch.device, ...], ...], ...] = ()
 
     @property
     def shape(self) -> dict:
-        return {"factor": len(self.devices), "mode": len(self.devices[0])}
+        grid = {"factor": len(self.devices), "mode": len(self.devices[0])}
+        return {"rhs": len(self.groups), **grid} if self.groups else grid
 
     @property
     def lead(self) -> torch.device:
         """Where the replicated projected stage and the gathered results live."""
         return self.devices[0][0]
+
+    def rhs_groups(self) -> Tuple["Mesh", ...]:
+        """Each rhs group's ('factor', 'mode') grid as a mesh; a 2-D mesh is its own one group."""
+        return tuple(Mesh(grid) for grid in self.groups) if self.groups else (self,)
 
 
 def _normalize(dev) -> torch.device:
@@ -64,11 +76,15 @@ def _normalize(dev) -> torch.device:
     return dev
 
 
-def make_mesh(n_devices: Optional[int] = None, factor_parallel: int = 1, devices: Optional[Sequence] = None) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, factor_parallel: int = 1, devices: Optional[Sequence] = None,
+              rhs_parallel: int = 1) -> Mesh:
     """A ('factor', 'mode') mesh of the first n_devices of devices, which
     default to every CUDA device and may repeat:
     ``make_mesh(devices=[torch.device("cuda:0")] * 4)`` is 4 mode shards on
-    one card, ``make_mesh(devices=[torch.device("cpu")] * 8)`` 8 on the CPU."""
+    one card, ``make_mesh(devices=[torch.device("cpu")] * 8)`` 8 on the CPU.
+    rhs_parallel > 1 makes a ('rhs', 'factor', 'mode') mesh of that many rhs
+    groups, each a (factor_parallel, n_mode) grid of consecutive devices (the
+    JAX dry run's ``Mesh(grid.reshape(2, 2, P), ('rhs', 'factor', 'mode'))``)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass devices=[torch.device('cpu')] * P for a mesh on the CPU")
@@ -77,13 +93,30 @@ def make_mesh(n_devices: Optional[int] = None, factor_parallel: int = 1, devices
     n_devices = len(devices) if n_devices is None else n_devices
     if not 1 <= n_devices <= len(devices):
         raise ValueError(f"n_devices={n_devices} but {len(devices)} devices were given")
-    if factor_parallel < 1 or n_devices % factor_parallel:
-        raise ValueError(f"factor_parallel={factor_parallel} does not divide n_devices={n_devices}")
+    if rhs_parallel < 1 or n_devices % rhs_parallel:
+        raise ValueError(f"rhs_parallel={rhs_parallel} does not divide n_devices={n_devices}")
+    per_group = n_devices // rhs_parallel
+    if factor_parallel < 1 or per_group % factor_parallel:
+        raise ValueError(f"factor_parallel={factor_parallel} does not divide the {per_group} devices of an rhs group")
     devices = devices[:n_devices]
     if len({dev.type for dev in devices}) > 1:
         raise ValueError(f"a mesh is all cpu or all cuda, got {sorted({str(dev) for dev in devices})}")
-    P = n_devices // factor_parallel
-    return Mesh(tuple(tuple(devices[g * P:(g + 1) * P]) for g in range(factor_parallel)))
+    P = per_group // factor_parallel
+    grids = tuple(tuple(tuple(devices[(r * factor_parallel + g) * P:(r * factor_parallel + g + 1) * P])
+                        for g in range(factor_parallel)) for r in range(rhs_parallel))
+    if rhs_parallel == 1:
+        return Mesh(grids[0])
+    return Mesh(grids[0], ("rhs", "factor", "mode"), grids)
+
+
+def _grid(mesh: Mesh) -> Mesh:
+    """mesh itself where it is one ('factor', 'mode') grid; a mesh with rhs
+    groups raises: an operator or a vector is split over one group's grid."""
+    if mesh.groups:
+        raise ValueError(f"a mesh with rhs groups {mesh.shape} splits the right-hand sides: solve_multi_rhs(op, B, "
+                         f"mesh=mesh) runs each group on its own grid; split an operator over one of "
+                         f"mesh.rhs_groups()")
+    return mesh
 
 
 def _factor_groups(mesh: Mesh, d: int) -> List[Tuple[int, int]]:
@@ -143,6 +176,28 @@ class ShardedOperator:
     def device(self) -> torch.device:
         return self.mesh.lead
 
+    def astype(self, dtype) -> "ShardedOperator":
+        """The same split with every shard's bands in dtype (on the ring
+        route the cards' launches are made again for them)."""
+        if dtype == self.dtype:
+            return self
+        shards = tuple(dataclasses.replace(sh, op=sh.op.astype(dtype)) for sh in self.shards)
+        return dataclasses.replace(self, shards=shards, ring=_ring_launches(shards) if self.ring else (),
+                                   halo_buffers={})
+
+    def leading_bands(self, cols: int) -> torch.Tensor:
+        """The operator's bands at columns [0, cols), (d, nb, cols) on the lead
+        device, from the shards that hold them (a gspmd shard's own columns
+        sit at [H, H + n_local) of its slab)."""
+        H = self.halo if self.comm == "gspmd" else 0
+        P = self.n_mode
+        rows = []
+        for g in range(len(self.shards) // P):
+            parts = [sh.op.bands[..., H:H + min(sh.cols[1], cols) - sh.cols[0]].to(self.device)
+                     for sh in self.shards[g * P:(g + 1) * P] if sh.cols[0] < cols]
+            rows.append(torch.cat(parts, dim=-1))
+        return torch.cat(rows)
+
 
 def _split(x: torch.Tensor, mesh: Mesh, d: int, factor_axis: int = 0) -> List[torch.Tensor]:
     """x's factor axis over the factor groups and its last axis over the mode
@@ -181,7 +236,7 @@ def shard_operator(op: KroneckerSumOperator, mesh: Mesh, comm: str = "gspmd") ->
     where the card cannot; 'gspmd' gives each CUDA shard a side stream."""
     if comm not in COMMS:
         raise ValueError(f"comm must be 'gspmd' or 'ring', got {comm!r}")
-    P, H = mesh.shape["mode"], halo_width(op.offsets)
+    P, H = _grid(mesh).shape["mode"], halo_width(op.offsets)
     if op.n % P:
         raise ValueError(f"n={op.n} is not a multiple of the {P} mode shards")
     nl = op.n // P
@@ -199,20 +254,55 @@ def shard_operator(op: KroneckerSumOperator, mesh: Mesh, comm: str = "gspmd") ->
             side = torch.cuda.Stream(device=dev) if dev.type == "cuda" and comm == "gspmd" else None
             shards.append(Shard(dev, (s0, s1), (c0, c0 + nl), KroneckerSumOperator(mine, op.offsets, op.symmetric),
                                 side))
-    ring = ()
-    if comm == "ring" and shards[0].device.type == "cuda":
-        cards = {}
-        for q, sh in enumerate(shards):
-            cards.setdefault(sh.device, []).append(q)
-        ring = tuple((dev, tuple(qs), RingLaunch([shards[q].op for q in qs])) for dev, qs in cards.items())
+    ring = _ring_launches(shards) if comm == "ring" and shards[0].device.type == "cuda" else ()
     return ShardedOperator(mesh, tuple(shards), op.offsets, op.symmetric, op.d, op.n, comm, ring)
 
 
-def shard_rhs(b: torch.Tensor, mesh: Mesh, d: Optional[int] = None) -> List[torch.Tensor]:
-    """b (d, …, n) split as shard_operator splits the bands: one piece per
-    shard, (d_f, …, n / n_mode) on its device."""
+def _ring_launches(shards: Sequence[Shard]) -> Tuple[Tuple[torch.device, Tuple[int, ...], RingLaunch], ...]:
+    """Each card's (device, shard indices, RingLaunch of their bands)."""
+    cards = {}
+    for q, sh in enumerate(shards):
+        cards.setdefault(sh.device, []).append(q)
+    return tuple((dev, tuple(qs), RingLaunch([shards[q].op for q in qs])) for dev, qs in cards.items())
+
+
+def shard_rhs(b: torch.Tensor, mesh: Mesh, d: Optional[int] = None,
+              factor_axis: Optional[int] = None) -> List[torch.Tensor]:
+    """b (d, …, n), or a rank-R block right-hand side (R, d, n), split as
+    shard_operator splits the bands: one piece per shard, (d_f, …, n / n_mode)
+    or (R, d_f, n / n_mode) on its device. With d given, a 3-D b whose axis
+    1 has d entries is a block and splits over factor axis 1, so that
+    ``shard_rhs(B, mesh, d)`` serves solve_block on any mesh; otherwise the
+    factor axis is 0 (d defaults to b's axis 0). Pass factor_axis=0 for a
+    (d, m, n) stack with m = d."""
     b = torch.as_tensor(b)
-    return _split(b, mesh, d or b.shape[0])
+    if factor_axis is None:
+        factor_axis = 1 if d is not None and b.dim() == 3 and b.shape[1] == d else 0
+    return _split(b, _grid(mesh), d or b.shape[0], factor_axis)
+
+
+def rhs_pieces(sop: ShardedOperator, b, block: bool = False) -> List[torch.Tensor]:
+    """A solver's right-hand side over sop: b whole, (d, n) or, for a block,
+    (R, d, n), is split as shard_rhs splits it; b given as pieces (a list)
+    is checked against the shards: (d_f, n_local), or (R, d_f, n_local), on
+    each shard's device."""
+    lead = "R, " if block else ""
+    if isinstance(b, (list, tuple)):
+        ps = list(b)
+        extra = tuple(ps[0].shape[:1]) if block and ps else ()
+        want = [extra + (sh.factors[1] - sh.factors[0], sh.cols[1] - sh.cols[0]) for sh in sop.shards]
+        got = [tuple(x.shape) for x in ps]
+        if got != want or any(x.device != sh.device for x, sh in zip(ps, sop.shards)):
+            hint = " (a block B (R, d, n): shard_rhs(B, mesh, d))" if block else ""
+            raise ValueError(f"b's pieces must be ({lead}d_f, n_local) on their shards' devices, {want} on "
+                             f"{[str(sh.device) for sh in sop.shards]}; got {got} on "
+                             f"{[str(x.device) for x in ps]}{hint}")
+        return ps
+    b = torch.as_tensor(b, device=sop.device)
+    fa = 1 if block else 0
+    if b.dim() != 2 + fa or b.shape[fa] != sop.d or b.shape[-1] != sop.n:
+        raise ValueError(f"b must be ({lead}d, n) = ({lead}{sop.d}, {sop.n}), got {tuple(b.shape)}")
+    return _split(b, sop.mesh, sop.d, fa)
 
 
 def shard_basis(U: torch.Tensor, mesh: Mesh, d: int) -> List[torch.Tensor]:
@@ -220,7 +310,7 @@ def shard_basis(U: torch.Tensor, mesh: Mesh, d: int) -> List[torch.Tensor]:
     splits b: n over the mode shards and, for distinct factors (d, n, m), d
     over the factor groups; a shared U (1, n, m) goes to every group whole
     in its factor axis. One piece (1 | d_f, n / n_mode, m) per shard."""
-    P = mesh.shape["mode"]
+    P = _grid(mesh).shape["mode"]
     n = U.shape[1]
     if n % P:
         raise ValueError(f"n={n} is not a multiple of the {P} mode shards")

@@ -16,7 +16,9 @@ cycle in rep_condition; refinement stalls (and keeps the best iterate) once
 κ_rep approaches 1/tol_cycle.
 
 This is host control flow over ``solve``, ``solve_block`` and ``utils/cp``; the
-tensors stay on the operator's device.
+tensors stay on the operator's device. Given a ``ShardedOperator``, every
+inner solve runs over its mesh and the CP residual's SpMV over its pieces;
+the CP algebra (x, r, their rounding) stays whole on the lead device.
 """
 from __future__ import annotations
 
@@ -29,13 +31,14 @@ import torch
 from .block import solve_block
 from .coeffs.tables import load_tables
 from .solver import solve
-from .types import CPTensor, KroneckerSumOperator, SolverConfig, Status
+from .parallel.krylov import whole
+from .types import CPTensor, SolverConfig, Status
 from .utils.cp import cp_axpy, cp_compress, cp_norm, cp_round, kron_apply_cp
 
 __all__ = ["solve_refined", "RefinedResult", "cp_residual"]
 
 
-def cp_residual(op: KroneckerSumOperator, x: CPTensor, b) -> CPTensor:
+def cp_residual(op, x: CPTensor, b) -> CPTensor:
     """b − A x as a CP tensor (rank 1 + d·rank(x)); b is rank-1 (d, n)."""
     b = torch.as_tensor(b, device=x.factors.device)
     b_cp = CPTensor(torch.ones((1,), dtype=x.weights.dtype, device=b.device), b[:, :, None])
@@ -58,7 +61,7 @@ class RefinedResult:
 
 
 def solve_refined(
-    op: KroneckerSumOperator,
+    op,
     b,
     config: Optional[SolverConfig] = None,
     *,
@@ -80,7 +83,7 @@ def solve_refined(
     each cycle (default: kept exact, the rank grows by tmax·residual_rank).
     """
     config = config or SolverConfig()
-    b = torch.as_tensor(b, device=op.device)
+    b = torch.as_tensor(whole(op, b) if isinstance(b, list) else b, device=op.device)
     if b.dim() != 2 or b.shape[0] != op.d or b.shape[1] != op.n:
         raise ValueError(f"b must be (d, n) = ({op.d}, {op.n}), got {tuple(b.shape)}")
     tables = load_tables(dtype=config.proj_dtype, device=op.device) if op.symmetric else None

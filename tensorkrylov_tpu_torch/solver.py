@@ -18,6 +18,12 @@ in ``check_every``-step segments and the projected stage on the host CPU in
 f64 between segments, as the JAX package's does. With
 ``step_impl='resident'`` each segment is one launch of the resident
 multi-step Lanczos kernel (``ops/resident_lanczos.py``).
+
+Every entry point takes a ``ShardedOperator`` (``parallel/sharding.py``) in
+place of the operator, b whole or its pieces: the same loop runs the step
+over the shard pieces and the projected stage on the lead device, where x is
+gathered. The fused and resident kernels run one whole piece, so a sharded
+solve takes the unfused step.
 """
 from __future__ import annotations
 
@@ -33,6 +39,8 @@ from .ops.expsum import cp_solve_nonsym, cp_solve_nonsym_eig, cp_solve_sym
 from .ops.gram import residual_norm_sq
 from .ops.orth import _REORTH, KrylovState, _acc_dtype, arnoldi_step, init_state, lanczos_step
 from .ops.resident_lanczos import lanczos_resident_steps
+from .parallel.krylov import like, pieces, scatter, whole
+from .parallel.sharding import Mesh, ShardedOperator, rhs_pieces, shard_operator
 from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
 from .utils.checkpoint import load_carry, save_carry
 
@@ -158,9 +166,21 @@ def _resident_eligible(config: SolverConfig, op: KroneckerSumOperator) -> bool:
     return config.orth == "lanczos" and op.symmetric and config.basis_dtype == torch.float32
 
 
-def _resolve_config(config: SolverConfig, op: KroneckerSumOperator, host_projected: bool = False) -> SolverConfig:
+def _resolve_config(config: SolverConfig, op, host_projected: bool = False) -> SolverConfig:
     """Resolve the 'auto' settings for this operator and entry point; the resolved
-    config is recorded on SolveResult.config."""
+    config is recorded on SolveResult.config. A ShardedOperator takes the
+    unfused step: 'auto' is 'xla' for it as for one piece, and an explicit
+    'fused' (or 'resident' in solve_host_projected) raises, since those
+    kernels run on one whole piece."""
+    if isinstance(op, ShardedOperator):
+        if config.step_impl == "fused":
+            raise ValueError("step_impl='fused' runs on one piece: the fused core sums α, β² and ⟨u, b⟩ over the "
+                             "whole n and has no psum over shards (ops/orth.py); a ShardedOperator takes "
+                             "step_impl='auto' or 'xla'")
+        if config.step_impl == "resident" and host_projected:
+            raise ValueError("step_impl='resident' runs on one piece: the resident kernel keeps a whole factor's "
+                             "recurrence on one card (ops/resident_lanczos.py); a ShardedOperator takes "
+                             "step_impl='auto' or 'xla'")
     if config.eigh_impl == "host":
         raise ValueError("eigh_impl='host' is only supported by solve_deflated; use 'auto' or 'dense' for solve "
                          "(or solve_host_projected to run the whole projected stage on the host)")
@@ -193,13 +213,18 @@ def _resolve_config(config: SolverConfig, op: KroneckerSumOperator, host_project
     return config
 
 
-def _check_identical_factors(config: SolverConfig, op: KroneckerSumOperator, b: torch.Tensor) -> None:
+def _check_identical_factors(config: SolverConfig, op, b) -> None:
     """identical_factors=True diagonalizes only factor 0's projected matrix,
-    which depends on A_s and b_s: check on host copies that all coincide."""
+    which depends on A_s and b_s: check on host copies that all coincide
+    (b (…, d, n), or its pieces over a ShardedOperator)."""
     if not config.identical_factors:
         return
+    if isinstance(op, ShardedOperator):
+        bands = op.leading_bands(op.n).cpu()
+        b = whole(op, b, factor_axis=pieces(b)[0].dim() - 2)
+    else:
+        bands = op.bands.detach().cpu()
     bh = b.detach().cpu()
-    bands = op.bands.detach().cpu()
     rows_ok = bool(torch.all(bh == bh[..., :1, :]))
     bands_ok = bool(torch.all(bands == bands[:1]))
     if not (rows_ok and bands_ok):
@@ -210,13 +235,37 @@ def _check_identical_factors(config: SolverConfig, op: KroneckerSumOperator, b: 
             "use identical_factors=False for distinct factors/RHS rows")
 
 
-def _check_problem(op: KroneckerSumOperator, b, config: SolverConfig) -> torch.Tensor:
-    b = torch.as_tensor(b, device=op.device)
-    if b.dim() != 2 or b.shape[0] != op.d or b.shape[1] != op.n:
-        raise ValueError(f"b must be (d, n) = ({op.d}, {op.n}), got {tuple(b.shape)}")
+def _check_problem(op, b, config: SolverConfig):
+    """b (d, n) on the operator's device; over a ShardedOperator, b whole
+    (then split) or its pieces, as parallel/sharding.rhs_pieces takes them."""
+    if isinstance(op, ShardedOperator):
+        b = rhs_pieces(op, b)
+    else:
+        b = torch.as_tensor(b, device=op.device)
+        if b.dim() != 2 or b.shape[0] != op.d or b.shape[1] != op.n:
+            raise ValueError(f"b must be (d, n) = ({op.d}, {op.n}), got {tuple(b.shape)}")
     if not op.symmetric and config.orth != "arnoldi":
         raise ValueError("nonsymmetric operators require orth='arnoldi'")
     return b
+
+
+def _check_block(op, B):
+    """A block right-hand side B (R, d, n) on the operator's device; over a
+    ShardedOperator, B whole (then split) or its (R, d_f, n_local) pieces."""
+    if isinstance(op, ShardedOperator):
+        return rhs_pieces(op, B, block=True)
+    B = torch.as_tensor(B, device=op.device)
+    if B.dim() != 3 or B.shape[1] != op.d or B.shape[2] != op.n:
+        raise ValueError(f"B must be (R, d, n) = (R, {op.d}, {op.n}), got {tuple(B.shape)}")
+    return B
+
+
+def _minor_window(op, K: int) -> torch.Tensor:
+    """dense_minor_window of op's leading K columns, on op's device; over a
+    ShardedOperator from the shards that hold those columns."""
+    if isinstance(op, ShardedOperator):
+        op = KroneckerSumOperator(op.leading_bands(min(K, op.n)), op.offsets, op.symmetric)
+    return dense_minor_window(op, K)
 
 
 def _lift(V, Y, niter):
@@ -226,11 +275,17 @@ def _lift(V, Y, niter):
     return torch.bmm(V[:m].to(Y.dtype).permute(1, 2, 0), Y[:, :m].to(V.device))
 
 
+def _lift_pieces(op, V, Y, niter):
+    """_lift on every piece of V, each with its factors' rows of Y, the
+    pieces gathered (d, n, t) on the lead device; one piece is _lift."""
+    return whole(op, like(V, [_lift(Vi, Yi, niter) for Vi, Yi in zip(pieces(V), scatter(op, Y))]), axis=1)
+
+
 class _Problem(NamedTuple):
     """What a solve's segments share and never change."""
 
-    op: KroneckerSumOperator    # bands in the Krylov step's compute dtype
-    b: torch.Tensor
+    op: KroneckerSumOperator    # bands in the Krylov step's compute dtype (or a ShardedOperator)
+    b: torch.Tensor              # (or its pieces)
     config: SolverConfig         # resolved
     tables: Optional[BHTables]
     step: object                 # _step_fn(config)
@@ -307,8 +362,11 @@ class _Carry(NamedTuple):
     rank_h: torch.Tensor
 
 
-def _setup(op: KroneckerSumOperator, b, config: Optional[SolverConfig], tables: Optional[BHTables]):
-    """Check the problem, resolve the config, and make the initial carry."""
+def _setup(op, b, config: Optional[SolverConfig], tables: Optional[BHTables]):
+    """Check the problem, resolve the config, and make the initial carry. op
+    is a KroneckerSumOperator, or a ShardedOperator with b whole or its
+    pieces: the carry's V is then the per-shard slabs, the rest lives on the
+    lead device."""
     config = config or SolverConfig()
     b = _check_problem(op, b, config)
     config = _resolve_config(config, op)
@@ -316,15 +374,13 @@ def _setup(op: KroneckerSumOperator, b, config: Optional[SolverConfig], tables: 
     if op.symmetric and tables is None:
         tables = load_tables(dtype=config.proj_dtype, device=op.device)
 
-    d, n = b.shape
     K = config.kmax + 1
     pdt = config.proj_dtype
-    dev = op.device
     op_c = op.astype(_acc_dtype(config.basis_dtype, pdt))
     state, b_norms = init_state(op_c, b, config.kmax, pdt, config.basis_dtype)
-    W_A = dense_minor_window(op_c, K).to(pdt) if config.spectral_source == "A_minor" else None
+    W_A = _minor_window(op_c, K).to(pdt) if config.spectral_source == "A_minor" else None
     problem = _Problem(op_c, b, config, tables, _step_fn(config), torch.prod(b_norms), W_A, op.symmetric)
-    return problem, _initial_carry(state, config, d, dev)
+    return problem, _initial_carry(state, config, op.d, op.device)
 
 
 def _initial_carry(state: KrylovState, config: SolverConfig, d: int, dev) -> _Carry:
@@ -360,14 +416,19 @@ def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
                       weights=weights, Y=Y)
 
 
-def _finalize(p: _Problem, c: _Carry, lift=_lift) -> SolveResult:
+def _finalize(p: _Problem, c: _Carry) -> SolveResult:
     niter = c.k - 1
-    return _result(CPTensor(c.weights, lift(c.V, c.Y, niter)), c.status, niter, c, p.config)
+    return _result(CPTensor(c.weights, _lift_pieces(p.op, c.V, c.Y, niter)), c.status, niter, c, p.config)
 
 
-def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None) -> SolveResult:
+def solve(op, b, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None) -> SolveResult:
     """Solve the Kronecker-sum system A x = b, b = b_1⊗…⊗b_d given as (d, n),
     on the operator's device. Returns the CP solution and the telemetry.
+
+    op may be a ShardedOperator (parallel/sharding.shard_operator), the JAX
+    package's solve_sharded call: b whole (it is split) or its pieces
+    (shard_rhs), the Krylov bases split over the mesh, the step over the
+    pieces, the projected stage on the lead device and x gathered there.
 
     One segment from step 1 to kmax: solve_resumable runs the same segment
     in chunks and gives the same bits."""
@@ -375,35 +436,15 @@ def solve(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None, ta
     return _finalize(p, _segment(p, carry, p.config.kmax))
 
 
-def solve_on_mesh(op: KroneckerSumOperator, b, config: SolverConfig, mesh, comm: str,
+def solve_on_mesh(op: KroneckerSumOperator, b, config: SolverConfig, mesh: Mesh, comm: str,
                   tables: Optional[BHTables] = None) -> SolveResult:
     """solve() with the operator, b and the Krylov bases split over mesh
-    (parallel/sharding.py:solve_sharded checks comm and forces the step).
-    The same _segment loop runs the ops/orth.py step over the shard pieces
-    and projected_step on the lead device; the lift x_s = V_sᵀ Y_s runs on
-    each shard and is gathered to the lead device."""
-    from .parallel.krylov import scatter
-    from .parallel.sharding import gather, shard_operator, shard_rhs
-
-    b = _check_problem(op, b, config)
-    config = _resolve_config(config, op)
-    _check_identical_factors(config, op, b)
-    lead, pdt = mesh.lead, config.proj_dtype
-    if op.symmetric and tables is None:
-        tables = load_tables(dtype=pdt, device=lead)
-    d = op.d
-    op_c = op.astype(_acc_dtype(config.basis_dtype, pdt))
-    sop = shard_operator(op_c, mesh, comm)
-    bs = shard_rhs(b, mesh, d)
-    state, b_norms = init_state(sop, bs, config.kmax, pdt, config.basis_dtype)
-    W_A = dense_minor_window(op_c, config.kmax + 1).to(pdt).to(lead) if config.spectral_source == "A_minor" else None
-    problem = _Problem(sop, bs, config, tables, _step_fn(config), torch.prod(b_norms), W_A, op.symmetric)
-    carry = _initial_carry(state, config, d, lead)
-
-    def lift(V, Y, niter):
-        return gather([_lift(Vi, Yi, niter) for Vi, Yi in zip(V, scatter(sop, Y))], mesh, axis=1)
-
-    return _finalize(problem, _segment(problem, carry, config.kmax), lift)
+    (parallel/sharding.py:solve_sharded checks comm and forces the step):
+    the operator in the step's compute dtype is sharded here, and solve()
+    runs the sharded problem."""
+    b = _check_problem(op, b, config)   # before any work
+    sop = shard_operator(op.astype(_acc_dtype(config.basis_dtype, config.proj_dtype)), mesh, comm)
+    return solve(sop, b, config, tables)
 
 
 def solve_resumable(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None,
@@ -447,38 +488,66 @@ class MultiRhsResult(NamedTuple):
         return self.status == Status.CONVERGED
 
 
-def solve_multi_rhs(op: KroneckerSumOperator, B, config: Optional[SolverConfig] = None,
-                    tables: Optional[BHTables] = None) -> MultiRhsResult:
+def _lane_groups(op, B, config: SolverConfig, mesh: Optional[Mesh], comm: str):
+    """solve_multi_rhs's lanes: [(the operator a group solves on, its lanes'
+    right-hand sides)]. Over a ShardedOperator or a 2-D mesh one group runs
+    every lane over that mesh; over a ('rhs', 'factor', 'mode') mesh rhs
+    group g runs lanes [g·R/G, (g+1)·R/G) over its own grid."""
+    if isinstance(op, ShardedOperator) and mesh is not None:
+        raise ValueError("solve_multi_rhs takes a ShardedOperator or mesh=, not both: the operator is already split "
+                         "over its mesh")
+    B = _check_block(op, B)
+    if isinstance(op, ShardedOperator):
+        return [(op, [[x[r] for x in B] for r in range(B[0].shape[0])])]
+    if mesh is None:
+        return [(op, list(B))]
+    grids = mesh.rhs_groups()
+    G, R = len(grids), B.shape[0]
+    if R % G:
+        raise ValueError(f"B's {R} right-hand sides do not split over the mesh's {G} rhs groups")
+    op_c = op.astype(_acc_dtype(config.basis_dtype, config.proj_dtype))
+    L = R // G
+    return [(shard_operator(op_c, grid, comm), list(B[g * L:(g + 1) * L])) for g, grid in enumerate(grids)]
+
+
+def solve_multi_rhs(op, B, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None,
+                    mesh: Optional[Mesh] = None, comm: str = "gspmd") -> MultiRhsResult:
     """Solve A x = b for a rank-R tensor-product RHS b = Σ_r ⊗_s B[r, s],
     B (R, d, n). By linearity x is the sum of the R rank-1 solutions.
 
     The JAX package vmaps its whole while-loop over r, and a finished lane
     freezes, so each lane equals a rank-1 solve; here the R rank-1 solves run
-    in turn and their results are stacked. The step is the unfused one
-    ('xla'), as in the JAX package. x has rank Σ_r t_r: the terms' weights and
-    factor columns concatenated."""
-    config = _resolve_config(config or SolverConfig(), op)
-    if config.step_impl != "xla":
-        config = dataclasses.replace(config, step_impl="xla")
-    B = torch.as_tensor(B, device=op.device)
-    if B.dim() != 3 or B.shape[1] != op.d or B.shape[2] != op.n:
-        raise ValueError(f"B must be (R, d, n) = (R, {op.d}, {op.n}), got {tuple(B.shape)}")
-    _check_identical_factors(config, op, B)
-    if op.symmetric and tables is None:
-        tables = load_tables(dtype=config.proj_dtype, device=op.device)
+    in turn and their results are stacked in r order. The step is the
+    unfused one ('xla'), as in the JAX package. x has rank Σ_r t_r: the
+    terms' weights and factor columns concatenated.
 
-    runs = [solve(op, B[r], config, tables) for r in range(B.shape[0])]
-    stacked = {f: torch.stack([getattr(r, f) for r in runs])
+    Over a mesh the lanes are solved split: op a ShardedOperator (B whole or
+    its (R, d_f, n_local) pieces) or mesh= a 2-D mesh runs the R solves in
+    turn over that mesh; mesh= a ('rhs', 'factor', 'mode') mesh
+    (make_mesh(rhs_parallel=G)) gives each of its G rhs groups R/G lanes
+    (R % G == 0), each solved over the group's own grid with comm's SpMV.
+    One controller runs the groups in turn; x and the telemetry are gathered
+    to the mesh's lead device."""
+    config = _resolve_config(dataclasses.replace(config or SolverConfig(), step_impl="xla"), op)
+    groups = _lane_groups(op, B, config, mesh, comm)
+    lead = op.device if mesh is None else mesh.lead
+    if op.symmetric and tables is None:
+        tables = load_tables(dtype=config.proj_dtype, device=lead)
+
+    runs = [solve(sop, b, config, tables) for sop, lanes in groups for b in lanes]
+    stacked = {f: torch.stack([getattr(r, f).to(lead) for r in runs])
                for f in ("relative_residual", "projected_residual", "orthogonality", "lambda_min", "lambda_max",
                          "expsum_rank")}
+    R = len(runs)
     res = SolveResult(
-        x=CPTensor(torch.stack([r.x.weights for r in runs]), torch.stack([r.x.factors for r in runs])),
+        x=CPTensor(torch.stack([r.x.weights.to(lead) for r in runs]),
+                   torch.stack([r.x.factors.to(lead) for r in runs])),
         status=torch.tensor([r.status for r in runs], dtype=torch.int32),
         niterations=torch.tensor([r.niterations for r in runs], dtype=torch.int32),
         config=runs[0].config,
         **stacked,
     )
-    R, tmax = B.shape[0], config.tmax
+    tmax = config.tmax
     # combine: concatenate the CP terms of the rank-1 solves
     weights = res.x.weights.reshape(R * tmax)
     factors = torch.movedim(res.x.factors, 0, 2).reshape(op.d, op.n, R * tmax)
@@ -515,7 +584,7 @@ def _steps_segment(op: KroneckerSumOperator, b, step, state: KrylovState, k_star
     return state
 
 
-def solve_host_projected(op: KroneckerSumOperator, b, config: Optional[SolverConfig] = None,
+def solve_host_projected(op, b, config: Optional[SolverConfig] = None,
                          tables: Optional[BHTables] = None) -> SolveResult:
     """Hybrid execution: the operator's device runs the n-sized Krylov
     recurrences in check_every-step segments; between segments H and b̃ move
@@ -531,6 +600,10 @@ def solve_host_projected(op: KroneckerSumOperator, b, config: Optional[SolverCon
 
     The solution is lifted on the operator's device; the telemetry tensors
     were made on the host and stay there.
+
+    op may be a ShardedOperator: the segments run the unfused step over the
+    shard pieces ('auto' is 'xla'; 'resident', whose kernel runs one whole
+    piece, raises), the lift runs per shard and x is gathered to the lead.
     """
     config = config or SolverConfig()
     b = _check_problem(op, b, config)
@@ -541,15 +614,12 @@ def solve_host_projected(op: KroneckerSumOperator, b, config: Optional[SolverCon
     if op.symmetric:
         tables = BHTables(*(t.to(cpu) for t in tables)) if tables is not None else load_tables(dtype=pdt)
 
-    d, n = b.shape
+    d, n = op.d, op.n
     K = config.kmax + 1
     op_c = op.astype(_acc_dtype(config.basis_dtype, pdt))
     state, b_norms = init_state(op_c, b, config.kmax, pdt, config.basis_dtype)
     b_norm_prod = torch.tensor(float(np.prod(b_norms.cpu().numpy())), dtype=pdt)
-    W_A = None
-    if config.spectral_source == "A_minor":
-        op_cpu = KroneckerSumOperator(op.bands.cpu(), op.offsets, op.symmetric)
-        W_A = dense_minor_window(op_cpu, K).to(pdt)
+    W_A = _minor_window(op, K).to(cpu).to(pdt) if config.spectral_source == "A_minor" else None
     hist = {name: np.full((K,), np.inf if name in ("rel_res", "r_comp") else 0.0)
             for name in ("rel_res", "r_comp", "orth", "lmin", "lmax")}
     rank_h = np.zeros((K,), np.int32)
@@ -594,7 +664,7 @@ def solve_host_projected(op: KroneckerSumOperator, b, config: Optional[SolverCon
         status = Status.MAXITER
 
     return SolveResult(
-        x=CPTensor(weights.to(op.device), _lift(state.V, Y, niter)),
+        x=CPTensor(weights.to(op.device), _lift_pieces(op_c, state.V, Y, niter)),
         status=int(status),
         niterations=niter,
         relative_residual=torch.from_numpy(hist["rel_res"]),

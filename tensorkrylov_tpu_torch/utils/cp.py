@@ -26,6 +26,8 @@ import torch
 
 from ..models.gallery import bands_to_dense
 from ..ops.banded import spmv
+from ..parallel.krylov import spmv_pieces, whole
+from ..parallel.sharding import ShardedOperator, shard_rhs
 from ..types import CPTensor, KroneckerSumOperator
 
 __all__ = [
@@ -279,13 +281,23 @@ def cp_full(x: CPTensor) -> np.ndarray:
     return out
 
 
-def kron_apply_cp(op: KroneckerSumOperator, x: CPTensor) -> CPTensor:
+def _spmv_whole(op, V: torch.Tensor) -> torch.Tensor:
+    """A V for V (d, m, n) whole on op's (lead) device: one banded SpMV, or
+    over a ShardedOperator V split, the sharded SpMV of its pieces
+    (parallel/krylov.spmv_pieces) and the result gathered."""
+    if not isinstance(op, ShardedOperator):
+        return spmv(op, V)
+    return whole(op, spmv_pieces(op, shard_rhs(V, op.mesh, op.d, factor_axis=0)))
+
+
+def kron_apply_cp(op, x: CPTensor) -> CPTensor:
     """A x in CP form: the Kronecker sum applied to a rank-t CP tensor is a
     rank-(d·t) CP tensor, term (s, j) applying A_s to mode s of term j and
     copying the other modes. All t columns of every mode go through one
-    banded SpMV of (d, t, n)."""
+    banded SpMV of (d, t, n); over a ShardedOperator, one sharded SpMV of the
+    columns' pieces, x and the result whole on the lead device."""
     d, n, t = x.factors.shape
-    applied = spmv(op.astype(x.factors.dtype), x.factors.transpose(1, 2).contiguous()).transpose(1, 2)  # (d, n, t)
+    applied = _spmv_whole(op.astype(x.factors.dtype), x.factors.transpose(1, 2).contiguous()).transpose(1, 2)
     # out factor of mode m, term (s, j): applied if m == s else original
     eye = torch.eye(d, dtype=torch.bool, device=x.factors.device)[:, None, :, None]   # (m, 1, s, 1)
     out = torch.where(eye, applied[:, :, None, :], x.factors[:, :, None, :])         # (m, n, s, t)

@@ -892,3 +892,66 @@ def test_sharded_deflated_df64_gspmd_on_card(cuda):
     band = 2 * max(got.cp_residual_floor, ref.cp_residual_floor)
     assert abs(got.measured_cp_residual - ref.measured_cp_residual) <= band
     assert got.x.factors.device.type == cuda.type and got.gram_source == "measured full Gram"
+
+
+def _sigma_for_kappa(n, kappa):
+    """The diagonal shift that gives a Laplacian factor the condition number κ."""
+    lmax = 4.0 * (n + 1) ** 2 * np.sin(n * np.pi / (2 * (n + 1))) ** 2
+    lmin = 4.0 * (n + 1) ** 2 * np.sin(np.pi / (2 * (n + 1))) ** 2
+    return float((lmax - kappa * lmin) / (kappa - 1.0))
+
+
+def _config4_reduced(device, n=2048):
+    """Config 4 (d=10, rank-4 B, κ = 1e4 per factor) at a reduced depth: n=2048."""
+    op = tkt.reaction_diffusion(10, n, _sigma_for_kappa(n, 1e4), device="cpu")
+    B = np.random.default_rng(1234).standard_normal((4, 10, n))
+    B /= np.linalg.norm(B, axis=2, keepdims=True)
+    return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), torch.tensor(B, device=device)
+
+
+def test_sharded_block_ring_on_card(cuda):
+    """solve_block over 4 mode shards of one card on the ring route, config 4
+    at n=2048: one ring launch per block step (the (d, 4, n_local) block of
+    every shard in one launch), no banded_spmv launch; the unsharded solve's
+    status and steps, the estimates within 1e-8 relative (beside 1e-12)."""
+    op, B = _config4_reduced(cuda)
+    cfg = tkt.SolverConfig(kmax=48, tol=1e-8, check_every=8, orth="lanczos_reorth")
+    ref = tkt.solve_block(op, B, cfg)
+    sop = shard_operator(op, make_mesh(devices=[cuda] * 4), "ring")
+    _build.launches.clear()
+    got = tkt.solve_block(sop, shard_rhs(B, sop.mesh, 10), cfg)
+    torch.cuda.synchronize()
+    k = got.niterations
+    assert dict(_build.launches) == {"ring_spmv": k}
+    assert (got.status, k) == (ref.status, ref.niterations)
+    a, r = got.relative_residual.cpu().numpy(), ref.relative_residual.cpu().numpy()
+    ok = np.isfinite(r)
+    np.testing.assert_allclose(a[ok], r[ok], rtol=1e-8, atol=1e-12)
+    assert got.x.factors.device.type == "cuda" and bool(torch.isfinite(got.x.factors).all())
+
+
+def test_sharded_two_pass_gspmd_on_card(cuda):
+    """solve_two_pass over 4 mode shards of one card on the gspmd route, the
+    slice's problem (κ = 1e2) at n=8192: 4
+    banded_spmv launches per SpMV of both passes (4 · 2k), no ring launch;
+    the unsharded solve's status, steps within one, x within 1e-6 of max|x|,
+    the final estimate within 1e-6 relative beside the v_0 drift's allowance
+    d·√k·(drift of both runs): b̃_k = ⟨v_k, b⟩ carries the plain recurrence's
+    drift (its orthogonality trace), which another sum order redraws."""
+    op = tkt.reaction_diffusion(10, 8192, _sigma_for_kappa(8192, 1e2), device=cuda)
+    b = tkt.random_rhs(10, 8192, seed=1234)
+    b = (b / torch.linalg.vector_norm(b, dim=1, keepdim=True)).to(cuda)
+    cfg = tkt.SolverConfig(kmax=200, tol=1e-8, orth="lanczos")
+    ref = tkt.solve_two_pass(op, b, cfg)
+    sop = shard_operator(op, make_mesh(devices=[cuda] * 4), "gspmd")
+    _build.launches.clear()
+    got = tkt.solve_two_pass(sop, shard_rhs(b, sop.mesh), cfg)
+    torch.cuda.synchronize()
+    k, kr = got.niterations, ref.niterations
+    assert dict(_build.launches) == {"banded_spmv": 4 * 2 * k}
+    assert got.status == ref.status == tkt.Status.CONVERGED and abs(k - kr) <= 1
+    drift = float(got.orthogonality[1:k + 1].max()) + float(ref.orthogonality[1:kr + 1].max())
+    est, est_ref = float(got.relative_residual[k]), float(ref.relative_residual[kr])
+    assert abs(est - est_ref) <= 1e-6 * est_ref + 10 * np.sqrt(max(k, kr)) * drift
+    x, xr = got.x.factors, ref.x.factors
+    assert float((x - xr).abs().max()) <= 1e-6 * float(xr.abs().max())

@@ -1,9 +1,9 @@
 """The port's deflated solver (deflate.py, deflate_light.py, the deflation
 projection of ops/orth.py) on the CPU: against the JAX package's on the same
 numpy inputs, and against the dense oracle (tests/test_deflate.py's cases;
-its three df64 tests wait for the port of df64_core.py, ROADMAP.md Queue 1
-#6). The JAX package's slow tests have fast twins here that run the port
-alone; the JAX side of each compared case runs once per module."""
+the twins of its three df64 tests are in tests/test_torch_df64.py). The JAX
+package's slow tests have fast twins here that run the port alone; the JAX
+side of each compared case runs once per module."""
 import math
 import warnings
 

@@ -208,7 +208,7 @@ def test_import_leaves_jax_out():
             " tensorkrylov_tpu_torch.experiments.northstar, tensorkrylov_tpu_torch.experiments.flagship_probe,"
             " tensorkrylov_tpu_torch.ops.expansion, tensorkrylov_tpu_torch.df64_core,"
             " tensorkrylov_tpu_torch.block_recorded, tensorkrylov_tpu_torch.experiments.config4_block,"
-            " tensorkrylov_tpu_torch.experiments.nonsym_scale;"
+            " tensorkrylov_tpu_torch.experiments.nonsym_scale, tensorkrylov_tpu_torch.experiments.dryrun_multichip;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tensorkrylov_tpu.'))"
             " or m == 'tensorkrylov_tpu'];"
             "print(bad); sys.exit(1 if bad else 0)")
