@@ -102,6 +102,19 @@ Phases, one output line each:
                factor=1, mode=2) mesh against phase 8's lanes; and every call of
                __graft_entry__.py:dryrun_multichip at its own sizes on 8 slots, a (2, 4) and
                a (2, 2, 2) mesh (experiments/dryrun_multichip.py).
+ 15. multihost — the multi-process layer: two worker ranks (this script with
+               --multihost-worker) on cuda:0 over gloo, 2 shard slots each, through
+               init_distributed, make_pod_mesh and distribute_problem. The slice (d=10,
+               n=131072, kmax=200, tol=1e-8) in phase 9's layouts 'ring_factor2x2' ('factor'
+               across the ranks), 'ring' and 'gspmd' ('mode' across them, the halo between
+               slots 1 and 2 crossing), and the mid shape's deflated twopass on the ring
+               route: each CONVERGED at one controller's step on 4 slots of cuda:0, with α,
+               β, the trace and x bit-equal on both ranks and to it; the ring kernel once per
+               rank per SpMV, with a received halo held against its plain version (limit
+               0.0); then parallel/_smoke.py as two ranks, their SMOKE lines equal. Per case
+               and rank: wall, it/s, peak memory, launches, and the ms per step in halo
+               exchange and all-gathers. A rank that fails or passes its timeout ends the
+               phase and the other rank;
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -2075,6 +2088,304 @@ def phase_sharded_solvers(tkt, dev=torch.device("cuda", 0), p=SHARDED_SOLVERS, k
     return launched["banded_spmv"], launched["ring_spmv"]
 
 
+# phase 15: the multi-process layer. Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card), each
+# owning 2 shard slots, through init_distributed, make_pod_mesh and distribute_problem: the slice in phase 9's
+# three layouts ('factor' across the processes; 'mode' across them on the ring and the gspmd route) and the
+# mid shape's deflated twopass on the ring route, each bit for bit against one controller on the same layout
+MULTIHOST = dict(
+    device="cuda:0", cards=1, n=131072, slots=2, worker_timeout=600, smoke_timeout=180, threads=2, probe_reps=200,
+    layouts={"ring_factor2x2": (2, "ring"), "ring": (1, "ring"), "gspmd": (1, "gspmd")},
+    deflated=dict(DEFLATED["mid"], config=dict(kmax=384, tol=1e-8), layout="ring", storage="twopass"),
+)
+
+
+def digest(*tensors):
+    """sha256 over the dtype, shape and bytes of each tensor (or array)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = torch.as_tensor(np.asarray(t)) if not isinstance(t, torch.Tensor) else t
+        h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded_recurrence():
+    """Digests of the Lanczos α and β of the solves run inside: solve()'s
+    projected H at its end (its diagonal and subdiagonal up to the last
+    step), and the deflated solve's T (dg, od) at its last checkpoint."""
+    from tensorkrylov_tpu_torch import deflate, solver
+
+    seen, finalize, evaluate = {}, solver._finalize, deflate._evaluate
+
+    def finalize_(p, c):
+        k = c.k - 1
+        seen["alpha_beta"] = digest(torch.diagonal(c.H, dim1=1, dim2=2)[:, :k],
+                                    torch.diagonal(c.H, offset=-1, dim1=1, dim2=2)[:, :k])
+        return finalize(p, c)
+
+    def evaluate_(dg, od, btil, boundary, ck, *rest):
+        seen["alpha_beta"] = digest(dg[:, :ck], od[:, :ck + 1])
+        return evaluate(dg, od, btil, boundary, ck, *rest)
+
+    solver._finalize, deflate._evaluate = finalize_, evaluate_
+    try:
+        yield seen
+    finally:
+        solver._finalize, deflate._evaluate = finalize, evaluate
+
+
+def multihost_run(tkt, run, dev):
+    """One solve with the launch and traffic counts set to 0 just before it:
+    (result, its summary: status, steps, the digests of α/β, the trace or
+    bounds and x, wall, peak memory, launches, cross-process traffic)."""
+    from tensorkrylov_tpu_torch.ops import _build
+    from tensorkrylov_tpu_torch.parallel.sharding import comm_stats
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    comm_stats.clear()
+    with recorded_recurrence() as seen:
+        t0 = time.perf_counter()
+        res = run()
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    k = res.niterations
+    if isinstance(res.relative_residual, torch.Tensor):
+        trace = digest(res.relative_residual[:k + 1])
+    else:
+        trace = digest(np.asarray(res.relative_residual + res.certified_bound, np.float64))
+    return res, dict(status=int(res.status), niterations=k, alpha_beta=seen["alpha_beta"], trace=trace,
+                     x=digest(res.x.weights, res.x.factors), wall_s=wall, iterations_per_s=k / wall,
+                     max_memory_allocated=peak_bytes(dev), launches=dict(_build.launches),
+                     traffic=dict(comm_stats))
+
+
+def multihost_cases(tkt, mesh_of, dev, p=MULTIHOST):
+    """Each case of phase 15 on the meshes mesh_of(factor_parallel) give:
+    name → its summary (multihost_run). One controller runs them on 4 slots
+    of dev; each worker on its pod mesh."""
+    from tensorkrylov_tpu_torch.parallel import shard_operator, shard_rhs
+
+    out = {}
+    cfg = tkt.SolverConfig(**CONFIGS["default"])
+    # a process's first solve initialises the card's libraries: one, untimed, at a small size
+    fp, comm = next(iter(p["layouts"].values()))
+    op, b = slice_problem(tkt, 4096, dev)
+    mesh = mesh_of(fp)
+    tkt.solve(shard_operator(op, mesh, comm), shard_rhs(b, mesh, op.d), cfg)
+    op, b = slice_problem(tkt, p["n"], dev)
+    for name, (fp, comm) in p["layouts"].items():
+        mesh = mesh_of(fp)
+        sop, bs = shard_operator(op, mesh, comm), shard_rhs(b, mesh, op.d)
+        res, out[name] = multihost_run(tkt, lambda: tkt.solve(sop, bs, cfg), dev)
+        out[name].update(factor_parallel=fp, route=comm)
+        del res, sop, bs
+    del op, b
+    q = p["deflated"]
+    op, b = deflated_problem(tkt, q, dev)
+    basis = tkt.deflation_basis(op, q["m"])
+    fp, comm = p["layouts"][q["layout"]]
+    res, out["deflated"] = multihost_run(tkt, lambda: tkt.solve_deflated(
+        op, b, tkt.SolverConfig(**q["config"]), basis=basis, storage=q["storage"], mesh=mesh_of(fp), comm=comm),
+        dev)
+    out["deflated"].update(factor_parallel=fp, route=comm, storage=q["storage"], d=q["d"], n=q["n"], m=q["m"],
+                           kappa=q["kappa"], certified_bound=res.certified_bound[-1])
+    return out
+
+
+def multihost_worker(rank, port, out_path, p):
+    """One rank of phase 15 (python3 chip_smoke.py --multihost-worker RANK
+    PORT OUT PARAMS, PARAMS phase 15's settings as JSON): the ring kernel
+    with a received halo against its plain version, then every case,
+    written to OUT as JSON."""
+    import torch.distributed as dist
+
+    import tensorkrylov_tpu_torch as tkt
+    from tensorkrylov_tpu_torch.parallel import distribute_problem, init_distributed, make_pod_mesh
+    from tensorkrylov_tpu_torch.parallel.halo import exchange_halos, spmv_sharded
+    from tensorkrylov_tpu_torch.parallel.sharding import allgather
+
+    # the two ranks share the host's cores: intra-op threads that would spin past them slow both
+    torch.set_num_threads(p["threads"])
+    init_distributed(f"localhost:{port}", 2, rank, p["slots"])
+    dev = torch.device(p["device"])
+    if dev.type == "cuda" and p["cards"] > 1:
+        dev = torch.device("cuda", rank)      # a card per rank, as init_distributed chose it
+
+    def pod(fp):
+        # the card's slots by default; a rehearsal on the CPU names them
+        return make_pod_mesh(factor_parallel=fp, devices=None if dev.type == "cuda" else [dev] * p["slots"])
+
+    out = dict(rank=rank, backend=dist.get_backend(), world=dist.get_world_size())
+    # the ring kernel in layout (b), whose right or left source is a received halo buffer
+    fp, comm = p["layouts"]["ring"]
+    mesh = pod(fp)
+    op, _ = slice_problem(tkt, p["n"], dev)
+    v = unit_rows(np.random.default_rng(16), (10, p["n"]), torch.float64, dev)
+    sop, vs = distribute_problem(op, v, mesh, comm)
+    got, ref = spmv_sharded(sop, vs), plain_sharded(sop, vs)
+    out["devices"] = [str(d) for row in mesh.devices for d in row]
+    out["ring_check"] = dict(shards=[sh.index for sh in sop.shards], max_abs_err=max(
+        float((g - r).abs().max()) for g, r in zip(got, ref)), limit=0.0)
+    # the mechanism's own cost with both ranks idle and in step: a psum-sized all-gather, and the slice's halo
+    # exchange; in a solve the same calls also wait for the other rank's work on the shared card
+    out["idle_ms"] = {}
+    for name, call in (("allgather", lambda: allgather(mesh, [torch.ones(10, dtype=torch.float64, device=dev)]
+                                                       * len(vs), "probe")),
+                       ("halo_exchange", lambda: exchange_halos(sop, vs))):
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(p["probe_reps"]):
+            call()
+        out["idle_ms"][name] = 1e3 * (time.perf_counter() - t0) / p["probe_reps"]
+    del op, v, sop, vs, got, ref
+    out["cases"] = multihost_cases(tkt, pod, dev, p)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_pair(argvs, timeout, env=None):
+    """Start the two ranks, wait for both with a timeout, kill both on
+    timeout or when either fails; returns their stdouts."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO, env=env)
+             for a in argvs]
+    deadline, outs = time.monotonic() + timeout, [None, None]
+    try:
+        while any(o is None for o in outs):
+            for i, proc in enumerate(procs):
+                if outs[i] is None and proc.poll() is not None:
+                    outs[i] = proc.communicate()
+                    require(proc.returncode == 0, f"rank {i} exited {proc.returncode}: {outs[i][1][-3000:]}")
+            require(time.monotonic() < deadline, f"the ranks did not finish within {timeout} s")
+            time.sleep(0.2)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return [o[0] for o in outs]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost(tkt, p=MULTIHOST):
+    """Phase 15: every case on one controller over 4 slots of cuda:0, then
+    the same cases by two worker ranks of 2 slots each on cuda:0 over gloo
+    (multihost_worker): each must converge at the controller's step with
+    α/β, trace and x bit-equal on both ranks and to the controller's; the
+    ring kernel once per rank per SpMV, reading the remote edge from its
+    received buffer; then parallel/_smoke.py as two ranks, their SMOKE lines
+    equal. Returns the workers' (banded_spmv, ring_spmv) launches of the
+    cases, both ranks'."""
+    from tensorkrylov_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device(p["device"])
+    on_card = dev.type == "cuda"
+    env = dict(os.environ)
+    if on_card and p["cards"] == 1:
+        # both ranks on the first card, whatever else the machine has
+        env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    backend = "nccl" if on_card and p["cards"] > 1 else "gloo"
+    single = multihost_cases(tkt, lambda fp: make_mesh(devices=[dev] * 2 * p["slots"], factor_parallel=fp), dev, p)
+    if on_card:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        port, paths = free_port(), [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        t0 = time.perf_counter()
+        run_pair([[sys.executable, os.path.join(REPO, "chip_smoke.py"), "--multihost-worker", str(r), str(port),
+                   paths[r], json.dumps(p)] for r in range(2)], p["worker_timeout"], env)
+        workers_s = time.perf_counter() - t0
+        ranks = []
+        for path in paths:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    launched = {"banded_spmv": 0, "ring_spmv": 0}
+    for r, out in enumerate(ranks):
+        # the backend rule: gloo where the ranks share a card, NCCL for a card each
+        require(out["backend"] == backend and out["world"] == 2, f"rank {r}: backend {out['backend']}")
+        require(out["ring_check"]["max_abs_err"] == 0.0,
+                f"rank {r}: the ring kernel with a received halo is {out['ring_check']['max_abs_err']} from plain")
+        for name, ref in single.items():
+            got = out["cases"][name]
+            k = ref["niterations"]
+            require(ref["status"] == tkt.Status.CONVERGED and (got["status"], got["niterations"]) == (ref["status"], k),
+                    f"multihost {name} rank {r}: {got['status']}/{got['niterations']} vs one controller "
+                    f"{ref['status']}/{k}")
+            for key in ("alpha_beta", "trace", "x"):
+                require(got[key] == ref[key], f"multihost {name} rank {r}: {key} differs from one controller's")
+            if name == "deflated":
+                want = {"ring_spmv": 2 * k - 1, "banded_spmv": 1}        # both passes, and the cross-check
+            elif got["route"] == "ring":
+                want = {"ring_spmv": k}                                   # one launch per rank and SpMV
+            else:
+                want = {"banded_spmv": p["slots"] * k}                    # one per shard and SpMV
+            require(got["launches"] == want or not on_card,
+                    f"multihost {name} rank {r}: launches {got['launches']}, want {want}")
+            # 'mode' across the processes (factor_parallel=1): one halo exchange per SpMV; else none
+            traffic, spmvs = got["traffic"], want.get("ring_spmv", k)
+            require(traffic.get("halo_calls", 0) == (spmvs if got["factor_parallel"] == 1 else 0)
+                    and traffic.get("psum_calls", 0) > 0 and traffic.get("gather_calls", 0) > 0,
+                    f"multihost {name} rank {r}: traffic {traffic}")
+            for kernel, c in got["launches"].items():
+                launched[kernel] += c
+    # parallel/_smoke.py at its own size, one rank per process on the card
+    port = free_port()
+    t0 = time.perf_counter()
+    outs = run_pair([[sys.executable, "-m", "tensorkrylov_tpu_torch.parallel._smoke", "--coordinator",
+                      f"localhost:{port}", "--num-processes", "2", "--process-id", str(r), "--local-devices",
+                      str(p["slots"])] + ([] if on_card else ["--cpu"]) for r in range(2)], p["smoke_timeout"], env)
+    smoke_s = time.perf_counter() - t0
+    lines = [next((ln for ln in o.splitlines() if ln.startswith("SMOKE ")), None) for o in outs]
+    require(lines[0] is not None and lines[0] == lines[1] and lines[0].startswith("SMOKE 1 "),
+            f"_smoke: {lines}")
+
+    def per_rank(name):
+        rows = []
+        for out in ranks:
+            got = out["cases"][name]
+            k, comm = got["niterations"], got["traffic"]
+            rows.append(dict(rank=out["rank"], wall_s=got["wall_s"], iterations_per_s=got["iterations_per_s"],
+                             max_memory_allocated=got["max_memory_allocated"], launches=got["launches"],
+                             halo_ms_per_step=1e3 * comm.get("halo_s", 0.0) / k,
+                             psum_allgather_ms_per_step=1e3 * comm.get("psum_s", 0.0) / k,
+                             psum_allgathers_per_step=comm.get("psum_calls", 0) / k,
+                             gather_ms=1e3 * comm.get("gather_s", 0.0), gathers=comm.get("gather_calls", 0),
+                             bytes={kind: comm.get(f"{kind}_bytes", 0) for kind in ("halo", "psum", "gather")},
+                             host_staged_bytes=sum(comm.get(f"{kind}_host_bytes", 0)
+                                                   for kind in ("halo", "psum", "gather"))))
+        return rows
+
+    cases = {name: dict(factor_parallel=ref["factor_parallel"], comm=ref["route"], status=ref["status"],
+                        niterations=ref["niterations"], bit_equal=True,
+                        one_controller=dict(wall_s=ref["wall_s"], iterations_per_s=ref["iterations_per_s"],
+                                            max_memory_allocated=ref["max_memory_allocated"],
+                                            launches=ref["launches"]),
+                        ranks=per_rank(name),
+                        **({k: ref[k] for k in ("storage", "d", "n", "m", "kappa", "certified_bound")}
+                           if name == "deflated" else dict(d=10, n=p["n"])))
+             for name, ref in single.items()}
+    emit("multihost", processes=2, slots_per_rank=p["slots"], devices=ranks[0]["devices"], backend=ranks[0]["backend"],
+         ring_check=[out["ring_check"] for out in ranks], idle_ms=[out["idle_ms"] for out in ranks], cases=cases,
+         smoke_line=lines[0], smoke_s=smoke_s,
+         workers_s=workers_s, launches=launched, seconds=time.perf_counter() - t_phase)
+    return launched["banded_spmv"], launched["ring_spmv"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2104,6 +2415,9 @@ def main():
         banded, ring = phase_sharded_solvers(tkt, keep=shared)
         launches["banded_spmv"] += banded
         ring_launches["ring_spmv"] += ring
+        banded, ring = phase_multihost(tkt)
+        launches["banded_spmv"] += banded
+        ring_launches["ring_spmv"] += ring
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2127,4 +2441,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], json.loads(sys.argv[5])))
     sys.exit(main())

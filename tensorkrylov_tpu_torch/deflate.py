@@ -800,6 +800,13 @@ def solve_deflated(
                          "halo-extended slab; the ring kernel has no pair variant)")
     if mesh is not None and storage == "segmented":
         raise ValueError("storage='segmented' does not support mesh yet")
+    if mesh is not None and mesh.processes > 1 and storage == "df64":
+        raise NotImplementedError("storage='df64' over a mesh across processes is not ported: its once-per-solve "
+                                  "charges read every shard's bands and basis rows (df64_core._band_norm, "
+                                  "_split_rounding); run it on a one-process mesh (ROADMAP.md Queue 1, #11)")
+    if mesh is not None and mesh.processes > 1 and state_cache is not None:
+        raise NotImplementedError("state_cache over a mesh across processes is not ported: every rank would write "
+                                  "the one cache file; run it on a one-process mesh (ROADMAP.md Queue 1, #12)")
     if storage != "df64" and (advance_budget is not None or save_every):
         raise ValueError("advance_budget and save_every are storage='df64' options")
     if storage == "twopass":

@@ -26,6 +26,18 @@ recurrence exchanges its f32 pair (hi, lo) as one (2, d_f, n_local) tensor,
 and ``triple_spmv_pairs_sharded`` runs the pair SpMV of ``ops/expansion.py``
 on the slabs.
 
+Across processes (``multihost.make_pod_mesh``) a rank holds its own shards
+only. A neighbour in another process is never read in place: its H edge
+columns come by ``send``/``recv`` (one ``batch_isend_irecv`` per exchange)
+into this shard's halo buffer, and this shard's edges go to it. On NCCL the
+edges travel card to card; on gloo, which sends host tensors only, a CUDA
+edge is copied into a pinned host buffer, sent, received into another and
+copied to the card (``comm_stats`` counts the calls, bytes and seconds). On
+the ring route the kernel then reads that buffer as the neighbour's
+``Source`` (base H on the left, 0 on the right): still one ring launch per
+rank and card for all of its shards. Neighbours within the process are read
+in place as before.
+
 Layout contract: arrays are split on their last axis over the mode shards,
 n % n_mode == 0, and a shard is at least H wide. The halos of one call are
 overwritten by the next call on the same ShardedOperator.
@@ -33,15 +45,17 @@ overwritten by the next call on the same ShardedOperator.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops import expansion as ex
 from ..ops.banded import spmv
 from ..ops.ring_spmv import Source, ring_spmv_edge, ring_spmv_interior, ring_spmv_local
 from ..types import KroneckerSumOperator
-from .sharding import Mesh, ShardedOperator, gather, shard_operator, shard_rhs
+from .sharding import Mesh, ShardedOperator, comm_stats, gather, shard_operator, shard_rhs
 
 __all__ = ["exchange_halos", "halo_slabs", "ring_sources", "spmv_halo_local", "spmv_sharded",
            "triple_spmv_pairs_sharded", "make_halo_spmv", "spmv_halo"]
@@ -67,25 +81,80 @@ def _halo_buffers(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[Tupl
     return bufs
 
 
+def _neighbours(sop: ShardedOperator) -> List[Tuple[Optional[Tuple[str, int]], Optional[Tuple[str, int]]]]:
+    """Each shard's (left, right) neighbour in its factor group's chain: None
+    at a chain end, ('local', i) for this process's shard i, ('remote', q)
+    for shard q of another process."""
+    P = sop.n_mode
+    at = {sh.index: i for i, sh in enumerate(sop.shards)}
+    links = []
+    for sh in sop.shards:
+        p = sh.index % P
+        pair = [None if not ok else ("local", at[q]) if q in at else ("remote", q)
+                for q, ok in ((sh.index - 1, p > 0), (sh.index + 1, p < P - 1))]
+        links.append(tuple(pair))
+    return links
+
+
+def _exchange_remote(sop: ShardedOperator, vs: Sequence[torch.Tensor],
+                     halos: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """The edges of neighbours in other processes into this process's halo
+    buffers, and its own edges to them, in one batch of sends and receives:
+    a shard's first H columns are its left neighbour's right halo, its last
+    H its right neighbour's left halo (the tag 2q + side names the receiving
+    shard q and side). CUDA edges on gloo go through pinned host buffers."""
+    H, P, mesh = sop.halo, sop.n_mode, sop.mesh
+    sends, recvs = [], []
+    for sh, v, (lh, rh), links in zip(sop.shards, vs, halos, _neighbours(sop)):
+        for side, (link, buf) in enumerate(zip(links, (lh, rh))):
+            if link is None or link[0] == "local":
+                continue
+            q, peer = link[1], mesh.owner(*divmod(link[1], P))
+            sends.append((peer, 2 * q + 1 - side, v.narrow(-1, 0 if side == 0 else v.shape[-1] - H, H)))
+            recvs.append((peer, 2 * sh.index + side, buf))
+    if not recvs or H == 0:
+        return
+    dev = vs[0].device
+    staged = dev.type == "cuda" and dist.get_backend() != "nccl"
+    if staged:
+        torch.cuda.current_stream(dev).synchronize()     # the exchange alone is timed
+    t0 = time.perf_counter()
+    if staged:
+        out = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t) for _, _, t in sends]
+        into = [torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True) for _, _, buf in recvs]
+    else:
+        out, into = [t.contiguous() for _, _, t in sends], [buf for _, _, buf in recvs]
+    ops = ([dist.P2POp(dist.isend, t, peer, tag=tag) for (peer, tag, _), t in zip(sends, out)]
+           + [dist.P2POp(dist.irecv, t, peer, tag=tag) for (peer, tag, _), t in zip(recvs, into)])
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if staged:
+        for (_, _, buf), t in zip(recvs, into):
+            buf.copy_(t, non_blocking=True)
+    nbytes = sum(t.numel() * t.element_size() for t in out)
+    comm_stats.update(halo_calls=1, halo_bytes=nbytes, halo_host_bytes=2 * nbytes * staged,
+                      halo_s=time.perf_counter() - t0)
+
+
 def exchange_halos(sop: ShardedOperator, vs: Sequence[torch.Tensor]
                    ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], List[Optional[torch.cuda.Event]]]:
     """Per shard (left halo, right halo), each (d_f, …, H): the last H columns
     of the left neighbour and the first H of the right one, zeros at the chain
     ends; and per shard the event after which its halos are complete on its
     side stream (None where the copies ran on the current stream: CPU shards
-    and the ring route's CUDA shards, which have no side stream)."""
-    H, P = sop.halo, sop.n_mode
+    and the ring route's CUDA shards, which have no side stream). A
+    neighbour's edge from another process arrives on the current stream."""
+    H = sop.halo
     halos = _halo_buffers(sop, vs)
     ready = ({sh.device: torch.cuda.current_stream(sh.device).record_event() for sh in sop.shards}
              if any(sh.side is not None for sh in sop.shards) else {})
     events = []
-    for q, (sh, (lh, rh)) in enumerate(zip(sop.shards, halos)):
-        p = q % P
-        copies = [(lh, q - 1, vs[q - 1].shape[-1] - H)] if p > 0 else []
-        if p < P - 1:
-            copies.append((rh, q + 1, 0))
-        if H == 0:
-            copies = []
+    for sh, (lh, rh), (left, right) in zip(sop.shards, halos, _neighbours(sop)):
+        copies = []
+        if H > 0 and left is not None and left[0] == "local":
+            copies.append((lh, left[1], vs[left[1]].shape[-1] - H))
+        if H > 0 and right is not None and right[0] == "local":
+            copies.append((rh, right[1], 0))
         if sh.side is None:
             for buf, src, start in copies:
                 buf.copy_(vs[src].narrow(-1, start, H))
@@ -106,6 +175,8 @@ def exchange_halos(sop: ShardedOperator, vs: Sequence[torch.Tensor]
             if vs[src].device == sh.device:
                 vs[src].record_stream(sh.side)
         events.append(sh.side.record_event())
+    if sop.mesh.processes > 1:
+        _exchange_remote(sop, vs, halos)
     return halos, events
 
 
@@ -117,19 +188,38 @@ def spmv_halo_local(op: KroneckerSumOperator, v: torch.Tensor, lhalo: torch.Tens
     return ring_spmv_local(op, v, lhalo, rhalo)
 
 
-def ring_sources(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[Tuple[Optional[Source], Optional[Source]]]:
-    """Each shard's (left, right) source for the ring kernel: the
-    neighbouring shards' own v, read in place (the left one's last H columns
-    from base nl, the right one's first H from base 0); None at the two ends
-    of each factor group's chain."""
-    P = sop.n_mode
-    return [(Source(vs[q - 1], vs[q - 1].shape[-1]) if q % P > 0 else None,
-             Source(vs[q + 1], 0) if q % P < P - 1 else None) for q in range(len(vs))]
+def ring_sources(sop: ShardedOperator, vs: Sequence[torch.Tensor],
+                 halos: Optional[Sequence[Tuple[torch.Tensor, torch.Tensor]]] = None
+                 ) -> List[Tuple[Optional[Source], Optional[Source]]]:
+    """Each shard's (left, right) source for the ring kernel: a neighbouring
+    shard of this process is its own v, read in place (the left one's last H
+    columns from base nl, the right one's first H from base 0); a neighbour
+    in another process is this shard's halo buffer in halos, which
+    _exchange_remote filled (base H on the left, 0 on the right); None at the
+    two ends of each factor group's chain."""
+    H = sop.halo
+    out = []
+    for i, links in enumerate(_neighbours(sop)):
+        pair = []
+        for side, link in enumerate(links):
+            if link is None:
+                pair.append(None)
+            elif link[0] == "local":
+                pair.append(Source(vs[link[1]], vs[link[1]].shape[-1] if side == 0 else 0))
+            else:
+                pair.append(Source(halos[i][side], H if side == 0 else 0))
+        out.append(tuple(pair))
+    return out
 
 
 def _spmv_ring_cuda(sop: ShardedOperator, vs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """One ring launch per card (sop.ring), with the neighbours' edges read in place."""
-    sources = ring_sources(sop, vs)
+    """One ring launch per card (sop.ring), with the neighbours' edges read
+    in place, or from the halo buffers where they live in another process."""
+    halos = None
+    if sop.mesh.processes > 1:
+        halos = _halo_buffers(sop, vs)
+        _exchange_remote(sop, vs, halos)
+    sources = ring_sources(sop, vs, halos)
     if len(sop.ring) == 1:
         return sop.ring[0][2](vs, [s[0] for s in sources], [s[1] for s in sources])
     ready = {dev: torch.cuda.current_stream(dev).record_event() for dev, _, _ in sop.ring}

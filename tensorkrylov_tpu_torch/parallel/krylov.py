@@ -11,6 +11,15 @@ n-sized dot is a partial sum on its piece; the partials go to the lead device
 and are summed there in shard order (``psum``: the JAX package's collective),
 and what the pieces need of the result goes back to them (``scatter``).
 
+Across processes (``multihost.make_pod_mesh``) a rank holds the pieces of
+the shards it owns. ``psum`` all-gathers every shard's partial and adds them
+on every rank in the same shard order, never by an all-reduce, whose order
+is the backend's: the k-sized values are then the same bits on every rank
+and the same as one controller's on the same layout, and every branch on
+them (a convergence test, the auto reorthogonalization's probe, a lucky
+breakdown) goes the same way on every rank, which keeps their collectives in
+step. ``whole`` all-gathers the pieces, so every rank returns the same x.
+
 An unsharded solve is the one-piece case: its operator is a
 ``KroneckerSumOperator``, its vectors are plain tensors, ``psum`` returns
 the one partial and ``scatter`` the tensor itself, so the steps run the same
@@ -25,7 +34,7 @@ import torch
 
 from ..ops.banded import spmv
 from .halo import spmv_sharded
-from .sharding import ShardedOperator, gather
+from .sharding import ShardedOperator, allgather, gather
 
 __all__ = ["pieces", "like", "psum", "scatter", "norms", "spmv_pieces", "piece_ranges", "whole"]
 
@@ -43,10 +52,12 @@ def like(x, ps: list):
 def psum(op, partials: Sequence[torch.Tensor]) -> torch.Tensor:
     """Per-piece partial sums (d_f, …) → (d, …) on the lead device: the mode
     shards of each factor group summed in shard order, the groups stacked in
-    factor order. One piece: its partial."""
+    factor order (across processes, every shard's partial all-gathered
+    first). One piece: its partial."""
     if not isinstance(op, ShardedOperator):
         return partials[0]
     P, lead = op.n_mode, op.device
+    partials = allgather(op.mesh, partials, "psum")
     rows = []
     for g in range(len(partials) // P):
         acc = partials[g * P].to(lead)
@@ -67,8 +78,9 @@ def scatter(op, t: torch.Tensor) -> List[torch.Tensor]:
 def norms(op, xs: Sequence[torch.Tensor], dim: int = -1) -> torch.Tensor:
     """The vector norms along dim (the n axis) over pieces, on the lead
     device: torch.linalg.vector_norm of one piece; the square root of the
-    psum of the pieces' sums of squares for several."""
-    if len(xs) == 1:
+    psum of the pieces' sums of squares for several (a rank's one piece of
+    a layout across processes is one of several)."""
+    if len(xs) == 1 and not (isinstance(op, ShardedOperator) and op.n_shards > 1):
         return torch.linalg.vector_norm(xs[0], dim=dim)
     return torch.sqrt(psum(op, [torch.sum(x * x, dim=dim) for x in xs]))
 
@@ -91,7 +103,7 @@ def piece_ranges(op, V) -> List[Tuple[Tuple[int, int], Tuple[int, int]]]:
 
 def whole(op, x, axis: int = -1, factor_axis: int = 0) -> torch.Tensor:
     """x whole on the lead device: pieces gathered along axis (the mode axis)
-    and factor_axis; one piece as it is."""
+    and factor_axis (across processes, on every rank); one piece as it is."""
     if not isinstance(x, list):
         return x
     return gather(x, op.mesh, axis=axis, factor_axis=factor_axis)

@@ -22,13 +22,24 @@ JAX package replicates it. A mesh may carry an 'rhs' axis over its grid
 (``make_mesh(rhs_parallel=G)``): G groups, each a ('factor', 'mode') grid of
 its own, over which solve_multi_rhs spreads its right-hand sides; an operator
 or a vector is split over one grid.
+
+A mesh may span processes (``multihost.make_pod_mesh``): each slot then has
+an owner rank, and every process builds and holds only the shards of the
+slots it owns (a ShardedOperator's ``shards``, a vector's pieces, in shard
+order). What needs every shard's piece, a psum's partials or a gathered
+vector, is all-gathered (``allgather``): each rank then has the same whole,
+and its lead device, its first owned slot's, runs the same projected stage.
+A one-process mesh is the case where this process owns every slot.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops import _build
@@ -36,9 +47,15 @@ from ..ops.ring_spmv import RingLaunch, halo_width
 from ..types import KroneckerSumOperator, SolveResult, SolverConfig
 
 __all__ = ["Mesh", "Shard", "ShardedOperator", "make_mesh", "shard_operator", "shard_rhs", "rhs_pieces", "shard_basis",
-           "gather", "solve_sharded"]
+           "gather", "allgather", "comm_stats", "solve_sharded"]
 
 COMMS = ("gspmd", "ring")
+
+# Cross-process traffic since the last clear(): for each kind ('psum': the
+# partial sums' all-gathers; 'gather': whole vectors; 'halo': the edges) its
+# calls, its bytes (this rank's share sent), the bytes that went through
+# pinned host buffers, and the seconds it took on the host's clock.
+comm_stats: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +68,17 @@ class Mesh:
     devices: Tuple[Tuple[torch.device, ...], ...]
     axis_names: Tuple[str, ...] = ("factor", "mode")
     groups: Tuple[Tuple[Tuple[torch.device, ...], ...], ...] = ()
+    # across processes: the rank that owns each slot (its device is named as
+    # that rank names it) and this process's rank; () is one process
+    ranks: Tuple[Tuple[int, ...], ...] = ()
+    rank: int = 0
+
+    def __post_init__(self):
+        if self.processes > 1 and self.groups:
+            raise NotImplementedError("a mesh with rhs groups across processes is not ported: solve_multi_rhs runs "
+                                      "its groups in turn under one controller (ROADMAP.md Queue 1, #14)")
+        if self.ranks and not any(self.rank in row for row in self.ranks):
+            raise ValueError(f"process {self.rank} owns no slot of the mesh {self.ranks}")
 
     @property
     def shape(self) -> dict:
@@ -58,9 +86,22 @@ class Mesh:
         return {"rhs": len(self.groups), **grid} if self.groups else grid
 
     @property
+    def processes(self) -> int:
+        """How many processes own slots of the mesh."""
+        return len({r for row in self.ranks for r in row}) if self.ranks else 1
+
+    def owner(self, g: int, p: int) -> int:
+        """The rank that owns slot (g, p)."""
+        return self.ranks[g][p] if self.ranks else self.rank
+
+    def owns(self, g: int, p: int) -> bool:
+        return self.owner(g, p) == self.rank
+
+    @property
     def lead(self) -> torch.device:
-        """Where the replicated projected stage and the gathered results live."""
-        return self.devices[0][0]
+        """Where the replicated projected stage and the gathered results live:
+        this process's first slot."""
+        return next(dev for g, row in enumerate(self.devices) for p, dev in enumerate(row) if self.owns(g, p))
 
     def rhs_groups(self) -> Tuple["Mesh", ...]:
         """Each rhs group's ('factor', 'mode') grid as a mesh; a 2-D mesh is its own one group."""
@@ -127,6 +168,23 @@ def _factor_groups(mesh: Mesh, d: int) -> List[Tuple[int, int]]:
     return [(0, d)]
 
 
+def _owned(mesh: Mesh, d: int) -> List[Tuple[int, int, int, Tuple[int, int]]]:
+    """(shard index q = g·n_mode + p, g, p, factors) of the shards in use that
+    this process owns, in shard order. Across processes every rank must own
+    as many of them (an all-gather stacks one piece per shard), so a layout
+    that leaves a rank idle raises."""
+    P = mesh.shape["mode"]
+    used = [(g * P + p, g, p, fr) for g, fr in enumerate(_factor_groups(mesh, d)) for p in range(P)]
+    if mesh.processes > 1:
+        counts = collections.Counter(mesh.owner(g, p) for _, g, p, _ in used)
+        owners = {r for row in mesh.ranks for r in row}
+        if set(counts) != owners or len(set(counts.values())) != 1:
+            raise ValueError(f"the {len(used)} shards in use for d={d} on the mesh {mesh.shape} fall unevenly on its "
+                             f"processes ({dict(counts)} of {sorted(owners)}): every rank must own as many; take "
+                             f"factor_parallel dividing d, or 1")
+    return [u for u in used if mesh.owns(u[1], u[2])]
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
     """One slot's part of the operator: factors [s0, s1), columns [c0, c1).
@@ -138,12 +196,14 @@ class Shard:
     cols: Tuple[int, int]
     op: KroneckerSumOperator
     side: Optional[torch.cuda.Stream]  # where the shard's halos are copied (CUDA shards of 'gspmd')
+    index: int                         # q = g·n_mode + p in the whole layout
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedOperator:
     """A Kronecker-sum operator split over a mesh; shards are group-major
-    (shard g·n_mode + p holds factor group g, mode slice p). comm selects the
+    (shard g·n_mode + p holds factor group g, mode slice p), this process's
+    own only where the mesh spans processes. comm selects the
     per-shard SpMV: 'ring' the ring kernel, 'gspmd' the banded_spmv kernel on
     the halo-extended slab. ring holds, for CUDA shards of 'ring', each
     card's (device, shard indices, RingLaunch), its bands checked once.
@@ -169,6 +229,11 @@ class ShardedOperator:
         return halo_width(self.offsets)
 
     @property
+    def n_shards(self) -> int:
+        """The shards of the whole layout, every process's."""
+        return len(_factor_groups(self.mesh, self.d)) * self.n_mode
+
+    @property
     def dtype(self) -> torch.dtype:
         return self.shards[0].op.dtype
 
@@ -187,16 +252,11 @@ class ShardedOperator:
 
     def leading_bands(self, cols: int) -> torch.Tensor:
         """The operator's bands at columns [0, cols), (d, nb, cols) on the lead
-        device, from the shards that hold them (a gspmd shard's own columns
-        sit at [H, H + n_local) of its slab)."""
+        device: the shards' own columns (a gspmd shard's sit at [H, H +
+        n_local) of its slab) gathered, then cut."""
         H = self.halo if self.comm == "gspmd" else 0
-        P = self.n_mode
-        rows = []
-        for g in range(len(self.shards) // P):
-            parts = [sh.op.bands[..., H:H + min(sh.cols[1], cols) - sh.cols[0]].to(self.device)
-                     for sh in self.shards[g * P:(g + 1) * P] if sh.cols[0] < cols]
-            rows.append(torch.cat(parts, dim=-1))
-        return torch.cat(rows)
+        own = [sh.op.bands[..., H:H + sh.cols[1] - sh.cols[0]] for sh in self.shards]
+        return gather(own, self.mesh)[..., :cols]
 
 
 def _split(x: torch.Tensor, mesh: Mesh, d: int, factor_axis: int = 0) -> List[torch.Tensor]:
@@ -207,18 +267,17 @@ def _split(x: torch.Tensor, mesh: Mesh, d: int, factor_axis: int = 0) -> List[to
     if n % P:
         raise ValueError(f"n={n} is not a multiple of the {P} mode shards")
     nl = n // P
-    pieces = []
-    for g, (s0, s1) in enumerate(_factor_groups(mesh, d)):
-        rows = x.narrow(factor_axis, s0, s1 - s0)
-        pieces += [rows[..., p * nl:(p + 1) * nl].contiguous().to(mesh.devices[g][p]) for p in range(P)]
-    return pieces
+    return [x.narrow(factor_axis, s0, s1 - s0)[..., p * nl:(p + 1) * nl].contiguous().to(mesh.devices[g][p])
+            for _, g, p, (s0, s1) in _owned(mesh, d)]
 
 
 def _enable_ring_peers(mesh: Mesh) -> None:
     """The ring kernel reads its neighbours' v in place, so each card must
     reach its chain neighbours' memory: peer access both ways, or an error
-    that names the route that copies instead."""
-    pairs = {(a.index, b.index) for row in mesh.devices for x, y in zip(row, row[1:])
+    that names the route that copies instead. A neighbour in another process
+    is not read in place: its edge comes as a halo (parallel/halo.py)."""
+    pairs = {(a.index, b.index) for g, row in enumerate(mesh.devices) for p, (x, y) in enumerate(zip(row, row[1:]))
+             if mesh.owns(g, p) and mesh.owns(g, p + 1)
              for a, b in ((x, y), (y, x)) if a.type == "cuda" and a != b}
     for a, b in sorted(pairs):
         if not torch.cuda.can_device_access_peer(a, b):
@@ -247,13 +306,12 @@ def shard_operator(op: KroneckerSumOperator, mesh: Mesh, comm: str = "gspmd") ->
     # gspmd: column c of the operator at c + H, so a shard's slab starts at c0
     bands, width = (op.bands, nl) if comm == "ring" else (F.pad(op.bands, (H, H)), nl + 2 * H)
     shards = []
-    for g, (s0, s1) in enumerate(_factor_groups(mesh, op.d)):
-        for p in range(P):
-            dev, c0 = mesh.devices[g][p], p * nl
-            mine = bands[s0:s1, :, c0:c0 + width].contiguous().to(dev)
-            side = torch.cuda.Stream(device=dev) if dev.type == "cuda" and comm == "gspmd" else None
-            shards.append(Shard(dev, (s0, s1), (c0, c0 + nl), KroneckerSumOperator(mine, op.offsets, op.symmetric),
-                                side))
+    for q, g, p, (s0, s1) in _owned(mesh, op.d):
+        dev, c0 = mesh.devices[g][p], p * nl
+        mine = bands[s0:s1, :, c0:c0 + width].contiguous().to(dev)
+        side = torch.cuda.Stream(device=dev) if dev.type == "cuda" and comm == "gspmd" else None
+        shards.append(Shard(dev, (s0, s1), (c0, c0 + nl), KroneckerSumOperator(mine, op.offsets, op.symmetric),
+                            side, q))
     ring = _ring_launches(shards) if comm == "ring" and shards[0].device.type == "cuda" else ()
     return ShardedOperator(mesh, tuple(shards), op.offsets, op.symmetric, op.d, op.n, comm, ring)
 
@@ -315,16 +373,47 @@ def shard_basis(U: torch.Tensor, mesh: Mesh, d: int) -> List[torch.Tensor]:
     if n % P:
         raise ValueError(f"n={n} is not a multiple of the {P} mode shards")
     nl = n // P
-    out = []
-    for g, (s0, s1) in enumerate(_factor_groups(mesh, d)):
-        rows = U if U.shape[0] == 1 else U[s0:s1]
-        out += [rows[:, p * nl:(p + 1) * nl].contiguous().to(mesh.devices[g][p]) for p in range(P)]
-    return out
+    return [(U if U.shape[0] == 1 else U[s0:s1])[:, p * nl:(p + 1) * nl].contiguous().to(mesh.devices[g][p])
+            for _, g, p, (s0, s1) in _owned(mesh, d)]
+
+
+def allgather(mesh: Mesh, xs: Sequence[torch.Tensor], kind: str = "gather") -> List[torch.Tensor]:
+    """Every shard's tensor, in shard order, from this process's xs (one per
+    shard it owns): xs themselves on a one-process mesh; across processes
+    all-gathered, each rank's stacked (one shape and dtype), so that every
+    rank gets the same list. On gloo, which gathers host tensors only, CUDA
+    tensors go through pinned host buffers; NCCL gathers them on the card.
+    The received tensors land on xs[0]'s device; comm_stats counts them
+    under kind."""
+    if mesh.processes == 1:
+        return list(xs)
+    dev = xs[0].device
+    stacked = torch.stack([x.to(dev) for x in xs])
+    staged = dev.type == "cuda" and dist.get_backend() != "nccl"
+    if staged:
+        torch.cuda.current_stream(dev).synchronize()     # the exchange alone is timed
+    t0 = time.perf_counter()
+    if staged:
+        send = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+        send.copy_(stacked)
+        recv = [torch.empty_like(send, pin_memory=True) for _ in range(dist.get_world_size())]
+        dist.all_gather(recv, send)
+        recv = [t.to(dev, non_blocking=True) for t in recv]
+    else:
+        recv = [torch.empty_like(stacked) for _ in range(dist.get_world_size())]
+        dist.all_gather(recv, stacked)
+    nbytes = stacked.numel() * stacked.element_size()
+    comm_stats.update({f"{kind}_calls": 1, f"{kind}_bytes": nbytes, f"{kind}_host_bytes": nbytes * staged * len(recv),
+                       f"{kind}_s": time.perf_counter() - t0})
+    return [x for t in recv for x in t.unbind(0)]
 
 
 def gather(pieces: Sequence[torch.Tensor], mesh: Mesh, axis: int = -1, factor_axis: int = 0) -> torch.Tensor:
     """The inverse of the split: the pieces of each factor group joined along
-    axis (the mode axis), the groups along factor_axis, on the lead device."""
+    axis (the mode axis), the groups along factor_axis, on the lead device.
+    Across processes the pieces are this rank's and are all-gathered first:
+    every rank returns the whole."""
+    pieces = allgather(mesh, pieces)
     P = mesh.shape["mode"]
     rows = [torch.cat([x.to(mesh.lead) for x in pieces[g * P:(g + 1) * P]], dim=axis)
             for g in range(len(pieces) // P)]

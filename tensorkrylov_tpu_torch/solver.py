@@ -457,6 +457,11 @@ def solve_resumable(op: KroneckerSumOperator, b, config: Optional[SolverConfig] 
     solve()'s bit for bit."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if checkpoint_path and isinstance(op, ShardedOperator) and op.mesh.processes > 1:
+        raise NotImplementedError("solve_resumable(checkpoint_path=) over a mesh across processes is not ported: "
+                                  "each rank holds only its basis pieces, and every rank would write the one "
+                                  "checkpoint; chunk without a checkpoint, or use a one-process mesh "
+                                  "(ROADMAP.md Queue 1, #13)")
     p, carry = _setup(op, b, config, tables)
     if resume and checkpoint_path:
         carry = load_carry(checkpoint_path, carry)

@@ -507,6 +507,73 @@ def test_ring_kernel_shard_exactly_halo_wide(cuda, dtype):
     assert torch.equal(gather(got, sop.mesh).cpu(), on_cpu)
 
 
+# one rank of test_ring_two_processes: 2 slots of its card, layout 'mode' across the ranks
+_RING_RANK = """
+import hashlib, sys
+import numpy as np, torch
+import tensorkrylov_tpu_torch as tkt
+from tensorkrylov_tpu_torch.ops import _build
+from tensorkrylov_tpu_torch.parallel import distribute_problem, gather, init_distributed, make_pod_mesh
+from tensorkrylov_tpu_torch.parallel.halo import spmv_sharded
+init_distributed(f"localhost:{sys.argv[1]}", 2, int(sys.argv[2]), 2)
+bands = torch.tensor(np.load(sys.argv[3]), device="cuda:0")
+op = tkt.KroneckerSumOperator(bands, (-2, -1, 0, 1, 2))
+v = torch.tensor(np.load(sys.argv[4]), device="cuda:0")
+sop, vs = distribute_problem(op, v, make_pod_mesh(factor_parallel=1), "ring")
+_build.launches.clear()
+us = spmv_sharded(sop, vs)
+torch.cuda.synchronize()
+launches = dict(_build.launches)
+u = gather(us, sop.mesh)
+print("RING", torch.distributed.get_backend(), launches, hashlib.sha256(u.cpu().numpy().tobytes()).hexdigest())
+"""
+
+
+@pytest.mark.parametrize("cards", [1, 2])
+def test_ring_two_processes(cuda, tmp_path, cards):
+    """Two ranks, each owning 2 of 4 mode shards of a pentadiagonal operator,
+    on cuda:0 (cards=1: gloo, the ranks share the card) or on a card each
+    (cards=2: NCCL): each rank launches the ring kernel once, reading the
+    other rank's edge from a received halo buffer, and the gathered result
+    equals the single-process ring SpMV bit for bit."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA devices")
+    import hashlib
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    offsets = RING_OFFSETS["penta"]
+    op = _op(offsets, 3, 4 * 1000, 31, torch.float64, cuda)
+    v = torch.randn((3, 4 * 1000), dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(32))
+    got, sop, _ = _ring_on([cuda] * 4, op, v)
+    want = hashlib.sha256(gather(got, sop.mesh).cpu().numpy().tobytes()).hexdigest()
+    np.save(tmp_path / "bands.npy", op.bands.cpu().numpy())
+    np.save(tmp_path / "v.npy", v.cpu().numpy())
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if cards == 1:
+        env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    procs = [subprocess.Popen([sys.executable, "-c", _RING_RANK, str(port), str(r), str(tmp_path / "bands.npy"),
+                               str(tmp_path / "v.npy")], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=repo) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        line = next(ln for ln in out.splitlines() if ln.startswith("RING "))
+        assert line == f"RING {'gloo' if cards == 1 else 'nccl'} {{'ring_spmv': 1}} {want}", line
+
+
 def test_ring_kernel_across_two_cards(cuda):
     """4 shards alternating over two cards: each card's one launch reads its
     neighbours' edges over peer access."""
