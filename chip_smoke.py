@@ -5,6 +5,9 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases, one output line each:
   1. device  — a CUDA device whose name contains H100 (and the nvidia-smi line);
+     tables  — the Braess–Hackbusch tables every solve reads (load_tables' default):
+               their path, which must lie inside tensorkrylov_tpu_torch/, sha256, and
+               the ms of three load_tables onto the card;
   2. build   — nvcc builds the kernels in tensorkrylov_tpu_torch/ops/csrc;
   3. kernels — each CUDA kernel against its plain PyTorch version on the card
                (the SpMV in f64 and f32; the fused core in f64 and f32, bit
@@ -125,6 +128,8 @@ without CUDA and a directory without the package.
 """
 import contextlib
 import dataclasses
+import hashlib
+import inspect
 import io
 import json
 import math
@@ -292,6 +297,30 @@ def phase_device():
     emit("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi_line,
          torch=torch.__version__, cuda=torch.version.cuda)
     return name, smi_line
+
+
+def phase_tables(tkt, dev=torch.device("cuda")):
+    """The exp-sum tables' file that every solve reads: the port's own copy,
+    and the host ms of load_tables onto dev (each solve's setup calls it)."""
+    from tensorkrylov_tpu_torch.coeffs.tables import load_tables
+
+    path = os.path.realpath(inspect.signature(load_tables).parameters["path"].default)
+    pkg = os.path.realpath(os.path.dirname(tkt.__file__))
+    require(os.path.commonpath([path, pkg]) == pkg, f"the tables {path} lie outside the port's package {pkg}")
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    torch.zeros(1, device=dev)  # the context exists before the clock starts
+    load_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tables = load_tables(device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        load_ms.append(1e3 * (time.perf_counter() - t0))
+    require(tables.omega.shape[1:] == (63, 63) and bool(torch.isfinite(tables.R_values).all()),
+            f"the tables' arrays: omega {tuple(tables.omega.shape)}")
+    emit("tables", path=os.path.relpath(path, REPO), sha256=digest, bytes=os.path.getsize(path),
+         load_tables_ms=load_ms, device=str(dev))
 
 
 def phase_build():
@@ -2397,6 +2426,7 @@ def main():
         return 1
     try:
         name, _ = phase_device()
+        phase_tables(tkt)
         phase_build()
         worst, times, extra = phase_kernels(tkt)
         phase_golden(tkt)

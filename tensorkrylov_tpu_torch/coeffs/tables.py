@@ -1,10 +1,11 @@
 """Exponential-sum rank and coefficient selection: counterpart of
 ``tensorkrylov_tpu/coeffs/tables.py``.
 
-The Braess–Hackbusch tables are the JAX package's packed file, read by path
-with numpy (``tensorkrylov_tpu/coeffs/data/bh_tables.npz``); importing the JAX
-package would import jax. Selection is tensor code on the tables' device, so
-the solver loop does not wait for the host.
+The Braess–Hackbusch tables are the port's own packed file,
+``coeffs/data/bh_tables.npz`` beside this module, read with numpy; it holds
+the same arrays as the JAX package's file, and ``coeffs/preprocess.py``
+repacks it from the reference's raw files. Selection is tensor code on the
+tables' device, so the solver loop does not wait for the host.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 TMAX = 63
-DEFAULT_NPZ = Path(__file__).resolve().parents[2] / "tensorkrylov_tpu" / "coeffs" / "data" / "bh_tables.npz"
+DEFAULT_NPZ = Path(__file__).resolve().parent / "data" / "bh_tables.npz"
 
 __all__ = ["BHTables", "ExpSumCoeffs", "load_tables", "select_bh", "stenger_eps", "select_stenger", "TMAX"]
 

@@ -334,7 +334,7 @@ def test_gloo_group_starts_on_the_cpu(how):
     else:
         argvs = [[sys.executable, "-c", _GROUP.format(args=f"'localhost:{port}', 2, {r}")] for r in range(2)]
     out = "".join(_run_workers(argvs))
-    assert sorted(re.findall(r"GROUP .*", out)) == ["GROUP 0 gloo 2", "GROUP 1 gloo 2"]
+    assert sorted(re.findall(r"GROUP \d+ \w+ \d+", out)) == ["GROUP 0 gloo 2", "GROUP 1 gloo 2"]
 
 
 # ---- the 2-process smoke ----

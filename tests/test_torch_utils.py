@@ -125,7 +125,7 @@ def test_no_jax_in_any_submodule():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     names = proc.stdout.splitlines()[0]
     for name in ("parallel.multihost", "parallel._smoke", "utils.profiling", "utils.julia_serial", "solver",
-                 "ops.ring_spmv", "experiments.northstar"):
+                 "ops.ring_spmv", "experiments.northstar", "coeffs.preprocess", "native"):
         assert f"'tensorkrylov_tpu_torch.{name}'" in names
 
 
