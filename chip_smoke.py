@@ -26,13 +26,22 @@ Phases, one output line each:
                pentadiagonal operator through the 5-band instantiation and,
                forced, the generic one, each timed; its plan (M, T) on the
                phase's line, the launches of one m=200 call on the kernels
-               line);
+               line); the tridiagonal eigensolver (tridiag_eigh) in f64 against its
+               plain version, limit 0.0 on w and Q before Newton–Schulz: the slice's
+               own Lanczos T (d=10, K=201) at k = 1, 29, 200, 201, the flagship
+               operator's at K=513, k=384, Wilkinson's W21+ and a plain-Lanczos T
+               with ghost copies; timed at the slice's last check (K=201, k=29) and
+               at K=513, k=384 beside torch.linalg.eigh of the same padded batch;
   4. golden  — tests/golden_laplace_d4_n100.json reproduced on the card, and the
                dense-oracle residual at d=3, n=30;
   5. slice   — reaction_diffusion(d=10, n=131072), f64, kmax=200, tol=1e-8, with
                the default step and with the fused step; the kernel launch counts
-               must equal the Krylov steps;
-  6. card_vs_cpu — the same two solves at d=10, n=4096 on the card and on the CPU;
+               must equal the Krylov steps, and eigh_impl must resolve to
+               'tridiag_mixed' with one tridiag_eigh launch per check; a third run
+               with eigh_impl='dense' holds the default one's traces (residual
+               within 1e-7, λ within 1e-12);
+  6. card_vs_cpu — the same two solves at d=10, n=4096 on the card and on the CPU,
+               both with eigh_impl='tridiag_mixed' (its plain version on the CPU);
   7. host_projected — solve_host_projected on the slice's problem with plain f32
                Lanczos, through the resident kernel (one launch per segment) and
                through the unfused step; the resident route at n=4096 on the card
@@ -73,7 +82,9 @@ Phases, one output line each:
                at the JAX package's mid shape (d=10, n=16384, κ=1e5, m=256) 'full' and
                'twopass' with plain Lanczos, equal bit for bit in T and the bounds,
                'segmented', and a twopass stopped at k=64 and resumed from its state
-               cache equal to the uninterrupted one; d=3, n=30 on the card and the CPU;
+               cache equal to the uninterrupted one; d=3, n=30 on the card and the CPU
+               (both eigh_impl='tridiag_mixed'); the flagship's default run (the
+               tridiagonal eigensolver) beside an eigh_impl='dense' run;
  12. recorded — the recorded-relation certificates: the flagship through
                storage='df64', final='device' with the TPU's recipe (phase 11's basis),
                certified below 1e-8 on the measured full Gram, the cross-check not
@@ -160,12 +171,33 @@ RESIDENT_SPMV_APPLIES = 200  # applies per multi-apply call in phase 3: the benc
 SHARDS = 4                # mode shards of phase 9, all on cuda:0
 KRON_RANK = 63            # columns of one kron_apply_cp of a tmax=63 solution (phase 3's SpMV shape)
 SHARDED_TRACE_RTOL, SHARDED_TRACE_ATOL = 1e-8, 1e-12  # sharded vs unsharded solve (tests/test_sharding.py:42-46)
+SLICE_DENSE_TRACE_RTOL = 1e-7      # default (tridiagonal eigh) vs dense run: traces (tests/test_solver.py:248-261)
+SLICE_DENSE_SPECTRUM_RTOL = 1e-12  # and their λ_min, λ_max traces
+TRIDIAG_SLICE_K = 201              # the slice's K (kmax 200 + 1)
+TRIDIAG_SLICE_KS = (1, 29, 200, 201)
+TRIDIAG_FLAGSHIP = dict(K=513, k=384, kappa=1e6)  # the flagship's kmax 512 and its deciding checkpoint
 HBM_BYTES_PER_S = 3.35e12                                     # H100 SXM device memory
 PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 34e12}    # outside the tensor cores
 
 
 class Failed(Exception):
     pass
+
+
+# tridiag_eigh launches of the main-path runs that the phases read, summed for the kernels line
+EIGH_TALLY = {"tridiag_eigh": 0}
+
+
+def tally(counts):
+    """Adds a run's tridiag_eigh launches to EIGH_TALLY; returns counts."""
+    EIGH_TALLY["tridiag_eigh"] += counts.get("tridiag_eigh", 0)
+    return counts
+
+
+def eigh_launches(dev, checks):
+    """The tridiag_eigh launches a solve with eigh_impl='auto' makes: one per
+    check on the card, none on the CPU (where 'auto' is the dense eigh)."""
+    return {"tridiag_eigh": checks} if dev.type == "cuda" and checks else {}
 
 
 def emit(phase, **fields):
@@ -510,11 +542,12 @@ def phase_kernels(tkt):
     }
     bench_shape = phase_kernels_bench_shape(checks)
     resident_spmv = phase_kernels_resident_spmv(tkt, checks, worst, times, extra)
+    tridiag = phase_kernels_tridiag(tkt, checks, worst, times, extra)
     emit("kernels", ok=True, checks=checks,
          ms_at_d10_n131072={k: {"kernel": t[0], "plain": t[1], "dtype": "float32" if k == "resident_lanczos"
-                                else "float64"} for k, t in times.items() if k != "resident_spmv"},
+                                else "float64"} for k, t in times.items() if k not in ("resident_spmv", "tridiag_eigh")},
          fused_d10_n131072_f64=fused, resident_steps_per_call=STEPS, resident_cluster_d10_n131072=resident_g,
-         ms_at_bench_shape=bench_shape, resident_spmv=resident_spmv, bounds=extra)
+         ms_at_bench_shape=bench_shape, resident_spmv=resident_spmv, tridiag_eigh=tridiag, bounds=extra)
     return worst, times, extra
 
 
@@ -651,6 +684,104 @@ def phase_kernels_resident_spmv(tkt, checks, worst, times, extra):
                 computed_no_fma_floor_ms=flops / (PEAK_FLOP_S[torch.float32] / 2) * 1e3)
 
 
+def lanczos_H(op, b, steps, reorth=True):
+    """H (d, steps+1, steps+1) after `steps` f64 Lanczos steps on op's device
+    (reorthogonalized, or the plain recurrence)."""
+    from tensorkrylov_tpu_torch.ops.orth import init_state, lanczos_step
+
+    st, _ = init_state(op, b, steps, torch.float64)
+    for k in range(1, steps + 1):
+        st, _ = lanczos_step(op, st, b, k, reorth=reorth, proj_dtype=torch.float64)
+    return st.H
+
+
+def tridiag_work(H, k, stats):
+    """Bytes (T's 2k−1 entries per factor read, w and Q written) and f64
+    operations of one tridiag_eigh call on H, from the plain version's count
+    of what this input needs (stats: bisection halvings, inverse-iteration
+    solves, cluster Gram–Schmidt pairs and members)."""
+    d, K, _ = H.shape
+    nbytes = 8 * (d * (2 * k - 1) + d * K + d * K * K)
+    flops = (stats["halvings"] * (3 * k + 2) + stats["solves"] * d * k * (13 * k + 1)
+             + stats["mgs_pairs"] * (4 * k - 1) + stats["mgs_members"] * 3 * k)
+    return nbytes, flops
+
+
+def padded_for_masked_eigh(H, k):
+    """The padded batch that masked_eigh hands torch.linalg.eigh: the active
+    block, zero coupling, H[s, 0, 0] on the padded diagonal."""
+    K = H.shape[1]
+    m = (torch.arange(K, device=H.device) < k).to(H.dtype)
+    Wm = H * m[None, :, None] * m[None, None, :]
+    Wm = 0.5 * (Wm + Wm.transpose(1, 2))
+    return Wm + torch.diag_embed((1.0 - m)[None, :] * H[:, 0, 0][:, None])
+
+
+def phase_kernels_tridiag(tkt, checks, worst, times, extra):
+    """The tridiagonal eigensolver against its plain version on the card
+    (limit 0.0 on w and Q before Newton–Schulz) on the slice's own Lanczos T
+    at K=201, k = 1, 29, 200, 201, the flagship operator's T at K=513, k=384,
+    W21+ and a ghost-laden plain-Lanczos T; timed at the slice's last check
+    and at the flagship's shape beside torch.linalg.eigh of the same padded
+    batch (the dense path's one call)."""
+    from tensorkrylov_tpu_torch.ops.eigen import (masked_eigh, masked_eigh_tridiag_mixed,
+                                                  masked_eigh_tridiag_reference, tridiag_eigh)
+
+    dev = torch.device("cuda")
+    op, b = slice_problem(tkt, 131072, dev)
+    H_slice = lanczos_H(op, b, TRIDIAG_SLICE_K - 1)
+    del op, b
+    q = TRIDIAG_FLAGSHIP
+    op = tkt.reaction_diffusion(10, 131072, sigma_for_kappa(131072, q["kappa"]), device=dev)
+    b = unit_rows(np.random.default_rng(1234), (10, 131072), torch.float64, dev)
+    H_flag = lanczos_H(op, b, q["K"] - 1)
+    del op, b
+    w21 = np.diag(np.abs(10.0 - np.arange(21.0))) + np.diag(np.ones(20), 1) + np.diag(np.ones(20), -1)
+    lam = np.concatenate([np.linspace(1.0, 2.0, 197), [4.0, 6.0, 10.0]])
+    ghost_op = tkt.KroneckerSumOperator(torch.tensor(lam[None, None, :], device=dev), (0,))
+    H_ghost = lanczos_H(ghost_op, unit_rows(np.random.default_rng(3), (1, 200), torch.float64, dev), 60,
+                        reorth=False)
+    cases = {f"slice_K201_k{k}": (H_slice, k) for k in TRIDIAG_SLICE_KS}
+    cases.update({"flagship_K513_k384": (H_flag, q["k"]), "wilkinson21": (torch.tensor(w21[None], device=dev), 21),
+                  "ghost_lanczos_K61_k60": (H_ghost, 60)})
+    worst["tridiag_eigh"] = 0.0
+    work = {}
+    for case, (H, k) in cases.items():
+        got = tridiag_eigh(H, k)
+        stats = {}
+        ref = masked_eigh_tridiag_reference(H, k, stats=stats)
+        torch.cuda.synchronize()
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        w, Q = masked_eigh_tridiag_mixed(H, k)
+        orth = float((Q.transpose(1, 2) @ Q - torch.eye(H.shape[1], dtype=H.dtype, device=dev)).abs().max())
+        checks.append(dict(kernel="tridiag_eigh", case=case, dtype="float64", K=H.shape[1], k=k, max_abs_err=err,
+                           limit=0.0, orthonormality_after_newton_schulz=orth, clusters=stats["mgs_members"]))
+        require(err == 0.0, f"tridiag_eigh {case}: error {err}")
+        require(orth <= 1e-13, f"tridiag_eigh {case}: Q is {orth} from orthonormal")
+        worst["tridiag_eigh"] = max(worst["tridiag_eigh"], err)
+        work[case] = (H, k, stats)
+
+    def timed(case, plain_reps):
+        H, k, stats = work[case]
+        Wm = padded_for_masked_eigh(H, k)
+        kernel_ms, plain_ms = time_pair(lambda: masked_eigh_tridiag_reference(H, k), lambda: tridiag_eigh(H, k),
+                                        reps=plain_reps, warm=1)
+        nbytes, flops = tridiag_work(H, k, stats)
+        return dict(case=case, d=H.shape[0], K=H.shape[1], k=k, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                    kernel_ms_200=time_one(lambda: tridiag_eigh(H, k), reps=200, warm=5),
+                    with_newton_schulz_ms=time_one(lambda: masked_eigh_tridiag_mixed(H, k), reps=50, warm=5),
+                    library_ms=time_one(lambda: torch.linalg.eigh(Wm), reps=20, warm=3),
+                    dense_masked_eigh_ms=time_one(lambda: masked_eigh(H, k), reps=20, warm=3),
+                    halvings=stats["halvings"], **bound(nbytes, flops, torch.float64))
+
+    at_slice = timed("slice_K201_k29", 3)
+    at_flagship = timed("flagship_K513_k384", 1)
+    times["tridiag_eigh"] = (at_slice["kernel_ms_200"], at_slice["plain_ms"])
+    extra["tridiag_eigh"] = dict(bound_ms=at_slice["bound_ms"], bound_by=at_slice["bound_by"],
+                                 library_ms=at_slice["library_ms"])
+    return dict(at_slice_last_check=at_slice, at_flagship=at_flagship)
+
+
 def run_solve(tkt, op, b, config, entry="solve", **kwargs):
     """One solve through the entry point tkt.<entry>, with the launch counts set to
     0 just before it and read just after."""
@@ -665,7 +796,7 @@ def run_solve(tkt, op, b, config, entry="solve", **kwargs):
     if op.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return res, wall, dict(_build.launches)
+    return res, wall, tally(dict(_build.launches))
 
 
 def phase_golden(tkt):
@@ -713,7 +844,7 @@ def phase_slice(tkt):
     dev = torch.device("cuda")
     op, b = slice_problem(tkt, 131072, dev)
     runs, launches, traces = {}, {}, {}
-    for name, fields in CONFIGS.items():
+    for name, fields in dict(CONFIGS, dense=dict(CONFIGS["default"], eigh_impl="dense")).items():
         res, wall, counts = run_solve(tkt, op, b, tkt.SolverConfig(**fields))
         k = res.niterations
         final = float(res.relative_residual[k])
@@ -724,14 +855,31 @@ def phase_slice(tkt):
         kernel = "fused_lanczos" if name == "fused" else "banded_spmv"
         require(res.config.step_impl == ("fused" if name == "fused" else "xla"), f"slice {name}: step_impl {res.config.step_impl}")
         require(counts.get(kernel, 0) == k, f"slice {name}: {kernel} launched {counts.get(kernel, 0)} times in {k} steps")
-        launches[kernel] = counts[kernel]
-        traces[name] = res.relative_residual.cpu()
+        # 'auto' is the tridiagonal eigensolver on the card: one launch per check (check_every=1)
+        eigh = "dense" if name == "dense" else "tridiag_mixed"
+        require(res.config.eigh_impl == eigh, f"slice {name}: eigh_impl {res.config.eigh_impl}")
+        require(counts.get("tridiag_eigh", 0) == (0 if name == "dense" else k),
+                f"slice {name}: tridiag_eigh launched {counts.get('tridiag_eigh', 0)} times in {k} checks")
+        if name != "dense":
+            launches[kernel] = counts[kernel]
         runs[name] = dict(status=res.status, niterations=k, final_rel_residual=final, wall_s=wall,
                           iterations_per_s=k / wall, max_memory_allocated=torch.cuda.max_memory_allocated(),
-                          launches=counts, step_impl=res.config.step_impl, orth=res.config.orth)
+                          launches=counts, step_impl=res.config.step_impl, orth=res.config.orth,
+                          eigh_impl=res.config.eigh_impl)
+        traces[name] = dataclasses.replace(res, x=None)
         del res, x  # the next run's peak memory must not count this one's solution
-    emit("slice", d=10, n=131072, sigma=sigma_for_kappa(131072, 1e2), runs=runs)
-    return launches, traces["default"]
+    a, c = traces["default"], traces["dense"]
+    require((a.status, a.niterations) == (c.status, c.niterations),
+            f"slice: default {a.status}/{a.niterations} vs dense {c.status}/{c.niterations}")
+    k = a.niterations
+    vs_dense = {f: float(((getattr(a, f) - getattr(c, f)).abs() / getattr(c, f).abs())[1:k + 1].max())
+                for f in ("relative_residual", "lambda_min", "lambda_max")}
+    require(vs_dense["relative_residual"] <= SLICE_DENSE_TRACE_RTOL, f"slice: default vs dense traces {vs_dense}")
+    require(max(vs_dense["lambda_min"], vs_dense["lambda_max"]) <= SLICE_DENSE_SPECTRUM_RTOL,
+            f"slice: default vs dense spectra {vs_dense}")
+    emit("slice", d=10, n=131072, sigma=sigma_for_kappa(131072, 1e2), runs=runs, default_vs_dense=vs_dense,
+         trace_rtol=SLICE_DENSE_TRACE_RTOL, spectrum_rtol=SLICE_DENSE_SPECTRUM_RTOL)
+    return launches, traces["default"].relative_residual.cpu()
 
 
 def phase_card_vs_cpu(tkt):
@@ -740,7 +888,7 @@ def phase_card_vs_cpu(tkt):
         res = {}
         for dev in ("cuda", "cpu"):
             op, b = slice_problem(tkt, 4096, torch.device(dev))
-            res[dev], _, _ = run_solve(tkt, op, b, tkt.SolverConfig(**fields))
+            res[dev], _, _ = run_solve(tkt, op, b, tkt.SolverConfig(**fields, eigh_impl="tridiag_mixed"))
         gpu, cpu = res["cuda"], res["cpu"]
         require(gpu.status == cpu.status and gpu.niterations == cpu.niterations,
                 f"{name}: card {gpu.status}/{gpu.niterations} vs cpu {cpu.status}/{cpu.niterations}")
@@ -756,7 +904,8 @@ def phase_card_vs_cpu(tkt):
                 f"{name}: residual traces differ by {errs['relative_residual']} > {TRACE_RTOL}")
         require(max(errs["lambda_min"], errs["lambda_max"]) <= SPECTRUM_RTOL, f"{name}: spectra differ by {errs}")
         out[name] = dict(status=gpu.status, niterations=k, **{f"{f}_max_rel_err": e for f, e in errs.items()})
-    emit("card_vs_cpu", d=10, n=4096, trace_rtol=TRACE_RTOL, spectrum_rtol=SPECTRUM_RTOL, runs=out)
+    emit("card_vs_cpu", d=10, n=4096, eigh_impl="tridiag_mixed", trace_rtol=TRACE_RTOL, spectrum_rtol=SPECTRUM_RTOL,
+         runs=out)
 
 
 HOST = dict(kmax=200, tol=1e-8, orth="lanczos", basis_dtype=torch.float32, check_every=8)
@@ -885,7 +1034,7 @@ def entry(fn, *args, **kwargs):
     with contextlib.redirect_stdout(buf):
         out = fn(*args, **kwargs)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, dict(_build.launches), buf.getvalue()
+    return out, time.perf_counter() - t0, tally(dict(_build.launches)), buf.getvalue()
 
 
 def same_bits(a, b):
@@ -1107,7 +1256,7 @@ def phase_sharded(tkt):
         res = solve_sharded(op64, b, cfg, m, comm)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(_build.launches)
+        counts = tally(dict(_build.launches))
         ref, k = refs[cfg.orth], res.niterations
         require((res.status, k) == (ref.status, ref.niterations) and res.status == tkt.Status.CONVERGED,
                 f"sharded {name}: {res.status}/{k} vs unsharded {ref.status}/{ref.niterations}")
@@ -1385,13 +1534,19 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     basis = tkt.deflation_basis(op, q["m"])
     setup_s = time.perf_counter() - t0
     cfg = tkt.SolverConfig(**q["config"])
+    # the same solve with the dense eigh, beside the default (on the card the tridiagonal eigensolver)
+    dense, dense_wall, _ = run_solve(tkt, op, b, dataclasses.replace(cfg, eigh_impl="dense"), "solve_deflated",
+                                     basis=basis, checkpoints=q["checkpoints"], storage="full")
+    dense_row = dict(status=dense.status, niterations=dense.niterations, certified_bound=dense.certified_bound,
+                     wall_s=dense_wall)
+    del dense
     res, wall, counts = run_solve(tkt, op, b, cfg, "solve_deflated", basis=basis, checkpoints=q["checkpoints"],
                                   storage="full")
     k, tol = res.niterations, cfg.tol
     x = res.x.factors
     row = dict(d=q["d"], n=q["n"], kappa=q["kappa"], sigma=sigma_for_kappa(q["n"], q["kappa"]), m=q["m"],
                config=q["config"], storage="full", setup_s=setup_s, **deflated_summary(res, wall, counts, dev),
-               lambda_min=res.lambda_min, lambda_max=res.lambda_max, x_shape=list(x.shape))
+               lambda_min=res.lambda_min, lambda_max=res.lambda_max, x_shape=list(x.shape), eigh_dense=dense_row)
     verdict = row["cross_check_verdict"]
     out["flagship"] = row
     if keep is not None:
@@ -1400,7 +1555,10 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     require(res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < tol,
             f"deflated flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
     require("CONTRADICT" not in verdict, f"deflated flagship: the cross-check contradicts the bound: {verdict}")
-    require(counts == {"banded_spmv": k + xc}, f"deflated flagship: launches {counts} in {k} steps (want {k + xc})")
+    require((res.status, k) == (dense_row["status"], dense_row["niterations"]),
+            f"deflated flagship: {res.status}/{k} vs the dense eigh's {dense_row['status']}/{dense_row['niterations']}")
+    want = {"banded_spmv": k + xc, **eigh_launches(dev, len(res.checkpoints))}
+    require(counts == want, f"deflated flagship: launches {counts} in {k} steps (want {want})")
     require(x.shape[:2] == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device.type == dev.type,
             f"deflated flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
     launched += counts["banded_spmv"]
@@ -1435,15 +1593,16 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     require(t_equal and rt.certified_bound == rf.certified_bound and rt.relative_residual == rf.relative_residual,
             f"deflated mid: twopass's T equal {t_equal}, bounds {rt.certified_bound} vs {rf.certified_bound}")
     require(x_diff <= DEFLATED_X_RTOL, f"deflated mid: twopass x differs from full's by {x_diff}")
-    require(cf == {"banded_spmv": k + xc} and ct == {"banded_spmv": 2 * k - 1 + xc},
-            f"deflated mid: launches full {cf}, twopass {ct} in {k} steps (want {k + xc}, {2 * k - 1 + xc})")
+    eigh = eigh_launches(dev, len(rf.checkpoints))
+    require(cf == {"banded_spmv": k + xc, **eigh} and ct == {"banded_spmv": 2 * k - 1 + xc, **eigh},
+            f"deflated mid: launches full {cf}, twopass {ct} in {k} steps (want {k + xc}, {2 * k - 1 + xc}, {eigh})")
     launched += cf["banded_spmv"] + ct["banded_spmv"]
 
     res, wall, counts = run_solve(tkt, op, b, tkt.SolverConfig(kmax=q["kmax"], tol=q["tol"]), "solve_deflated",
                                   basis=basis, storage="segmented", segment=q["segment"])
     mid["segmented"] = dict(segment=q["segment"], **deflated_summary(res, wall, counts, dev))
     require(res.boundary_drift_max is not None and math.isfinite(res.certified_bound[-1])
-            and counts == {"banded_spmv": res.niterations + xc},
+            and counts == {"banded_spmv": res.niterations + xc, **eigh_launches(dev, len(res.checkpoints))},
             f"deflated mid segmented: bound {res.certified_bound}, drift {res.boundary_drift_max}, "
             f"launches {counts}")
     launched += counts["banded_spmv"]
@@ -1461,7 +1620,8 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     require(res.certified_bound == rt.certified_bound and torch.equal(res.x.factors, rt.x.factors),
             f"deflated mid: the resumed twopass differs from the uninterrupted one ({res.certified_bound} vs "
             f"{rt.certified_bound})")
-    require(counts == {"banded_spmv": want}, f"deflated mid resumed: launches {counts}, want {want}")
+    want = {"banded_spmv": want, **eigh_launches(dev, len(res.checkpoints))}
+    require(counts == want, f"deflated mid resumed: launches {counts}, want {want}")
     launched += counts["banded_spmv"]
     out["mid"] = mid
     del runs, rf, rt, res, op, b, basis, U, b_perp
@@ -1472,14 +1632,14 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     for d_ in (dev, torch.device("cpu")):
         op = tkt.laplace(3, q["n"], shift=q["shift"], device=d_)
         b = tkt.random_rhs(3, q["n"], seed=q["seed"]).to(d_)
-        got[d_.type] = run_solve(tkt, op, b, tkt.SolverConfig(**q["config"]), "solve_deflated", m=q["m"],
-                                 checkpoints=q["checkpoints"])
+        got[d_.type] = run_solve(tkt, op, b, tkt.SolverConfig(**q["config"], eigh_impl="tridiag_mixed"),
+                                 "solve_deflated", m=q["m"], checkpoints=q["checkpoints"])
         if d_.type == dev.type:
             launched += got[d_.type][2].get("banded_spmv", 0)
             oracle = tkt.kron_residual_dense(op, got[d_.type][0].x, b)
     g, c = got[dev.type][0], got["cpu"][0]
     bound_err = max(abs(a - r) / r for a, r in zip(g.certified_bound, c.certified_bound))
-    out["card_vs_cpu"] = dict(n=q["n"], m=q["m"], status=g.status, niterations=g.niterations,
+    out["card_vs_cpu"] = dict(n=q["n"], m=q["m"], eigh_impl="tridiag_mixed", status=g.status, niterations=g.niterations,
                               certified_bound=g.certified_bound, bound_max_rel_err=bound_err,
                               bound_rtol=DEFLATED_BOUND_RTOL, dense_oracle_residual=oracle)
     require((g.status, g.niterations, g.checkpoints) == (c.status, c.niterations, c.checkpoints),
@@ -1813,7 +1973,8 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
             f"sharded twopass flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
     require("CONTRADICT" not in row["cross_check_verdict"],
             f"sharded twopass flagship: the cross-check contradicts the bound: {row['cross_check_verdict']}")
-    expect(counts, {"ring_spmv": 2 * k - 1, "banded_spmv": 1}, "twopass flagship")
+    expect(counts, {"ring_spmv": 2 * k - 1, "banded_spmv": 1, **eigh_launches(dev, len(res.checkpoints))},
+           "twopass flagship")
     require(tuple(x.shape[:2]) == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device == dev,
             f"sharded twopass flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
     count(counts)
@@ -1867,8 +2028,9 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
     require(all(abs(a - r) <= SHARDED_MID_RTOL * r + SHARDED_MID_ATOL
                 for a, r in zip(res.certified_bound, ref.certified_bound)),
             f"sharded mid: bounds differ by {diff} relative ({res.certified_bound} vs {ref.certified_bound})")
-    expect(counts, {"banded_spmv": SHARDS * k + 1}, "mid full gspmd")
-    expect(counts_ref, {"banded_spmv": ref.niterations + 1}, "mid unsharded")
+    expect(counts, {"banded_spmv": SHARDS * k + 1, **eigh_launches(dev, len(res.checkpoints))}, "mid full gspmd")
+    expect(counts_ref, {"banded_spmv": ref.niterations + 1, **eigh_launches(dev, len(ref.checkpoints))},
+           "mid unsharded")
     count(counts)
     count(counts_ref)
     del res, ref, op, b, basis
@@ -1883,7 +2045,7 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
         rs, rd = main03(list(p["example_argv"]))
     if on_card:
         torch.cuda.synchronize()
-    wall, counts = time.perf_counter() - t0, dict(_build.launches)
+    wall, counts = time.perf_counter() - t0, tally(dict(_build.launches))
     ks, kd = rs.niterations, rd.niterations
     ex03 = dict(printed=printed.getvalue().splitlines(), wall_s=wall, launches=counts,
                 solve_sharded=dict(status=rs.status, niterations=ks), solve_deflated=dict(
@@ -1892,8 +2054,10 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
     require(bool(torch.isfinite(rs.x.factors).all()) and bool(torch.isfinite(rd.x.factors).all())
             and rd.status == tkt.Status.CONVERGED, f"example 03: {ex03}")
     # solve_sharded on the 2 x 2 mesh: gspmd, one banded_spmv launch per shard and step; the deflated
-    # twopass on the ring route: one launch per SpMV of both passes, and the cross-check's A·X
-    expect(counts, {"banded_spmv": SHARDS * ks + 1, "ring_spmv": 2 * kd - 1}, "example 03")
+    # twopass on the ring route: one launch per SpMV of both passes, and the cross-check's A·X; the
+    # tridiagonal eigensolver at each check of both
+    expect(counts, {"banded_spmv": SHARDS * ks + 1, "ring_spmv": 2 * kd - 1,
+                    **eigh_launches(dev, len(checked(rs)) + len(rd.checkpoints))}, "example 03")
     count(counts)
     with tempfile.TemporaryDirectory() as tmp:
         if on_card:
@@ -1902,7 +2066,7 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()) as printed:
             art = nonsym_scale.main(list(p["nonsym_argv"]) + ["--out", os.path.join(tmp, "nonsym.json")])
-        wall, counts = time.perf_counter() - t0, dict(_build.launches)
+        wall, counts = time.perf_counter() - t0, tally(dict(_build.launches))
     r = art["result"]
     nonsym = dict(art, printed=printed.getvalue().splitlines(), wall_s=wall, launches=counts, tpu=p["tpu_nonsym"])
     require(r["converged"] and math.isfinite(r["relative_residual"]) and math.isfinite(r["measured_cp_residual"]),
@@ -2051,8 +2215,8 @@ def phase_sharded_solvers(tkt, dev=torch.device("cuda", 0), p=SHARDED_SOLVERS, k
         require(abs(est - est_ref) <= TWO_PASS_SHARDED_RTOL * est_ref + allowance,
                 f"sharded two_pass {comm}: final estimate {est} vs {est_ref} (drift allowance {allowance})")
         require(all(h[0] for h in held.values()), f"sharded two_pass {comm}: λ traces {row['lambda_max_rel_diff']}")
-        expect(counts, {"ring_spmv": 2 * k} if comm == "ring" else {"banded_spmv": SHARDS * 2 * k},
-               f"two_pass {comm}")
+        expect(counts, {**({"ring_spmv": 2 * k} if comm == "ring" else {"banded_spmv": SHARDS * 2 * k}),
+                        **eigh_launches(dev, k)}, f"two_pass {comm}")
         count(counts)
         two[comm] = row
         del res, x, sop
@@ -2088,8 +2252,9 @@ def phase_sharded_solvers(tkt, dev=torch.device("cuda", 0), p=SHARDED_SOLVERS, k
     require(all(h[0] for h in held.values()), f"multi_rhs on {mesh3.shape}: traces {multi['trace_max_rel_diff']}")
     require(tuple(mr.x.factors.shape) == (op.d, op.n, 2 * cfg.tmax) and bool(torch.isfinite(mr.x.factors).all()),
             f"multi_rhs on {mesh3.shape}: bad solution (shape {tuple(mr.x.factors.shape)})")
-    # each lane over its group's 2 mode shards on the gspmd route: 2 banded_spmv launches per step
-    expect(counts, {"banded_spmv": mesh3.shape["mode"] * sum(ks)}, "multi_rhs")
+    # each lane over its group's 2 mode shards on the gspmd route: 2 banded_spmv launches per step, and
+    # one tridiag_eigh launch per check
+    expect(counts, {"banded_spmv": mesh3.shape["mode"] * sum(ks), **eigh_launches(dev, sum(ks))}, "multi_rhs")
     count(counts)
     out["multi_rhs"] = multi
     del mr, res, op, b, B
@@ -2106,7 +2271,7 @@ def phase_sharded_solvers(tkt, dev=torch.device("cuda", 0), p=SHARDED_SOLVERS, k
         raise Failed(str(e)) from e
     if on_card:
         torch.cuda.synchronize()
-    wall, counts = time.perf_counter() - t0, dict(_build.launches)
+    wall, counts = time.perf_counter() - t0, tally(dict(_build.launches))
     if on_card:
         require(counts.get("banded_spmv", 0) > 0 and counts.get("ring_spmv", 0) > 0,
                 f"dryrun_multichip: launches {counts}")
@@ -2190,7 +2355,8 @@ def multihost_run(tkt, run, dev):
         trace = digest(res.relative_residual[:k + 1])
     else:
         trace = digest(np.asarray(res.relative_residual + res.certified_bound, np.float64))
-    return res, dict(status=int(res.status), niterations=k, alpha_beta=seen["alpha_beta"], trace=trace,
+    checks = len(res.checkpoints) if hasattr(res, "checkpoints") else len(checked(res))
+    return res, dict(status=int(res.status), niterations=k, checks=checks, alpha_beta=seen["alpha_beta"], trace=trace,
                      x=digest(res.x.weights, res.x.factors), wall_s=wall, iterations_per_s=k / wall,
                      max_memory_allocated=peak_bytes(dev), launches=dict(_build.launches),
                      traffic=dict(comm_stats))
@@ -2343,7 +2509,7 @@ def phase_multihost(tkt, p=MULTIHOST):
         for path in paths:
             with open(path) as f:
                 ranks.append(json.load(f))
-    launched = {"banded_spmv": 0, "ring_spmv": 0}
+    launched = {"banded_spmv": 0, "ring_spmv": 0, "tridiag_eigh": 0}
     for r, out in enumerate(ranks):
         # the backend rule: gloo where the ranks share a card, NCCL for a card each
         require(out["backend"] == backend and out["world"] == 2, f"rank {r}: backend {out['backend']}")
@@ -2363,6 +2529,7 @@ def phase_multihost(tkt, p=MULTIHOST):
                 want = {"ring_spmv": k}                                   # one launch per rank and SpMV
             else:
                 want = {"banded_spmv": p["slots"] * k}                    # one per shard and SpMV
+            want.update(eigh_launches(dev, got["checks"]))               # every rank's projected stage
             require(got["launches"] == want or not on_card,
                     f"multihost {name} rank {r}: launches {got['launches']}, want {want}")
             # 'mode' across the processes (factor_parallel=1): one halo exchange per SpMV; else none
@@ -2370,7 +2537,7 @@ def phase_multihost(tkt, p=MULTIHOST):
             require(traffic.get("halo_calls", 0) == (spmvs if got["factor_parallel"] == 1 else 0)
                     and traffic.get("psum_calls", 0) > 0 and traffic.get("gather_calls", 0) > 0,
                     f"multihost {name} rank {r}: traffic {traffic}")
-            for kernel, c in got["launches"].items():
+            for kernel, c in tally(got["launches"]).items():
                 launched[kernel] += c
     # parallel/_smoke.py at its own size, one rank per process on the card
     port = free_port()
@@ -2464,6 +2631,10 @@ def main():
                         max_abs_err=worst["ring_spmv"], ms=ring_times["ring_ms"], plain_ms=ring_times["plain_ms"],
                         bound_ms=ring_times["bound_ms"], bound_by=ring_times["bound_by"],
                         library_ms=ring_times["library_ms"]))
+    kernels.append(dict(name="tridiag_eigh", route="cuda", source=f"{pkg}/tridiag_eigh.cu",
+                        replaces="tensorkrylov_tpu/ops/eigen.py:182", launches=EIGH_TALLY["tridiag_eigh"],
+                        max_abs_err=worst["tridiag_eigh"], ms=times["tridiag_eigh"][0],
+                        plain_ms=times["tridiag_eigh"][1], **extra["tridiag_eigh"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -165,6 +165,9 @@ def solve_block(op, B, config: Optional[SolverConfig] = None, tables: Optional[B
     gathered there.
     """
     config = _resolve_config(config or SolverConfig(), op)
+    if config.eigh_impl == "tridiag_mixed":
+        # block H is block-tridiagonal, not tridiagonal (JAX block.py:305-307)
+        config = dataclasses.replace(config, eigh_impl="dense")
     B = _check_block(op, B)
     _check_identical_factors(config, op, B)
     R = pieces(B)[0].shape[0]

@@ -19,7 +19,8 @@ sup|1 − x g(x)| + √(boundary)/‖b‖. The final cross-check re-measures
 
 The host setup (the eigenpairs, the spectral interval, the exp-sum sup) is
 numpy, as in the JAX package; b's split, the recurrence, the checkpoint
-algebra (``eigh_impl='dense'``), the assembly and the cross-check run on the
+algebra (the tridiagonal eigensolver on the card, the dense eigh on the CPU,
+as ``eigh_impl`` says), the assembly and the cross-check run on the
 operator's device. Storages 'full', 'twopass' and 'segmented' share one step
 (``deflate_light.py:_step``). storage='df64' runs the noise-recording
 recurrence of ``df64_core.py`` and certifies through the recorded relation,
@@ -55,13 +56,14 @@ from .df64_core import (BAND_CHARGE_SCALE, _application_rounding, _band_rounding
                         _df64_gram_deviation_host, _df64_init, _Df64State, _eft_eps, _evaluate_host_recorded,
                         _split_rounding, pair_value)
 from .models.gallery import bands_to_dense
-from .ops.eigen import masked_eigh
+from .ops.eigen import masked_eigh, masked_eigh_tridiag_mixed
 from .ops import expansion as ex
 from .ops.expsum import cp_solve_sym
 from .ops.gram import residual_norm_sq
 from .ops.orth import deflation_coeffs, deflation_subtract
 from .parallel.krylov import like, pieces, scatter, whole
 from .parallel.sharding import ShardedOperator, _split, shard_basis, shard_operator, shard_rhs
+from .solver import auto_eigh_impl
 from .types import CPTensor, KroneckerSumOperator, SolverConfig, Status
 from .utils.cp import cp_residual_cross_check_device, cp_residual_cross_check_host
 
@@ -262,10 +264,12 @@ def expsum_sup_error(omega, alpha, kappa: float, n_grid: int = 200_000) -> float
     return float(np.max(np.abs(1.0 - x * g)))
 
 
-def _evaluate(dg, od, btil, beta, k: int, lam, c, b_norm: float, lam_min: float, omega, alpha, t_mask):
+def _evaluate(dg, od, btil, beta, k: int, lam, c, b_norm: float, lam_min: float, omega, alpha, t_mask,
+              eigh_impl: str = "dense"):
     """Projected solve and joint-basis residual at Krylov size k, on dg's
-    device: eigh of the masked tridiagonal T (padded K×K, ops/eigen.py's
-    masked_eigh), the exp-sum CP solve of the V-block, the exact U-block
+    device: eigh of the masked tridiagonal T (padded K×K; ops/eigen.py's
+    masked_eigh, or masked_eigh_tridiag_mixed with eigh_impl='tridiag_mixed'),
+    the exp-sum CP solve of the V-block, the exact U-block
     exp(−γΛ)c, and the Lemma-3.4 algebra over blockdiag(Λ_s, T_s), whose
     active prefix is m + k and whose boundary coupling is beta (d,).
 
@@ -275,7 +279,7 @@ def _evaluate(dg, od, btil, beta, k: int, lam, c, b_norm: float, lam_min: float,
     d, K = dg.shape
     m = lam.shape[1]
     H = torch.diag_embed(dg) + torch.diag_embed(od[:, 1:], offset=1) + torch.diag_embed(od[:, 1:], offset=-1)
-    w, Q = masked_eigh(H, k)
+    w, Q = masked_eigh_tridiag_mixed(H, k) if eigh_impl == "tridiag_mixed" else masked_eigh(H, k)
     weights, Yv = cp_solve_sym(w, Q, btil, k, omega, alpha, t_mask, lam_min)
 
     gam = (alpha / lam_min)[None, None, :]
@@ -288,6 +292,16 @@ def _evaluate(dg, od, btil, beta, k: int, lam, c, b_norm: float, lam_min: float,
     Hj[:, m:, m:] = H
     terms = residual_norm_sq(Hj, torch.cat([Yu, Yv], dim=1), torch.cat([c, btil], dim=1), m + k, weights, beta)
     return torch.sqrt(terms.r_norm_sq) / b_norm, terms.boundary_sq / (b_norm * b_norm), Yu, Yv, weights
+
+
+def _resolve_eigh_impl(config: SolverConfig, op) -> str:
+    """The checkpoint algebra's eigh: eigh_impl='auto' is 'tridiag_mixed' on a
+    CUDA operator and 'dense' on the CPU (JAX deflate.py:784-786, "on the
+    TPU" read as "on a CUDA device"; the operator is symmetric and the
+    recurrence Lanczos, so solver.auto_eigh_impl's rule gives the same)."""
+    if config.eigh_impl != "auto":
+        return config.eigh_impl
+    return auto_eigh_impl(op.device.type, True, config.orth)
 
 
 def _evaluate_host(dg, od, btil, beta, k, lam, c, b_norm, lam_min, omega, alpha, t_mask):
@@ -760,10 +774,7 @@ def solve_deflated(
     if tables is None:
         tables = load_tables(dtype=pdt)
     reorth = {"lanczos": "never", "lanczos_reorth": "always", "lanczos_reorth_auto": "auto"}[config.orth]
-    eigh_impl = "dense" if config.eigh_impl == "auto" else config.eigh_impl
-    if eigh_impl == "tridiag_mixed":
-        raise NotImplementedError("eigh_impl='tridiag_mixed' is not ported; native f64 torch.linalg.eigh "
-                                  "('dense') replaces it on the card (ROADMAP.md Queue 1, #10)")
+    eigh_impl = _resolve_eigh_impl(config, op)
 
     lam_np = np.asarray(basis.lam, np.float64)
     lam_min = float(lam_np[:, 0].sum())
@@ -923,7 +934,7 @@ def solve_deflated(
             Yu, Yv, weights = map(to_dev, (Yu, Yv, weights))
         else:
             rel, brs, Yu, Yv, weights = _evaluate(st.dg, st.od, st.btil, st.od[:, ck], ck, lam, c, b_norm, lam_min,
-                                                  omega, alpha, t_mask)
+                                                  omega, alpha, t_mask, eigh_impl)
         bound = sup_err + float(np.sqrt(max(float(brs), 0.0)))
         rel_hist.append(float(rel))
         bound_hist.append(bound)

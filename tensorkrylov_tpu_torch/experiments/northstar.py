@@ -125,6 +125,7 @@ def main(argv=None):
     import torch
 
     import tensorkrylov_tpu_torch as tkt
+    from tensorkrylov_tpu_torch.deflate import _resolve_eigh_impl
 
     device = torch.device("cpu") if args.cpu else torch.device("cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -210,7 +211,7 @@ def main(argv=None):
         "recipe": {
             "solver": "solve_deflated", "m": res.m, "kmax": args.kmax, "orth": cfg.orth, "basis_dtype": "float64",
             "expsum_rank": res.expsum_rank, "eigh_impl_requested": args.eigh_impl,
-            "eigh_impl_resolved": "dense" if args.eigh_impl == "auto" else args.eigh_impl,
+            "eigh_impl_resolved": _resolve_eigh_impl(cfg, op),
             "storage_resolved": storage, "project_every": args.project_every, "sweep_every": args.sweep_every,
             "final": args.final, "state_save": not args.no_state_save, "checkpoints_requested": args.checkpoints,
         },

@@ -61,6 +61,8 @@ _SIGNATURES = {
     "tk_ring_spmv_f32": [_P, _I, _P] + [_I] * 5 + [_P],
     "tk_ring_spmv_f64": [_P, _I, _P] + [_I] * 5 + [_P],
     "tk_ring_spmv_max_shards": [],
+    "tk_tridiag_eigh_f32": [_P] * 4 + [_I] * 5 + [ctypes.c_double] * 3 + [_P],
+    "tk_tridiag_eigh_f64": [_P] * 4 + [_I] * 5 + [ctypes.c_double] * 3 + [_P],
     "tk_enable_peer_access": [_I, _I],
 }
 # entry points that return a count rather than a cudaError_t

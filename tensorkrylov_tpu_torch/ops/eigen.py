@@ -1,19 +1,32 @@
 """Spectral estimation for the projected Kronecker-sum operator: counterpart
-of ``tensorkrylov_tpu/ops/eigen.py`` (the dense-eigh path; the mixed-precision
-tridiagonal solver is not ported, since native f64 ``torch.linalg.eigh``
-replaces it on the card)."""
+of ``tensorkrylov_tpu/ops/eigen.py``.
+
+``masked_eigh`` is the dense eigh (``torch.linalg.eigh``).
+``masked_eigh_tridiag_mixed`` is the tridiagonal eigensolver that the Lanczos
+path runs on the card: the CUDA kernel ``csrc/tridiag_eigh.cu`` (Sturm
+bisection, inverse iteration, cluster Gram–Schmidt) for a CUDA tensor, its
+plain version ``masked_eigh_tridiag_reference`` for a CPU tensor, then two
+Newton–Schulz steps. The JAX package seeds its solver with an f32 dense eigh
+because f64 eigh is emulated on the TPU; the card has native f64, so the port
+bisects instead of seeding.
+"""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..types import KroneckerSumOperator
+from . import _build
+from .orth import _sqrt_rn
 
 __all__ = [
     "dense_minor_window",
     "masked_eigh",
+    "masked_eigh_tridiag_mixed",
+    "masked_eigh_tridiag_reference",
+    "tridiag_eigh",
     "sym_extremes_from_eigs",
     "analytic_laplace_extremes",
     "laplace_eigenvector",
@@ -151,3 +164,232 @@ def tridiag_eigvalsh_sturm(diag: torch.Tensor, offdiag: torch.Tensor, k=None, n_
         lo = torch.where(go_right, mid, lo)
         hi = torch.where(go_right, hi, mid)
     return 0.5 * (lo + hi)
+
+
+# The tridiagonal eigensolver's rules, shared by the kernel (passed at launch)
+# and its plain version.
+TRIDIAG_BISECT_ITERS = 64     # most halvings of the widened Gershgorin bracket (~54 reach adjacent floats)
+TRIDIAG_CLUSTER_RTOL = 1e-6   # consecutive eigenvalues this close, relative to ‖T‖, form a cluster
+
+
+def _tridiag_rules(dtype, refine_vectors: bool):
+    """(bisection halvings, inverse-iteration solves, eps, the Sturm count's
+    zero guard, cluster gap relative to ‖T‖): two solves with
+    refine_vectors (an f64 basis), one without."""
+    fi = torch.finfo(dtype)
+    return TRIDIAG_BISECT_ITERS, 2 if refine_vectors else 1, fi.eps, fi.tiny * 1e8, TRIDIAG_CLUSTER_RTOL
+
+
+def _start_vectors(k: int, dtype, device) -> torch.Tensor:
+    """(k rows, k columns) start vectors of the inverse iteration, one column
+    per eigenvalue: an integer hash of (row, column), its top 24 bits scaled
+    into [-0.5, 0.5), exact in f32 and f64 (the kernel's start_value)."""
+    i = torch.arange(1, k + 1, dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(1, k + 1, dtype=torch.int64, device=device)[None, :]
+    h = (i * 2654435761 + j * 2246822519) & 0xFFFFFFFF
+    h = h ^ (h >> 15)
+    h = (h * 739982445) & 0xFFFFFFFF
+    h = h ^ (h >> 12)
+    return ((h >> 8).to(torch.float64) / 16777216.0 - 0.5).to(dtype)
+
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the kernel's fixed halving tree (entry
+    i + half added to entry i, half = ⌈len/2⌉, until one is left); keeps the
+    axis, length 1."""
+    x = x.clone()
+    n = x.shape[-1]
+    while n > 1:
+        half = (n + 1) // 2
+        x[..., :n - half] = x[..., :n - half] + x[..., half:n]
+        n = half
+    return x[..., :1]
+
+
+def _orthonormalize_clusters(X: torch.Tensor, joins: torch.Tensor) -> None:
+    """Modified Gram–Schmidt within each cluster of X's columns (d, k, k), in
+    index order, as the kernel's first member of a cluster runs it: member m
+    loses its component on each earlier member p (a tree-summed dot), then is
+    normalised. joins[s, j]: column j is in column j−1's cluster."""
+    d, k, _ = X.shape
+    jn = joins.cpu().tolist()
+    for s in range(d):
+        for m in range(1, k):
+            if not jn[s][m]:
+                continue
+            a = m - 1
+            while jn[s][a]:
+                a -= 1
+            col = X[s, :, m]
+            for p in range(a, m):
+                col = col - _tree_sum(col * X[s, :, p]) * X[s, :, p]
+            nrm = _sqrt_rn(_tree_sum(col * col))
+            X[s, :, m] = col / torch.where(nrm > 0, nrm, torch.ones_like(nrm))
+
+
+def _cluster_sizes(joins: torch.Tensor) -> list:
+    """The sizes of the clusters of two or more members, over all factors."""
+    sizes = []
+    for row in joins.cpu().tolist():
+        run = 1
+        for joined in row[1:] + [False]:
+            if joined:
+                run += 1
+                continue
+            if run > 1:
+                sizes.append(run)
+            run = 1
+    return sizes
+
+
+def masked_eigh_tridiag_reference(H: torch.Tensor, k, refine_vectors: bool = True,
+                                  stats: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``csrc/tridiag_eigh.cu`` kernel: the eigenpairs of
+    the active k×k blocks of the symmetric tridiagonal H (d, K, K), before
+    Newton–Schulz. Every operation is rounded on its own, in the kernel's
+    order, so the two agree bit for bit.
+
+    Per factor: the Gershgorin bracket of the active rows, widened by
+    2·eps·‖T‖ (‖T‖ its larger end in magnitude); per eigenvalue j, at most
+    TRIDIAG_BISECT_ITERS halvings by the Sturm count (``_sturm_count``'s
+    recurrence and zero guard), a bracket that cannot shrink stopping; then
+    one or two (refine_vectors) inverse-iteration solves of the JAX package's
+    guarded Thomas algorithm, pivots at least piv = eps·‖T‖ in magnitude and
+    the right side scaled by piv (x then stays near unit size at any scale of
+    T), from distinct hashed start vectors, each normalised and followed by modified
+    Gram–Schmidt within each cluster (consecutive eigenvalues within
+    TRIDIAG_CLUSTER_RTOL·‖T‖).
+
+    Returns w (d, K), ascending on the active block, the padded slots holding
+    w[:, :1], and Q (d, K, K), the active eigenvectors in columns 0..k−1 and
+    the identity's columns on the padded block. A `stats` dict receives what
+    this input needed (the kernel does the same): bisection halvings over all
+    eigenvalues, inverse-iteration solves, and the cluster Gram–Schmidt's
+    pairs and members.
+    """
+    d, K, _ = H.shape
+    k = int(k)
+    dtype, dev = H.dtype, H.device
+    n_iter, steps, eps_, tiny_, rtol_ = _tridiag_rules(dtype, refine_vectors)
+    eps, tiny, rtol = (torch.tensor(v, dtype=dtype, device=dev) for v in (eps_, tiny_, rtol_))
+    idx = torch.arange(k, device=dev)
+    dg = H[:, idx, idx]
+    e = torch.zeros((d, k + 1), dtype=dtype, device=dev)   # e[:, i] couples rows i−1 and i
+    e[:, 1:k] = H[:, idx[1:], idx[1:] - 1]
+    e2 = e[:, :k] * e[:, :k]
+
+    r = e[:, :k].abs() + e[:, 1:].abs()
+    glo = (dg - r).amin(dim=1)
+    ghi = (dg + r).amax(dim=1)
+    gnorm = torch.maximum(glo.abs(), ghi.abs())
+    pad = (eps + eps) * gnorm
+    piv = torch.maximum(eps * gnorm, tiny)[:, None]
+    tau = rtol * gnorm
+
+    # bisection, every (factor, eigenvalue) at once
+    lo = (glo - pad)[:, None].expand(d, k).clone()
+    hi = (ghi + pad)[:, None].expand(d, k).clone()
+    target = torch.arange(k, device=dev)
+    dg_b, e2_b = dg[:, None, :].expand(d, k, k), e2[:, None, :].expand(d, k, k)
+    active = torch.ones((d, k, k), dtype=dtype, device=dev)
+    halvings = 0
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        live = (mid != lo) & (mid != hi)
+        live_count = int(live.sum())
+        if not live_count:
+            break
+        halvings += live_count
+        go = _sturm_count(dg_b, e2_b, mid, active) <= target
+        lo = torch.where(live & go, mid, lo)
+        hi = torch.where(live & ~go, mid, hi)
+    lam = 0.5 * (lo + hi)
+    joins = torch.zeros((d, k), dtype=torch.bool, device=dev)
+    joins[:, 1:] = (lam[:, 1:] - lam[:, :-1]) <= tau[:, None]
+
+    # inverse iteration: X (d, rows, eigenvalues)
+    X = _start_vectors(k, dtype, dev).expand(d, k, k)
+    for _ in range(steps):
+        cp = torch.zeros((d, k), dtype=dtype, device=dev)
+        dp = torch.zeros_like(cp)
+        cps, dps = [], []
+        for i in range(k):
+            a = e[:, i, None]
+            den = (dg[:, i, None] - lam) - a * cp
+            den = torch.where(den.abs() < piv, torch.where(den < 0, -piv, piv), den)
+            num = X[:, i] * piv - a * dp
+            cp = e[:, i + 1, None] / den
+            dp = num / den
+            cps.append(cp)
+            dps.append(dp)
+        x = torch.zeros_like(cp)
+        nrm2 = torch.zeros_like(cp)
+        rows = [None] * k
+        for i in reversed(range(k)):
+            x = dps[i] - cps[i] * x
+            rows[i] = x
+            nrm2 = nrm2 + x * x
+        nrm = _sqrt_rn(nrm2)
+        X = torch.stack(rows, dim=1) / torch.where(nrm > 0, nrm, torch.ones_like(nrm))[:, None, :]
+        _orthonormalize_clusters(X, joins)
+    if stats is not None:
+        # a cluster of c members makes c − 1 renormalisations and c(c − 1)/2 pairs, per solve
+        sizes = _cluster_sizes(joins)
+        stats.update(halvings=halvings, solves=steps, mgs_members=steps * sum(c - 1 for c in sizes),
+                     mgs_pairs=steps * sum(c * (c - 1) // 2 for c in sizes))
+
+    w = torch.cat([lam, lam[:, :1].expand(d, K - k)], dim=1)
+    Q = torch.eye(K, dtype=dtype, device=dev).repeat(d, 1, 1)
+    Q[:, :k, :k] = X
+    return w, Q
+
+
+def _tridiag_eigh_cuda(H: torch.Tensor, k: int, refine_vectors: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    if H.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"tridiag_eigh kernel takes f32 or f64 H, got {H.dtype}")
+    if H.dim() != 3 or H.shape[1] != H.shape[2]:
+        raise ValueError(f"H must be (d, K, K), got {tuple(H.shape)}")
+    d, K, _ = H.shape
+    if not 1 <= k <= K:
+        raise ValueError(f"the active size k={k} must lie in 1..K={K}")
+    H = H.contiguous()
+    w = torch.empty((d, K), dtype=H.dtype, device=H.device)
+    Q = torch.empty((d, K, K), dtype=H.dtype, device=H.device)
+    scratch = torch.empty_like(Q)
+    lib = _build.kernels()
+    fn = lib.tk_tridiag_eigh_f64 if H.dtype == torch.float64 else lib.tk_tridiag_eigh_f32
+    err = fn(H.data_ptr(), w.data_ptr(), Q.data_ptr(), scratch.data_ptr(), d, K, k,
+             *_tridiag_rules(H.dtype, refine_vectors), _build.stream_of(H))
+    _build.check(err, "tridiag_eigh")
+    _build.launches["tridiag_eigh"] += 1
+    return w, Q
+
+
+def tridiag_eigh(H: torch.Tensor, k, refine_vectors: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tridiagonal eigenpairs before Newton–Schulz (masked_eigh_tridiag_reference's
+    contract): the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor; any other device raises."""
+    if H.device.type == "cuda":
+        return _tridiag_eigh_cuda(H, int(k), refine_vectors)
+    if H.device.type == "cpu":
+        return masked_eigh_tridiag_reference(H, k, refine_vectors)
+    raise ValueError(f"tridiag_eigh runs on cuda or cpu tensors, got {H.device}")
+
+
+def masked_eigh_tridiag_mixed(H: torch.Tensor, k, refine_vectors: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """eigh of the active k×k blocks of symmetric tridiagonal matrices stored
+    padded in H (d, K, K): ``tridiag_eigh``, then two Newton–Schulz steps
+    Q ← 1.5 Q − 0.5 Q (QᵀQ) (f64 GEMMs, as in the JAX package).
+
+    refine_vectors (an f64 basis) runs two inverse-iteration solves, one
+    without. Returns w (d, K), ascending active eigenvalues with the padded
+    slots holding the active minimum, and Q (d, K, K) orthonormal, the active
+    eigenvectors in columns 0..k−1 and identity columns on the padded block.
+    This is not masked_eigh's layout (its padded eigenvalues are sorted among
+    the active ones); cp_solve_sym takes both, b̃ being zero on the pad.
+    """
+    w, Q = tridiag_eigh(H, k, refine_vectors)
+    for _ in range(2):
+        G = Q.transpose(1, 2) @ Q
+        Q = 1.5 * Q - 0.5 * (Q @ G)
+    return w, Q

@@ -28,13 +28,15 @@ solve takes the unfused step.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .coeffs.tables import TMAX, BHTables, ExpSumCoeffs, load_tables, select_bh, select_stenger
-from .ops.eigen import analytic_laplace_extremes, dense_minor_window, masked_eigh, sym_extremes_from_eigs
+from .ops.eigen import (analytic_laplace_extremes, dense_minor_window, masked_eigh, masked_eigh_tridiag_mixed,
+                        sym_extremes_from_eigs)
 from .ops.expsum import cp_solve_nonsym, cp_solve_nonsym_eig, cp_solve_sym
 from .ops.gram import residual_norm_sq
 from .ops.orth import _REORTH, KrylovState, _acc_dtype, arnoldi_step, init_state, lanczos_step
@@ -99,20 +101,25 @@ def projected_step(H, btil, subdiag, k, b_norm_prod, config: SolverConfig, table
     d, K, _ = H.shape
     pdt = config.proj_dtype
     eig_d = 1 if config.identical_factors else d
+    # H is tridiagonal on the Lanczos path: the tridiagonal eigensolver where
+    # asked, its vectors refined twice only for an f64 basis
+    eigh_H = masked_eigh
+    if config.eigh_impl == "tridiag_mixed" and config.orth != "arnoldi":
+        eigh_H = functools.partial(masked_eigh_tridiag_mixed, refine_vectors=config.basis_dtype == torch.float64)
 
-    def eig(W):
-        w, Q = masked_eigh(W[:eig_d], k)
+    def eig(W, eigh=masked_eigh):
+        w, Q = eigh(W[:eig_d], k)
         return (w.expand(d, K), Q.expand(d, K, K)) if config.identical_factors else (w, Q)
 
     if symmetric:
-        w, Q = eig(W_A if config.spectral_source == "A_minor" else H)
+        # 'A_minor' estimates the spectrum from A's dense minors, but the solve
+        # still diagonalizes H itself
+        w, Q = eig(W_A) if config.spectral_source == "A_minor" else eig(H, eigh_H)
         if config.spectral_source == "analytic_laplace":
             lmin, lmax = analytic_laplace_extremes(d, n, k, pdt, H.device)
         else:
             lmin, lmax = sym_extremes_from_eigs(w)
-        # 'A_minor' estimates the spectrum from A's minors, but the solve
-        # still diagonalizes H itself
-        wh, Qh = eig(H) if config.spectral_source == "A_minor" else (w, Q)
+        wh, Qh = eig(H, eigh_H) if config.spectral_source == "A_minor" else (w, Q)
         kappa = lmax / lmin
         coeff_tol = config.tol / kappa if config.coeff_tol_scale == "kappa" else config.tol
         coeffs = select_bh(kappa, coeff_tol, tables, config.tmax, config.bh_row_select)
@@ -166,6 +173,15 @@ def _resident_eligible(config: SolverConfig, op: KroneckerSumOperator) -> bool:
     return config.orth == "lanczos" and op.symmetric and config.basis_dtype == torch.float32
 
 
+def auto_eigh_impl(device_type: str, symmetric: bool, orth: str, host_projected: bool = False) -> str:
+    """What eigh_impl='auto' resolves to (JAX solver.py:440-447, "on the TPU"
+    read as "on a CUDA device"): the tridiagonal eigensolver for a symmetric
+    Lanczos solve whose projected stage runs on the card, the dense eigh
+    everywhere else, every CPU run included."""
+    tridiag = device_type == "cuda" and symmetric and orth != "arnoldi" and not host_projected
+    return "tridiag_mixed" if tridiag else "dense"
+
+
 def _resolve_config(config: SolverConfig, op, host_projected: bool = False) -> SolverConfig:
     """Resolve the 'auto' settings for this operator and entry point; the resolved
     config is recorded on SolveResult.config. A ShardedOperator takes the
@@ -182,14 +198,12 @@ def _resolve_config(config: SolverConfig, op, host_projected: bool = False) -> S
                              "recurrence on one card (ops/resident_lanczos.py); a ShardedOperator takes "
                              "step_impl='auto' or 'xla'")
     if config.eigh_impl == "host":
-        raise ValueError("eigh_impl='host' is only supported by solve_deflated; use 'auto' or 'dense' for solve "
+        raise ValueError("eigh_impl='host' is only supported by solve_deflated; use 'auto', 'dense' or "
+                         "'tridiag_mixed' for solve "
                          "(or solve_host_projected to run the whole projected stage on the host)")
-    if config.eigh_impl == "tridiag_mixed":
-        raise NotImplementedError(
-            "eigh_impl='tridiag_mixed' is not ported; native f64 torch.linalg.eigh ('dense') "
-            "replaces it on the card (ROADMAP.md Queue 1, #10)")
     if config.eigh_impl == "auto":
-        config = dataclasses.replace(config, eigh_impl="dense")
+        impl = auto_eigh_impl(op.device.type, op.symmetric, config.orth, host_projected)
+        config = dataclasses.replace(config, eigh_impl=impl)
     if config.step_impl == "auto":
         # the unfused step (whose SpMV is the CUDA kernel) until a measurement
         # on the card says the fused step wins

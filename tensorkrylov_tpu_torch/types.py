@@ -132,6 +132,10 @@ class SolverConfig:
                 kernel (ops/resident_lanczos.py) for orth='lanczos', a
                 symmetric operator and an f32 basis; 'xla' otherwise, and
                 always in solve().
+    eigh_impl 'auto' resolves to 'tridiag_mixed' (the tridiagonal eigensolver,
+    ops/eigen.py:masked_eigh_tridiag_mixed, the CUDA kernel csrc/tridiag_eigh.cu)
+    for a symmetric Lanczos solve on a CUDA device whose projected stage runs
+    there, and to 'dense' (torch.linalg.eigh) everywhere else.
     nonsym_solve_impl 'auto' resolves to 'eig' on every device.
     Both entry points record the resolved values on SolveResult.config.
     """

@@ -696,18 +696,20 @@ def test_solve_block_on_card_equals_cpu(cuda):
                                atol=1e-9 * float(ref.x.factors.abs().max()))
 
 
-@pytest.mark.parametrize("step_impl,launches", [("fused", {"fused_lanczos": 1, "banded_spmv": 1}),
-                                                ("auto", {"banded_spmv": 2})])
+@pytest.mark.parametrize("step_impl,launches", [("fused", {"fused_lanczos": 1, "banded_spmv": 1, "tridiag_eigh": 1}),
+                                                ("auto", {"banded_spmv": 2, "tridiag_eigh": 1})])
 def test_solve_two_pass_on_card_equals_cpu(cuda, step_impl, launches):
     """Per step: pass 1's fused core and pass 2's SpMV, or one SpMV in each
-    pass; status, steps and residual trace as on the CPU (each device's
-    eigh rounds the projected stage its own way). The fused route's pass 1
-    runs one recurrence on both devices, bit for bit (the fused core and the
-    start's sums in a fixed order, sqrt correctly rounded)."""
+    pass, and pass 1's check through the tridiagonal eigensolver (the same
+    eigh_impl on both devices: its plain version on the CPU); status, steps
+    and residual trace as on the CPU (each device's H rounds apart). The
+    fused route's pass 1 runs one recurrence on both devices, bit for bit
+    (the fused core and the start's sums in a fixed order, sqrt correctly
+    rounded)."""
     from tensorkrylov_tpu_torch import twopass
     from tensorkrylov_tpu_torch.coeffs.tables import load_tables
 
-    cfg = tkt.SolverConfig(kmax=60, tol=1e-8, orth="lanczos", step_impl=step_impl)
+    cfg = tkt.SolverConfig(kmax=60, tol=1e-8, orth="lanczos", step_impl=step_impl, eigh_impl="tridiag_mixed")
     ref = tkt.solve_two_pass(*_solver_problem("cpu"), cfg)
     _build.launches.clear()
     got = tkt.solve_two_pass(*_solver_problem(cuda), cfg)
@@ -777,8 +779,11 @@ def test_solve_deflated_on_card_equals_cpu(cuda, storage, n):
     k and pass 2's k - 1) and one for the device cross-check's A·X. The
     storages without reorthogonalization run at n=40, where the deflated
     space (n − m = 34) is not exhausted by the 24 steps: at exhaustion plain
-    Lanczos amplifies each device's rounding apart."""
-    cfg = tkt.SolverConfig(kmax=32, tol=1e-7, orth="lanczos" if storage == "twopass" else "lanczos_reorth")
+    Lanczos amplifies each device's rounding apart. Both devices take the
+    tridiagonal eigensolver (its plain version on the CPU), one launch per
+    checkpoint on the card."""
+    cfg = tkt.SolverConfig(kmax=32, tol=1e-7, orth="lanczos" if storage == "twopass" else "lanczos_reorth",
+                           eigh_impl="tridiag_mixed")
     kw = dict(m=6, checkpoints=[8, 16, 24, 32], storage=storage, segment=8)
     ref = tkt.solve_deflated(*_deflated_problem("cpu", n), cfg, **kw)
     _build.launches.clear()
@@ -794,7 +799,7 @@ def test_solve_deflated_on_card_equals_cpu(cuda, storage, n):
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=rtol, atol=atol)
     assert tkt.kron_residual_dense(op, got.x, b) <= got.certified_bound[-1] + 1e-14
     steps = 2 * k - 1 if storage == "twopass" else k
-    assert dict(_build.launches) == {"banded_spmv": steps + 1}
+    assert dict(_build.launches) == {"banded_spmv": steps + 1, "tridiag_eigh": len(got.checkpoints)}
     assert got.cp_residual_floor is not None and got.measured_cp_residual is not None
 
 
@@ -919,7 +924,8 @@ def test_sharded_deflated_twopass_ring_on_card(cuda):
     checkpoints equal, the bounds within 1e-6 (plain Lanczos: the pieces'
     sums round apart and the recurrence amplifies it, 1e-7 on the CPU), x
     gathered on the card within 1e-10; one ring launch per SpMV of both
-    passes (k + k − 1) and one banded_spmv launch (the cross-check's A·X)."""
+    passes (k + k − 1), one banded_spmv launch (the cross-check's A·X) and
+    one tridiag_eigh launch per checkpoint."""
     op, b = _sharded_deflated_problem(cuda)
     cfg = tkt.SolverConfig(kmax=48, tol=1e-8)
     kw = dict(m=8, storage="twopass", checkpoints=[16, 32, 48])
@@ -928,7 +934,7 @@ def test_sharded_deflated_twopass_ring_on_card(cuda):
     got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), comm="ring", **kw)
     torch.cuda.synchronize()
     k = got.niterations
-    assert dict(_build.launches) == {"ring_spmv": 2 * k - 1, "banded_spmv": 1}
+    assert dict(_build.launches) == {"ring_spmv": 2 * k - 1, "banded_spmv": 1, "tridiag_eigh": len(got.checkpoints)}
     assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     assert got.status == tkt.Status.CONVERGED
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
@@ -1000,7 +1006,8 @@ def test_sharded_block_ring_on_card(cuda):
 def test_sharded_two_pass_gspmd_on_card(cuda):
     """solve_two_pass over 4 mode shards of one card on the gspmd route, the
     slice's problem (κ = 1e2) at n=8192: 4
-    banded_spmv launches per SpMV of both passes (4 · 2k), no ring launch;
+    banded_spmv launches per SpMV of both passes (4 · 2k), one tridiag_eigh
+    launch per check of pass 1 (k), no ring launch;
     the unsharded solve's status, steps within one, x within 1e-6 of max|x|,
     the final estimate within 1e-6 relative beside the v_0 drift's allowance
     d·√k·(drift of both runs): b̃_k = ⟨v_k, b⟩ carries the plain recurrence's
@@ -1015,10 +1022,157 @@ def test_sharded_two_pass_gspmd_on_card(cuda):
     got = tkt.solve_two_pass(sop, shard_rhs(b, sop.mesh), cfg)
     torch.cuda.synchronize()
     k, kr = got.niterations, ref.niterations
-    assert dict(_build.launches) == {"banded_spmv": 4 * 2 * k}
+    assert dict(_build.launches) == {"banded_spmv": 4 * 2 * k, "tridiag_eigh": k}
     assert got.status == ref.status == tkt.Status.CONVERGED and abs(k - kr) <= 1
     drift = float(got.orthogonality[1:k + 1].max()) + float(ref.orthogonality[1:kr + 1].max())
     est, est_ref = float(got.relative_residual[k]), float(ref.relative_residual[kr])
     assert abs(est - est_ref) <= 1e-6 * est_ref + 10 * np.sqrt(max(k, kr)) * drift
     x, xr = got.x.factors, ref.x.factors
     assert float((x - xr).abs().max()) <= 1e-6 * float(xr.abs().max())
+
+
+def _tridiag_blocks(diag, off):
+    return np.stack([np.diag(a) + np.diag(b, 1) + np.diag(b, -1) for a, b in zip(diag, off)])
+
+
+def _ghost_lanczos_T():
+    """60 plain Lanczos steps on a diagonal operator with outliers 4, 6, 10
+    above [1, 2]: the outliers come back as ghost copies 1e-15 apart."""
+    from tensorkrylov_tpu_torch.ops.orth import init_state, lanczos_step
+
+    n, K = 200, 61
+    lam = np.concatenate([np.linspace(1.0, 2.0, n - 3), [4.0, 6.0, 10.0]])
+    op = tkt.KroneckerSumOperator(torch.tensor(lam[None, None, :]), (0,))
+    b = torch.tensor(np.random.default_rng(3).standard_normal((1, n)))
+    st, _ = init_state(op, b, K - 1, torch.float64)
+    for k in range(1, K):
+        st, _ = lanczos_step(op, st, b, k, reorth=False, proj_dtype=torch.float64)
+    return st.H.numpy()[:, :K - 1, :K - 1]
+
+
+def _tridiag_case(case, K):
+    """(H (d, K, K), k) of tests/test_torch_tridiag_eigh.py's kinds, the
+    padded block filled with symmetric junk the kernel must ignore."""
+    rng = np.random.default_rng(K)
+    if case.startswith("random_"):
+        k = {"random_k1": 1, "random_half": K // 2, "random_K": K}[case]
+        T = _tridiag_blocks(rng.standard_normal((3, k)), rng.standard_normal((3, k - 1)))
+    elif case == "d1":
+        k = K - 3
+        T = _tridiag_blocks(rng.standard_normal((1, k)), rng.standard_normal((1, k - 1)))
+    elif case == "zero_subdiagonal":
+        k = K - 2
+        diag, off = rng.standard_normal((2, k)), rng.standard_normal((2, k - 1))
+        off[0, k // 3] = off[1, k // 3] = off[1, 2 * k // 3] = 0.0
+        T = _tridiag_blocks(diag, off)
+    elif case == "wilkinson21":
+        k = 21
+        T = _tridiag_blocks(np.abs(10.0 - np.arange(21.0))[None], np.ones((1, 20)))
+    elif case == "repeated_blocks":
+        block = np.diag([2.0, 1.0, 3.0]) + np.diag([0.5, 0.5], 1) + np.diag([0.5, 0.5], -1)
+        k = 3 * (K // 3 - 1)
+        T = np.kron(np.eye(k // 3), block)[None]
+    elif case == "lanczos_ghosts":
+        T = _ghost_lanczos_T()
+        k = T.shape[1]
+    elif case == "flagship_k384":
+        k = 384
+        T = _tridiag_blocks(2.0 + 0.1 * rng.standard_normal((1, k)), -np.ones((1, k - 1)))
+    d = T.shape[0]
+    junk = rng.standard_normal((d, K, K))
+    H = junk + np.swapaxes(junk, 1, 2)
+    H[:, :k, :] = 0.0
+    H[:, :, :k] = 0.0
+    H[:, :k, :k] = T
+    return H, k
+
+
+TRIDIAG_CASES = {
+    31: ("random_k1", "random_half", "random_K", "d1", "zero_subdiagonal", "wilkinson21", "repeated_blocks"),
+    201: ("random_k1", "random_half", "random_K", "d1", "zero_subdiagonal", "wilkinson21", "lanczos_ghosts"),
+    513: ("random_half", "zero_subdiagonal", "lanczos_ghosts", "flagship_k384"),
+}
+
+
+@pytest.mark.parametrize("K,case", [(K, c) for K, cases in TRIDIAG_CASES.items() for c in cases])
+def test_tridiag_kernel_equals_plain(cuda, K, case):
+    """The kernel's w and Q (before Newton–Schulz) equal its plain version's
+    on the card and on the CPU bit for bit, in f64 with two inverse-iteration
+    solves; one launch per call."""
+    from tensorkrylov_tpu_torch.ops.eigen import masked_eigh_tridiag_reference, tridiag_eigh
+
+    H, k = _tridiag_case(case, K)
+    Hc = torch.tensor(H, device=cuda)
+    before = _build.launches["tridiag_eigh"]
+    got = tridiag_eigh(Hc, k)
+    torch.cuda.synchronize()
+    assert _build.launches["tridiag_eigh"] == before + 1
+    ref = masked_eigh_tridiag_reference(Hc, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    on_cpu = masked_eigh_tridiag_reference(torch.tensor(H), k)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, on_cpu))
+
+
+@pytest.mark.parametrize("dtype,refine", [(torch.float64, False), (torch.float32, True), (torch.float32, False)])
+def test_tridiag_kernel_dtypes_and_one_solve(cuda, dtype, refine):
+    """f32 (proj_dtype=float32) and one inverse-iteration solve (a basis
+    below f64): equal to the plain version bit for bit."""
+    from tensorkrylov_tpu_torch.ops.eigen import masked_eigh_tridiag_reference, tridiag_eigh
+
+    for case in ("random_half", "wilkinson21", "lanczos_ghosts"):
+        H, k = _tridiag_case(case, 201)
+        Hc = torch.tensor(H, dtype=dtype, device=cuda)
+        got = tridiag_eigh(Hc, k, refine)
+        ref = masked_eigh_tridiag_reference(Hc, k, refine)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), case
+
+
+def test_tridiag_wrapper_rejects_bad_input(cuda):
+    from tensorkrylov_tpu_torch.ops.eigen import tridiag_eigh
+
+    H = torch.zeros((2, 8, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        tridiag_eigh(H.to(torch.int64), 4)
+    with pytest.raises(ValueError):
+        tridiag_eigh(H, 0)
+    with pytest.raises(ValueError):
+        tridiag_eigh(H, 9)
+    with pytest.raises(ValueError):
+        tridiag_eigh(torch.zeros((2, 8, 7), dtype=torch.float64, device=cuda), 4)
+
+
+def test_default_solve_on_card_takes_the_tridiagonal_kernel(cuda, monkeypatch):
+    """'auto' resolves to 'tridiag_mixed' on the card: one tridiag_eigh launch
+    per check and no dense eigh of H; the dense oracle below 1e-8 and the
+    dense run's trace within 1e-7."""
+    from tensorkrylov_tpu_torch import solver
+
+    op = tkt.laplace(3, 30, device=cuda)
+    b = tkt.random_rhs(3, 30, seed=7, device=cuda)
+    dense = tkt.solve(op, b, tkt.SolverConfig(kmax=30, tol=1e-8, eigh_impl="dense"))
+    calls = []
+    monkeypatch.setattr(solver, "masked_eigh", lambda *a: calls.append(a) or torch.linalg.eigh(a[0]))
+    for check_every in (1, 4):
+        _build.launches.clear()
+        res = tkt.solve(op, b, tkt.SolverConfig(kmax=30, tol=1e-8, check_every=check_every))
+        torch.cuda.synchronize()
+        assert res.config.eigh_impl == "tridiag_mixed" and res.status == tkt.Status.CONVERGED
+        assert _build.launches["tridiag_eigh"] == -(-res.niterations // check_every)
+        assert not calls
+        assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8
+    res = tkt.solve(op, b, tkt.SolverConfig(kmax=30, tol=1e-8))
+    _traces_close(res, dense, 1e-7)
+
+
+def test_default_deflated_on_card_takes_the_tridiagonal_kernel(cuda):
+    """solve_deflated's checkpoint algebra on the card: one tridiag_eigh launch
+    per checkpoint, the bounds within 1e-9 of the dense run's."""
+    op, b = _deflated_problem(cuda)
+    kw = dict(m=6, checkpoints=[8, 16, 24])
+    dense = tkt.solve_deflated(op, b, tkt.SolverConfig(kmax=30, tol=1e-7, eigh_impl="dense"), **kw)
+    _build.launches.clear()
+    got = tkt.solve_deflated(op, b, tkt.SolverConfig(kmax=30, tol=1e-7), **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["tridiag_eigh"] == len(got.checkpoints)
+    assert (got.status, got.checkpoints) == (dense.status, dense.checkpoints)
+    np.testing.assert_allclose(got.certified_bound, dense.certified_bound, rtol=1e-9)

@@ -121,20 +121,6 @@ def test_deflated_input_validation():
         tkt.solve_deflated(op, b, m=2, storage="segmented", segment=0)
 
 
-@pytest.mark.parametrize("kwargs, config, item", [
-    ({}, dict(eigh_impl="tridiag_mixed"), "#10"),
-])
-def test_not_ported_options_raise_naming_their_item(kwargs, config, item):
-    """The JAX package's test of this option
-    (test_deflated_eigh_impl_tridiag_mixed_matches_dense) waits for its
-    ROADMAP.md item; until then it raises, naming it (the df64 options are
-    ported: tests/test_torch_df64.py; mesh=:
-    tests/test_torch_sharded_deflate.py)."""
-    op = tkt.laplace(2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1,? {item}"):
-        tkt.solve_deflated(op, tkt.random_rhs(2, 16, seed=0), tkt.SolverConfig(kmax=8, **config), m=2, **kwargs)
-
-
 def test_twopass_storage_matches_full():
     """orth='lanczos': the basis-free storage runs the stored-basis storage's
     step, so T, b̃ and every bound are equal bit for bit; pass 2's x within

@@ -141,7 +141,6 @@ def test_nonsymmetric_operator_raises(orth, error):
 
 @pytest.mark.parametrize("fields,error", [
     (dict(orth="lanczos_reorth_auto", symmetric=False), ValueError),  # nonsymmetric without Arnoldi
-    (dict(eigh_impl="tridiag_mixed"), NotImplementedError),
     (dict(eigh_impl="host"), ValueError),
     (dict(identical_factors=True), ValueError),  # distinct RHS rows
     (dict(orth="bogus"), ValueError),
@@ -152,13 +151,6 @@ def test_unsupported_options_raise(fields, error):
     b = torch.tensor(np.random.default_rng(0).random((2, 10)))
     with pytest.raises(error):
         tkt.solve(op, b, tkt.SolverConfig(**fields))
-
-
-def test_tridiag_mixed_names_its_roadmap_item():
-    """The refusal cites the ROADMAP item that replaces the TPU's mixed-precision tridiagonal eigh."""
-    b = torch.tensor(np.random.default_rng(0).random((2, 10)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md Queue 1, #10\)"):
-        tkt.solve(tkt.laplace(2, 10, device="cpu"), b, tkt.SolverConfig(eigh_impl="tridiag_mixed"))
 
 
 @pytest.mark.parametrize("fields,resolved", [
