@@ -29,9 +29,13 @@ Phases, one output line each:
                line); the tridiagonal eigensolver (tridiag_eigh) in f64 against its
                plain version, limit 0.0 on w and Q before Newton–Schulz: the slice's
                own Lanczos T (d=10, K=201) at k = 1, 29, 200, 201, the flagship
-               operator's at K=513, k=384, Wilkinson's W21+ and a plain-Lanczos T
-               with ghost copies; timed at the slice's last check (K=201, k=29) and
-               at K=513, k=384 beside torch.linalg.eigh of the same padded batch;
+               operator's at K=513, k=384, Wilkinson's W21+, a plain-Lanczos T
+               with ghost copies, the slice's first factor alone (d=1) and a
+               two-member cluster split between two blocks of a factor's
+               cluster, each with its plan (P lanes, rounds, G, blocks) and
+               work (halvings, probes); timed at the slice's last check (K=201,
+               k=29), at K=513, k=384 and at d=1 beside torch.linalg.eigh of the
+               same padded batch, and at each pair of P and G;
   4. golden  — tests/golden_laplace_d4_n100.json reproduced on the card, and the
                dense-oracle residual at d=3, n=30;
   5. slice   — reaction_diffusion(d=10, n=131072), f64, kmax=200, tol=1e-8, with
@@ -165,7 +169,7 @@ ROUTE_LAMBDA_RTOL = 1e-4  # resident vs unfused route: λ_min, λ_max traces (tw
 # first run on the card), so the bound is 1.0: the same order of magnitude at every check
 ROUTE_TRACE_RTOL = 1.0
 STEPS = 8                 # resident kernel steps per call in phase 3
-CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the resident kernel's blocks per factor, swept in phase 3
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the resident and tridiagonal kernels' blocks per factor, swept in phase 3
 BENCH_STEPS = 32          # resident kernel steps per call at the bench's shape: the bench's longest call
 RESIDENT_SPMV_APPLIES = 200  # applies per multi-apply call in phase 3: the bench's m1
 SHARDS = 4                # mode shards of phase 9, all on cuda:0
@@ -698,8 +702,10 @@ def lanczos_H(op, b, steps, reorth=True):
 def tridiag_work(H, k, stats):
     """Bytes (T's 2k−1 entries per factor read, w and Q written) and f64
     operations of one tridiag_eigh call on H, from the plain version's count
-    of what this input needs (stats: bisection halvings, inverse-iteration
-    solves, cluster Gram–Schmidt pairs and members)."""
+    of what this input needs (stats: bisection-equivalent halvings, not the
+    multisection's extra probes, so the work is the function's and not the
+    design's; inverse-iteration solves, cluster Gram–Schmidt pairs and
+    members)."""
     d, K, _ = H.shape
     nbytes = 8 * (d * (2 * k - 1) + d * K + d * K * K)
     flops = (stats["halvings"] * (3 * k + 2) + stats["solves"] * d * k * (13 * k + 1)
@@ -717,14 +723,47 @@ def padded_for_masked_eigh(H, k):
     return Wm + torch.diag_embed((1.0 - m)[None, :] * H[:, 0, 0][:, None])
 
 
+def straddling_T(k, split, seed=0):
+    """(1, k, k): two decoupled random tridiagonal blocks of sizes split and
+    k − split, the second shifted so that its lowest eigenvalue sits 8e-9
+    above the first's highest: eigenvalues split − 1 and split form a
+    two-member cluster (gap within TRIDIAG_CLUSTER_RTOL·‖T‖)."""
+    rng = np.random.default_rng(seed)
+
+    def block(m):
+        a, b = rng.standard_normal(m), rng.standard_normal(m - 1)
+        return np.diag(a) + np.diag(b, 1) + np.diag(b, -1)
+
+    A, B = block(split), block(k - split)
+    B += (np.linalg.eigvalsh(A)[-1] - np.linalg.eigvalsh(B)[0] + 8e-9) * np.eye(k - split)
+    T = np.zeros((1, k, k))
+    T[0, :split, :split], T[0, split:, split:] = A, B
+    return T
+
+
+def tridiag_plan(H, k, lanes=None):
+    """The launch plan of tridiag_eigh on H at active size k: P lanes per
+    eigenvalue, most rounds, G blocks per factor, d·G blocks, and the
+    eigenvalues each block takes."""
+    from tensorkrylov_tpu_torch.ops.eigen import tridiag_cluster, tridiag_lanes, tridiag_rounds
+
+    d = H.shape[0]
+    P = tridiag_lanes(d, k) if lanes is None else lanes
+    G = tridiag_cluster(d, k, P, H.dtype, H.device)
+    return dict(P=P, rounds=tridiag_rounds(P), G=G, blocks=d * G, per_block=-(-k // G))
+
+
 def phase_kernels_tridiag(tkt, checks, worst, times, extra):
     """The tridiagonal eigensolver against its plain version on the card
     (limit 0.0 on w and Q before Newton–Schulz) on the slice's own Lanczos T
     at K=201, k = 1, 29, 200, 201, the flagship operator's T at K=513, k=384,
-    W21+ and a ghost-laden plain-Lanczos T; timed at the slice's last check
-    and at the flagship's shape beside torch.linalg.eigh of the same padded
-    batch (the dense path's one call)."""
-    from tensorkrylov_tpu_torch.ops.eigen import (masked_eigh, masked_eigh_tridiag_mixed,
+    W21+, a ghost-laden plain-Lanczos T, the slice's first factor alone
+    (d=1: identical factors) and a two-member cluster split between two
+    blocks of the factor's cluster; each case's plan (P, rounds, G, blocks)
+    and work (halvings, probes); timed at the slice's last check, at the
+    flagship's shape and at d=1 beside torch.linalg.eigh of the same padded
+    batch (the dense path's one call), and at each (P, G)."""
+    from tensorkrylov_tpu_torch.ops.eigen import (_tridiag_eigh_cuda, masked_eigh, masked_eigh_tridiag_mixed,
                                                   masked_eigh_tridiag_reference, tridiag_eigh)
 
     dev = torch.device("cuda")
@@ -743,7 +782,13 @@ def phase_kernels_tridiag(tkt, checks, worst, times, extra):
                         reorth=False)
     cases = {f"slice_K201_k{k}": (H_slice, k) for k in TRIDIAG_SLICE_KS}
     cases.update({"flagship_K513_k384": (H_flag, q["k"]), "wilkinson21": (torch.tensor(w21[None], device=dev), 21),
-                  "ghost_lanczos_K61_k60": (H_ghost, 60)})
+                  "ghost_lanczos_K61_k60": (H_ghost, 60), "slice_d1_K201_k29": (H_slice[:1].contiguous(), 29)})
+    # the split falls on the plan's block boundary: the first member's thread reads the second's column
+    k = 29
+    split = tridiag_plan(H_slice[:1], k)["per_block"]
+    H_straddle = torch.zeros((1, TRIDIAG_SLICE_K, TRIDIAG_SLICE_K), dtype=torch.float64, device=dev)
+    H_straddle[:, :k, :k] = torch.tensor(straddling_T(k, split if split < k else k // 2), device=dev)
+    cases["straddle_d1_K201_k29"] = (H_straddle, k)
     worst["tridiag_eigh"] = 0.0
     work = {}
     for case, (H, k) in cases.items():
@@ -754,32 +799,39 @@ def phase_kernels_tridiag(tkt, checks, worst, times, extra):
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         w, Q = masked_eigh_tridiag_mixed(H, k)
         orth = float((Q.transpose(1, 2) @ Q - torch.eye(H.shape[1], dtype=H.dtype, device=dev)).abs().max())
-        checks.append(dict(kernel="tridiag_eigh", case=case, dtype="float64", K=H.shape[1], k=k, max_abs_err=err,
-                           limit=0.0, orthonormality_after_newton_schulz=orth, clusters=stats["mgs_members"]))
+        plan = tridiag_plan(H, k)
+        checks.append(dict(kernel="tridiag_eigh", case=case, dtype="float64", d=H.shape[0], K=H.shape[1], k=k,
+                           max_abs_err=err, limit=0.0, orthonormality_after_newton_schulz=orth,
+                           clusters=stats["mgs_members"], halvings=stats["halvings"], probes=stats["probes"], **plan))
         require(err == 0.0, f"tridiag_eigh {case}: error {err}")
         require(orth <= 1e-13, f"tridiag_eigh {case}: Q is {orth} from orthonormal")
         worst["tridiag_eigh"] = max(worst["tridiag_eigh"], err)
-        work[case] = (H, k, stats)
+        work[case] = (H, k, stats, plan)
+    require(work["straddle_d1_K201_k29"][2]["mgs_members"] > 0, "tridiag_eigh straddle: no cluster formed")
 
     def timed(case, plain_reps):
-        H, k, stats = work[case]
+        H, k, stats, plan = work[case]
         Wm = padded_for_masked_eigh(H, k)
         kernel_ms, plain_ms = time_pair(lambda: masked_eigh_tridiag_reference(H, k), lambda: tridiag_eigh(H, k),
                                         reps=plain_reps, warm=1)
         nbytes, flops = tridiag_work(H, k, stats)
-        return dict(case=case, d=H.shape[0], K=H.shape[1], k=k, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        return dict(case=case, d=H.shape[0], K=H.shape[1], k=k, plan=plan, kernel_ms=kernel_ms, plain_ms=plain_ms,
                     kernel_ms_200=time_one(lambda: tridiag_eigh(H, k), reps=200, warm=5),
                     with_newton_schulz_ms=time_one(lambda: masked_eigh_tridiag_mixed(H, k), reps=50, warm=5),
                     library_ms=time_one(lambda: torch.linalg.eigh(Wm), reps=20, warm=3),
                     dense_masked_eigh_ms=time_one(lambda: masked_eigh(H, k), reps=20, warm=3),
-                    halvings=stats["halvings"], **bound(nbytes, flops, torch.float64))
+                    halvings=stats["halvings"], probes=stats["probes"],
+                    ms_by_P_G={P: {G: time_one(lambda: _tridiag_eigh_cuda(H, k, True, lanes=P, cluster=G),
+                                               reps=20, warm=2) for G in CLUSTER_SIZES} for P in (2, 4, 8, 16, 32)},
+                    **bound(nbytes, flops, torch.float64))
 
     at_slice = timed("slice_K201_k29", 3)
     at_flagship = timed("flagship_K513_k384", 1)
+    at_d1 = timed("slice_d1_K201_k29", 3)
     times["tridiag_eigh"] = (at_slice["kernel_ms_200"], at_slice["plain_ms"])
     extra["tridiag_eigh"] = dict(bound_ms=at_slice["bound_ms"], bound_by=at_slice["bound_by"],
                                  library_ms=at_slice["library_ms"])
-    return dict(at_slice_last_check=at_slice, at_flagship=at_flagship)
+    return dict(at_slice_last_check=at_slice, at_flagship=at_flagship, at_d1=at_d1)
 
 
 def run_solve(tkt, op, b, config, entry="solve", **kwargs):

@@ -61,8 +61,9 @@ _SIGNATURES = {
     "tk_ring_spmv_f32": [_P, _I, _P] + [_I] * 5 + [_P],
     "tk_ring_spmv_f64": [_P, _I, _P] + [_I] * 5 + [_P],
     "tk_ring_spmv_max_shards": [],
-    "tk_tridiag_eigh_f32": [_P] * 4 + [_I] * 5 + [ctypes.c_double] * 3 + [_P],
-    "tk_tridiag_eigh_f64": [_P] * 4 + [_I] * 5 + [ctypes.c_double] * 3 + [_P],
+    "tk_tridiag_eigh_f32": [_P] * 4 + [_I] * 7 + [ctypes.c_double] * 3 + [_P],
+    "tk_tridiag_eigh_f64": [_P] * 4 + [_I] * 7 + [ctypes.c_double] * 3 + [_P],
+    "tk_tridiag_eigh_max_clusters": [_I, _I, _I, _I, _P],
     "tk_enable_peer_access": [_I, _I],
 }
 # entry points that return a count rather than a cudaError_t

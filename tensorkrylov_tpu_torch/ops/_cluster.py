@@ -1,5 +1,6 @@
 """The plan of the kernels that run one thread-block cluster of G blocks per
-factor: ``csrc/fused_lanczos.cu`` and ``csrc/resident_lanczos.cu``."""
+factor: ``csrc/fused_lanczos.cu``, ``csrc/resident_lanczos.cu`` and
+``csrc/tridiag_eigh.cu``."""
 from __future__ import annotations
 
 import ctypes
@@ -38,7 +39,8 @@ def max_active_clusters(entry: str, device: int, *args: int) -> int:
 
 def cluster_plan(d: int, chunks: int, sms: int, fit) -> int:
     """G, the blocks per factor of a kernel that runs one cluster per factor
-    of ``chunks`` 256-element chunks.
+    of ``chunks`` chunks of work (256 elements, or 256 probe lanes of the
+    tridiagonal eigensolver).
 
     The card runs fit(G) clusters of G at once, so d clusters take
     ceil(d / fit(G)) rounds of chunks / G chunks per block. G minimises that

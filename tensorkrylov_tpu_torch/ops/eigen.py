@@ -4,14 +4,16 @@ of ``tensorkrylov_tpu/ops/eigen.py``.
 ``masked_eigh`` is the dense eigh (``torch.linalg.eigh``).
 ``masked_eigh_tridiag_mixed`` is the tridiagonal eigensolver that the Lanczos
 path runs on the card: the CUDA kernel ``csrc/tridiag_eigh.cu`` (Sturm
-bisection, inverse iteration, cluster Gram–Schmidt) for a CUDA tensor, its
+multisection, inverse iteration, cluster Gram–Schmidt, one thread-block
+cluster per factor) for a CUDA tensor, its
 plain version ``masked_eigh_tridiag_reference`` for a CPU tensor, then two
 Newton–Schulz steps. The JAX package seeds its solver with an f32 dense eigh
 because f64 eigh is emulated on the TPU; the card has native f64, so the port
-bisects instead of seeding.
+multisects instead of seeding.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -19,6 +21,7 @@ import torch
 
 from ..types import KroneckerSumOperator
 from . import _build
+from ._cluster import cluster_plan, device_index, max_active_clusters, sm_count
 from .orth import _sqrt_rn
 
 __all__ = [
@@ -168,16 +171,43 @@ def tridiag_eigvalsh_sturm(diag: torch.Tensor, offdiag: torch.Tensor, k=None, n_
 
 # The tridiagonal eigensolver's rules, shared by the kernel (passed at launch)
 # and its plain version.
-TRIDIAG_BISECT_ITERS = 64     # most halvings of the widened Gershgorin bracket (~54 reach adjacent floats)
+TRIDIAG_BISECT_ITERS = 64     # halvings the multisection rounds cover (~54 reach adjacent floats)
 TRIDIAG_CLUSTER_RTOL = 1e-6   # consecutive eigenvalues this close, relative to ‖T‖, form a cluster
+# Sturm probe lanes of a call, d·k·P at most: ~12 warps an SM over the 80 SMs
+# that d=10 clusters of G=8 take on the H100, where a probe still runs at its
+# division chain's latency; at twice that the f64 pipe falls behind (d=10,
+# K=513, k=384 at G=8: P=8 took 1.246 ms, P=16 1.418).
+TRIDIAG_LANES = 1 << 15
+TRIDIAG_MAX_P = 32            # lanes per eigenvalue: at most a warp
 
 
-def _tridiag_rules(dtype, refine_vectors: bool):
-    """(bisection halvings, inverse-iteration solves, eps, the Sturm count's
-    zero guard, cluster gap relative to ‖T‖): two solves with
+def tridiag_lanes(d: int, k: int) -> int:
+    """P, the lanes of each eigenvalue's multisection (P − 1 Sturm probes a
+    round, log₂P bits): the largest power of two up to TRIDIAG_MAX_P with
+    d·k·P ≤ TRIDIAG_LANES, and at least 2 (bisection). More lanes pay where
+    k is small and the chain's latency sets the pace; fewer where d·k·P would
+    oversubscribe the f64 pipes."""
+    P = TRIDIAG_MAX_P
+    while P > 2 and d * k * P > TRIDIAG_LANES:
+        P //= 2
+    return P
+
+
+def tridiag_rounds(P: int) -> int:
+    """The most multisection rounds of P lanes: ⌈TRIDIAG_BISECT_ITERS / log₂P⌉."""
+    return -(-TRIDIAG_BISECT_ITERS // (P.bit_length() - 1))
+
+
+def _tridiag_rules(dtype, refine_vectors: bool, d: int, k: int, lanes: Optional[int] = None):
+    """(lanes P per eigenvalue, most multisection rounds, inverse-iteration
+    solves, eps, the Sturm count's zero guard, cluster gap relative to ‖T‖):
+    P from tridiag_lanes(d, k) unless `lanes` forces it; two solves with
     refine_vectors (an f64 basis), one without."""
+    P = tridiag_lanes(d, k) if lanes is None else int(lanes)
+    if P < 2 or P > TRIDIAG_MAX_P or P & (P - 1):
+        raise ValueError(f"lanes per eigenvalue must be a power of two in 2..{TRIDIAG_MAX_P}, got {P}")
     fi = torch.finfo(dtype)
-    return TRIDIAG_BISECT_ITERS, 2 if refine_vectors else 1, fi.eps, fi.tiny * 1e8, TRIDIAG_CLUSTER_RTOL
+    return P, tridiag_rounds(P), 2 if refine_vectors else 1, fi.eps, fi.tiny * 1e8, TRIDIAG_CLUSTER_RTOL
 
 
 def _start_vectors(k: int, dtype, device) -> torch.Tensor:
@@ -242,8 +272,40 @@ def _cluster_sizes(joins: torch.Tensor) -> list:
     return sizes
 
 
-def masked_eigh_tridiag_reference(H: torch.Tensor, k, refine_vectors: bool = True,
-                                  stats: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _sturm_counts(dg: torch.Tensor, e2: torch.Tensor, x: torch.Tensor, tiny: torch.Tensor) -> torch.Tensor:
+    """The kernel's Sturm count at every probe x (d, ...) of the active
+    tridiagonals dg, e2 (d, k) (e2[:, 0] = 0): q_i = (d_i − x) − e²_i/q_{i−1},
+    |q| < tiny set to −tiny, counting negative q_i."""
+    shape = (dg.shape[0],) + (1,) * (x.dim() - 1)
+    q = torch.ones_like(x)
+    count = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for i in range(dg.shape[1]):
+        q = (dg[:, i].view(shape) - x) - e2[:, i].view(shape) / q
+        q = torch.where(q.abs() < tiny, -tiny, q)
+        count += q < 0
+    return count
+
+
+def _multisection_select(lo: torch.Tensor, hi: torch.Tensor, x: torch.Tensor, counts: torch.Tensor,
+                         j: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One multisection round's new bracket of eigenvalue j: the first probe
+    whose count exceeds j is the new hi and the probe before it (lo before
+    the first) the new lo; where no count exceeds j, the last probe is the
+    new lo. lo, hi, j (...); x, counts (..., P − 1), the probes ascending.
+
+    A floating-point Sturm count need not be monotone in x, so a count of
+    the probes at or below j could pick a lo whose count exceeds j; this
+    rule keeps count(lo) ≤ j < count(hi) whatever the counts."""
+    above = counts > j[..., None]
+    found = above.any(-1)
+    f = above.to(torch.int32).argmax(-1, keepdim=True)   # the first probe above j
+    x_f = x.gather(-1, f).squeeze(-1)
+    x_before = torch.where(f > 0, x.gather(-1, (f - 1).clamp(min=0)), lo[..., None]).squeeze(-1)
+    return torch.where(found, x_before, x[..., -1]), torch.where(found, x_f, hi)
+
+
+def masked_eigh_tridiag_reference(H: torch.Tensor, k, refine_vectors: bool = True, stats: Optional[dict] = None,
+                                  lanes: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the ``csrc/tridiag_eigh.cu`` kernel: the eigenpairs of
     the active k×k blocks of the symmetric tridiagonal H (d, K, K), before
     Newton–Schulz. Every operation is rounded on its own, in the kernel's
@@ -251,26 +313,29 @@ def masked_eigh_tridiag_reference(H: torch.Tensor, k, refine_vectors: bool = Tru
 
     Per factor: the Gershgorin bracket of the active rows, widened by
     2·eps·‖T‖ (‖T‖ its larger end in magnitude); per eigenvalue j, at most
-    TRIDIAG_BISECT_ITERS halvings by the Sturm count (``_sturm_count``'s
-    recurrence and zero guard), a bracket that cannot shrink stopping; then
-    one or two (refine_vectors) inverse-iteration solves of the JAX package's
-    guarded Thomas algorithm, pivots at least piv = eps·‖T‖ in magnitude and
-    the right side scaled by piv (x then stays near unit size at any scale of
-    T), from distinct hashed start vectors, each normalised and followed by modified
-    Gram–Schmidt within each cluster (consecutive eigenvalues within
-    TRIDIAG_CLUSTER_RTOL·‖T‖).
+    tridiag_rounds(P) multisection rounds of P lanes (P = tridiag_lanes(d, k)
+    unless `lanes` forces it): probes x_ℓ = lo + (hi − lo)·(ℓ/P), ℓ = 1..P−1,
+    each a Sturm count over the k active rows, then ``_multisection_select``'s
+    bracket; a bracket with no probe strictly inside stops, and λ_j is
+    0.5·(lo + hi). Then one or two (refine_vectors) inverse-iteration solves
+    of the JAX package's guarded Thomas algorithm, pivots at least piv =
+    eps·‖T‖ in magnitude and the right side scaled by piv (x then stays near
+    unit size at any scale of T), from distinct hashed start vectors, each
+    normalised and followed by modified Gram–Schmidt within each cluster
+    (consecutive eigenvalues within TRIDIAG_CLUSTER_RTOL·‖T‖).
 
     Returns w (d, K), ascending on the active block, the padded slots holding
     w[:, :1], and Q (d, K, K), the active eigenvectors in columns 0..k−1 and
     the identity's columns on the padded block. A `stats` dict receives what
-    this input needed (the kernel does the same): bisection halvings over all
-    eigenvalues, inverse-iteration solves, and the cluster Gram–Schmidt's
-    pairs and members.
+    this input needed: `halvings`, the bisection-equivalent work (log₂P per
+    live round, summed over eigenvalues), `probes`, the Sturm sweeps run
+    ((P − 1) per live round), inverse-iteration `solves`, and the cluster
+    Gram–Schmidt's pairs and members.
     """
     d, K, _ = H.shape
     k = int(k)
     dtype, dev = H.dtype, H.device
-    n_iter, steps, eps_, tiny_, rtol_ = _tridiag_rules(dtype, refine_vectors)
+    P, rounds, steps, eps_, tiny_, rtol_ = _tridiag_rules(dtype, refine_vectors, d, k, lanes)
     eps, tiny, rtol = (torch.tensor(v, dtype=dtype, device=dev) for v in (eps_, tiny_, rtol_))
     idx = torch.arange(k, device=dev)
     dg = H[:, idx, idx]
@@ -286,23 +351,22 @@ def masked_eigh_tridiag_reference(H: torch.Tensor, k, refine_vectors: bool = Tru
     piv = torch.maximum(eps * gnorm, tiny)[:, None]
     tau = rtol * gnorm
 
-    # bisection, every (factor, eigenvalue) at once
+    # multisection, every (factor, eigenvalue, probe) at once
     lo = (glo - pad)[:, None].expand(d, k).clone()
     hi = (ghi + pad)[:, None].expand(d, k).clone()
-    target = torch.arange(k, device=dev)
-    dg_b, e2_b = dg[:, None, :].expand(d, k, k), e2[:, None, :].expand(d, k, k)
-    active = torch.ones((d, k, k), dtype=dtype, device=dev)
-    halvings = 0
-    for _ in range(n_iter):
-        mid = 0.5 * (lo + hi)
-        live = (mid != lo) & (mid != hi)
-        live_count = int(live.sum())
-        if not live_count:
+    target = idx.expand(d, k)
+    frac = torch.arange(1, P, dtype=dtype, device=dev) / P   # ℓ/P, exact
+    live_rounds = 0
+    for _ in range(rounds):
+        x = lo[..., None] + (hi - lo)[..., None] * frac
+        live = ((x > lo[..., None]) & (x < hi[..., None])).any(-1)
+        n_live = int(live.sum())
+        if not n_live:
             break
-        halvings += live_count
-        go = _sturm_count(dg_b, e2_b, mid, active) <= target
-        lo = torch.where(live & go, mid, lo)
-        hi = torch.where(live & ~go, mid, hi)
+        live_rounds += n_live
+        new_lo, new_hi = _multisection_select(lo, hi, x, _sturm_counts(dg, e2, x, tiny), target)
+        lo = torch.where(live, new_lo, lo)
+        hi = torch.where(live, new_hi, hi)
     lam = 0.5 * (lo + hi)
     joins = torch.zeros((d, k), dtype=torch.bool, device=dev)
     joins[:, 1:] = (lam[:, 1:] - lam[:, :-1]) <= tau[:, None]
@@ -335,7 +399,9 @@ def masked_eigh_tridiag_reference(H: torch.Tensor, k, refine_vectors: bool = Tru
     if stats is not None:
         # a cluster of c members makes c − 1 renormalisations and c(c − 1)/2 pairs, per solve
         sizes = _cluster_sizes(joins)
-        stats.update(halvings=halvings, solves=steps, mgs_members=steps * sum(c - 1 for c in sizes),
+        stats.update(lanes=P, rounds=rounds, halvings=(P.bit_length() - 1) * live_rounds,
+                     probes=(P - 1) * live_rounds, solves=steps,
+                     mgs_members=steps * sum(c - 1 for c in sizes),
                      mgs_pairs=steps * sum(c * (c - 1) // 2 for c in sizes))
 
     w = torch.cat([lam, lam[:, :1].expand(d, K - k)], dim=1)
@@ -344,7 +410,34 @@ def masked_eigh_tridiag_reference(H: torch.Tensor, k, refine_vectors: bool = Tru
     return w, Q
 
 
-def _tridiag_eigh_cuda(H: torch.Tensor, k: int, refine_vectors: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+# probe lanes per cluster_plan chunk (4 warps): a factor runs ceil(k·P / 128) chunks
+TRIDIAG_CHUNK_LANES = 128
+
+
+def tridiag_cluster(d: int, k: int, P: int, dtype=torch.float64, device=None) -> int:
+    """G, the blocks of each factor's thread-block cluster: ``cluster_plan``
+    over the ⌈k·P / 128⌉ chunks of probe lanes a factor runs, with the
+    clusters that fit counted at one block an SM (the kernel's occupancy at
+    this (k, P, G), at most SMs / G): two blocks of probes on one SM share
+    its f64 pipe (at d=10, K=513, k=384, P=16 on the H100, G=16 on 160
+    blocks took 1.68 ms and G=8 on 80 blocks 1.42). G leaves the result
+    unchanged."""
+    return _tridiag_cluster(d, k, P, torch.empty((), dtype=dtype).element_size(), device_index(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _tridiag_cluster(d: int, k: int, P: int, itemsize: int, index: int) -> int:
+    sms = sm_count(index)
+    return cluster_plan(d, -(-k * P // TRIDIAG_CHUNK_LANES), sms,
+                        lambda G: min(sms // G, max_active_clusters("tk_tridiag_eigh_max_clusters", index, k, P,
+                                                                    G, itemsize)))
+
+
+def _tridiag_eigh_cuda(H: torch.Tensor, k: int, refine_vectors: bool, lanes: Optional[int] = None,
+                       cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch: P lanes per eigenvalue (tridiag_lanes unless
+    `lanes` forces it) and G blocks per factor (tridiag_cluster unless
+    `cluster` forces it, 1..16)."""
     if H.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"tridiag_eigh kernel takes f32 or f64 H, got {H.dtype}")
     if H.dim() != 3 or H.shape[1] != H.shape[2]:
@@ -352,14 +445,16 @@ def _tridiag_eigh_cuda(H: torch.Tensor, k: int, refine_vectors: bool) -> Tuple[t
     d, K, _ = H.shape
     if not 1 <= k <= K:
         raise ValueError(f"the active size k={k} must lie in 1..K={K}")
+    P, rounds, steps, eps, tiny, rtol = _tridiag_rules(H.dtype, refine_vectors, d, k, lanes)
+    G = tridiag_cluster(d, k, P, H.dtype, H.device) if cluster is None else int(cluster)
     H = H.contiguous()
     w = torch.empty((d, K), dtype=H.dtype, device=H.device)
     Q = torch.empty((d, K, K), dtype=H.dtype, device=H.device)
     scratch = torch.empty_like(Q)
     lib = _build.kernels()
     fn = lib.tk_tridiag_eigh_f64 if H.dtype == torch.float64 else lib.tk_tridiag_eigh_f32
-    err = fn(H.data_ptr(), w.data_ptr(), Q.data_ptr(), scratch.data_ptr(), d, K, k,
-             *_tridiag_rules(H.dtype, refine_vectors), _build.stream_of(H))
+    err = fn(H.data_ptr(), w.data_ptr(), Q.data_ptr(), scratch.data_ptr(), d, K, k, P, rounds, steps, G,
+             eps, tiny, rtol, _build.stream_of(H))
     _build.check(err, "tridiag_eigh")
     _build.launches["tridiag_eigh"] += 1
     return w, Q
@@ -379,7 +474,11 @@ def tridiag_eigh(H: torch.Tensor, k, refine_vectors: bool = True) -> Tuple[torch
 def masked_eigh_tridiag_mixed(H: torch.Tensor, k, refine_vectors: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """eigh of the active k×k blocks of symmetric tridiagonal matrices stored
     padded in H (d, K, K): ``tridiag_eigh``, then two Newton–Schulz steps
-    Q ← 1.5 Q − 0.5 Q (QᵀQ) (f64 GEMMs, as in the JAX package).
+    X ← 1.5 X − 0.5 X (XᵀX) (f64 GEMMs, as in the JAX package) on the active
+    block X = Q[:, :k, :k], each one ``bmm`` and one ``baddbmm``. The padded
+    product gives the identity columns and zero blocks back exactly, so this
+    is the JAX package's step up to the GEMMs' rounding; Q, this call's own
+    output, is updated in place.
 
     refine_vectors (an f64 basis) runs two inverse-iteration solves, one
     without. Returns w (d, K), ascending active eigenvalues with the padded
@@ -388,8 +487,10 @@ def masked_eigh_tridiag_mixed(H: torch.Tensor, k, refine_vectors: bool = True) -
     This is not masked_eigh's layout (its padded eigenvalues are sorted among
     the active ones); cp_solve_sym takes both, b̃ being zero on the pad.
     """
+    k = int(k)
     w, Q = tridiag_eigh(H, k, refine_vectors)
+    X = Q[:, :k, :k]
     for _ in range(2):
-        G = Q.transpose(1, 2) @ Q
-        Q = 1.5 * Q - 0.5 * (Q @ G)
+        X = torch.baddbmm(X, X, X.transpose(1, 2) @ X, beta=1.5, alpha=-0.5)
+    Q[:, :k, :k] = X
     return w, Q

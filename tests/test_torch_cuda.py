@@ -1113,18 +1113,93 @@ def test_tridiag_kernel_equals_plain(cuda, K, case):
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, on_cpu))
 
 
+@pytest.mark.parametrize("K,cases", [(31, ("random_half", "wilkinson21", "repeated_blocks")),
+                                     (201, ("random_half", "wilkinson21", "lanczos_ghosts")),
+                                     (513, ("zero_subdiagonal", "flagship_k384"))])
 @pytest.mark.parametrize("dtype,refine", [(torch.float64, False), (torch.float32, True), (torch.float32, False)])
-def test_tridiag_kernel_dtypes_and_one_solve(cuda, dtype, refine):
+def test_tridiag_kernel_dtypes_and_one_solve(cuda, dtype, refine, K, cases):
     """f32 (proj_dtype=float32) and one inverse-iteration solve (a basis
-    below f64): equal to the plain version bit for bit."""
+    below f64): equal to the plain version bit for bit, one launch a call."""
     from tensorkrylov_tpu_torch.ops.eigen import masked_eigh_tridiag_reference, tridiag_eigh
 
-    for case in ("random_half", "wilkinson21", "lanczos_ghosts"):
-        H, k = _tridiag_case(case, 201)
+    for case in cases:
+        H, k = _tridiag_case(case, K)
         Hc = torch.tensor(H, dtype=dtype, device=cuda)
+        before = _build.launches["tridiag_eigh"]
         got = tridiag_eigh(Hc, k, refine)
+        assert _build.launches["tridiag_eigh"] == before + 1
         ref = masked_eigh_tridiag_reference(Hc, k, refine)
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), case
+
+
+def straddling_T(k, split, seed=0):
+    """(1, k, k): two decoupled random tridiagonal blocks of sizes split and
+    k − split, the second shifted so that its lowest eigenvalue sits 1e-9·‖T‖
+    above the first's highest: eigenvalues split − 1 and split form a cluster
+    (gap within TRIDIAG_CLUSTER_RTOL·‖T‖) and no other pair does."""
+    rng = np.random.default_rng(seed)
+    A = _tridiag_blocks(rng.standard_normal((1, split)), rng.standard_normal((1, split - 1)))[0]
+    B = _tridiag_blocks(rng.standard_normal((1, k - split)), rng.standard_normal((1, k - split - 1)))[0]
+    top, bottom = np.linalg.eigvalsh(A)[-1], np.linalg.eigvalsh(B)[0]
+    B += (top - bottom + 1e-9 * 8.0) * np.eye(k - split)
+    T = np.zeros((1, k, k))
+    T[0, :split, :split], T[0, split:, split:] = A, B
+    return T
+
+
+def _padded_cuda(T, K, cuda):
+    d, k, _ = T.shape
+    H = np.zeros((d, K, K))
+    H[:, :k, :k] = T
+    H[:, k:, k:] = np.eye(K - k)
+    return torch.tensor(H, device=cuda)
+
+
+@pytest.mark.parametrize("G", [None, 2, 3, 4, 8, 16])
+def test_tridiag_cluster_straddling_two_blocks(cuda, G):
+    """A cluster of two near-equal eigenvalues split between blocks r and
+    r + 1 of the factor's cluster (its first member's thread reads the
+    second's column, which another SM wrote): bit for bit against the plain
+    version, at the plan's G and at forced ones (d=1, K=201, k=29)."""
+    from tensorkrylov_tpu_torch.ops import eigen
+
+    k, K = 29, 201
+    G_run = G if G is not None else eigen.tridiag_cluster(1, k, eigen.tridiag_lanes(1, k), torch.float64, cuda)
+    per_block = -(-k // G_run)
+    split = per_block if per_block < k else k // 2
+    Hc = _padded_cuda(straddling_T(k, split, seed=G_run), K, cuda)
+    stats = {}
+    ref = eigen.masked_eigh_tridiag_reference(Hc, k, stats=stats)
+    assert stats["mgs_members"] == stats["solves"]  # the one two-member cluster
+    got = eigen._tridiag_eigh_cuda(Hc, k, True, cluster=G)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("d,k,K", [(1, 1, 1), (1, 1, 31), (4, 1, 9), (1, 29, 201), (10, 29, 201), (10, 27, 31)])
+def test_tridiag_small_and_ragged(cuda, d, k, K):
+    """d=1 (identical factors), k=1, and k that is not a multiple of the
+    eigenvalues per block at every G: bit for bit against the plain version."""
+    from tensorkrylov_tpu_torch.ops import eigen
+
+    rng = np.random.default_rng(d * 1000 + k)
+    Hc = _padded_cuda(_tridiag_blocks(rng.standard_normal((d, k)), rng.standard_normal((d, k - 1))), K, cuda)
+    ref = eigen.masked_eigh_tridiag_reference(Hc, k)
+    for G in (None, 1, 2, 4, 5, 8, 16):
+        got = eigen._tridiag_eigh_cuda(Hc, k, True, cluster=G)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), G
+
+
+@pytest.mark.parametrize("lanes", [2, 4, 8, 16, 32])
+def test_tridiag_forced_lanes_equal_plain(cuda, lanes):
+    """Any P: the kernel's probes and selection are the plain version's (the
+    ghost-laden Lanczos T, whose counts are least regular)."""
+    from tensorkrylov_tpu_torch.ops import eigen
+
+    H, k = _tridiag_case("lanczos_ghosts", 201)
+    Hc = torch.tensor(H, device=cuda)
+    got = eigen._tridiag_eigh_cuda(Hc, k, True, lanes=lanes)
+    ref = eigen.masked_eigh_tridiag_reference(Hc, k, lanes=lanes)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def test_tridiag_wrapper_rejects_bad_input(cuda):

@@ -510,7 +510,127 @@ def test_a_failed_launch_raises(monkeypatch):
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
     launches = dict(_build.launches)
     H = torch.tensor(_random(2, 5, 1))
+    monkeypatch.setattr(eigen, "tridiag_cluster", lambda d, k, P, dtype, device: 4)
     with pytest.raises(RuntimeError, match="tridiag_eigh failed to launch"):
         eigen._tridiag_eigh_cuda(H, 5, True)
-    assert len(seen) == 1 and seen[0][4:9] == (2, 5, 5, eigen.TRIDIAG_BISECT_ITERS, 2)
+    with pytest.raises(RuntimeError, match="tridiag_eigh failed to launch"):
+        eigen._tridiag_eigh_cuda(H.float(), 4, False, lanes=8, cluster=2)
+    # (d, K, k, lanes P, rounds, solves, blocks per cluster G): the plan's G, or the one forced
+    assert len(seen) == 2 and seen[0][4:11] == (2, 5, 5, 32, 13, 2, 4) and seen[1][4:11] == (2, 5, 4, 8, 22, 1, 2)
+    assert seen[0][11:14] == (torch.finfo(torch.float64).eps, torch.finfo(torch.float64).tiny * 1e8,
+                              eigen.TRIDIAG_CLUSTER_RTOL)
     assert dict(_build.launches) == launches
+
+
+# --------------------------------------------------------------------------
+# multisection: the rules the kernel and its plain version share
+
+
+def test_selection_keeps_the_bracket_on_non_monotone_counts():
+    """_multisection_select on hand-made counts that are not monotone in x:
+    the first probe above j is the new hi and the one before it the new lo,
+    so count(lo) <= j < count(hi) holds. Taking the count of probes at or
+    below j as the index would pick x[1], whose count 3 exceeds j = 2."""
+    x = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    lo, hi, j = torch.tensor(0.0), torch.tensor(5.0), torch.tensor(2)
+    new_lo, new_hi = eigen._multisection_select(lo, hi, x, torch.tensor([1, 3, 2, 4]), j)
+    assert (float(new_lo), float(new_hi)) == (1.0, 2.0)
+    new_lo, new_hi = eigen._multisection_select(lo, hi, x, torch.tensor([3, 1, 2, 4]), j)
+    assert (float(new_lo), float(new_hi)) == (0.0, 1.0)
+    new_lo, new_hi = eigen._multisection_select(lo, hi, x, torch.tensor([2, 0, 1, 2]), j)
+    assert (float(new_lo), float(new_hi)) == (4.0, 5.0)
+    # random non-monotone counts, batched: the invariant with count(lo) <= j < count(hi) given
+    rng = np.random.default_rng(6)
+    n, probes = 4000, 15
+    counts = torch.tensor(rng.integers(0, 12, (n, probes)))
+    j = torch.tensor(rng.integers(0, 11, n))
+    xs = torch.tensor(np.sort(rng.uniform(1.0, 2.0, (n, probes)), axis=1))
+    lo, hi = torch.zeros(n, dtype=torch.float64), torch.full((n,), 3.0, dtype=torch.float64)
+    new_lo, new_hi = eigen._multisection_select(lo, hi, xs, counts, j)
+    at = {float(v): c for row_x, row_c in zip(xs.tolist(), counts.tolist()) for v, c in zip(row_x, row_c)}
+    for a, b, jj in zip(new_lo.tolist(), new_hi.tolist(), j.tolist()):
+        assert a < b
+        assert (a == 0.0 or at[a] <= jj) and (b == 3.0 or at[b] > jj)
+
+
+@pytest.mark.parametrize("d", [1, 2, 10, 64])
+def test_lanes_rule(d):
+    """P is a power of two in 2..32, the largest with d·k·P within
+    TRIDIAG_LANES (2 when none is); its rounds cover TRIDIAG_BISECT_ITERS
+    halvings and one round fewer would not."""
+    for k in list(range(1, 70)) + [128, 200, 201, 384, 512, 1000, 4096]:
+        P = eigen.tridiag_lanes(d, k)
+        bits = P.bit_length() - 1
+        assert P in (2, 4, 8, 16, 32)
+        assert P == 2 or d * k * P <= eigen.TRIDIAG_LANES
+        assert P == 32 or d * k * 2 * P > eigen.TRIDIAG_LANES
+        rounds = eigen.tridiag_rounds(P)
+        assert rounds * bits >= eigen.TRIDIAG_BISECT_ITERS > (rounds - 1) * bits
+    shapes = ((10, 29), (1, 29), (10, 200), (10, 384), (10, 512))
+    assert [eigen.tridiag_lanes(*dk) for dk in shapes] == [32, 32, 16, 8, 4]
+    with pytest.raises(ValueError, match="power of two"):
+        eigen._tridiag_rules(torch.float64, True, d, 4, lanes=12)
+
+
+def _tridiag_parts(T):
+    d, k, _ = T.shape
+    diag = torch.tensor(T[:, np.arange(k), np.arange(k)])
+    off = torch.tensor(np.concatenate([np.zeros((d, 1)), T[:, np.arange(1, k), np.arange(k - 1)]], axis=1))
+    return diag, off
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("lanes", [None, 2, 4, 16])
+def test_multisection_agrees_with_bisection_and_lapack(name, lanes):
+    """The plain multisection's eigenvalues (the rule's P, or P forced)
+    against tridiag_eigvalsh_sturm's 80 halvings to 2 ulps of ‖T‖, and against
+    LAPACK's eigvalsh of the active block to 2·k ulps of ‖T‖."""
+    H, k = CASES[name][0]()
+    w, _ = masked_eigh_tridiag_reference(torch.tensor(H), k, lanes=lanes)
+    w = w.numpy()[:, :k]
+    T = H[:, :k, :k]
+    norm = np.abs(T).sum(axis=2).max()
+    ulp = np.finfo(np.float64).eps * norm
+    bisect = eigen.tridiag_eigvalsh_sturm(*_tridiag_parts(T)).numpy()
+    assert np.abs(w - bisect).max() <= 2 * ulp
+    lapack = np.stack([np.linalg.eigvalsh(t) for t in T])
+    assert np.abs(w - lapack).max() <= 2 * k * ulp
+
+
+@pytest.mark.parametrize("name", ["random_kK", "lanczos_k12", "wilkinson21", "lanczos_ghosts", "K513_k384"])
+def test_halvings_count_bisection_equivalent_work(name):
+    """stats: `halvings` is log₂P per live round and `probes` (P − 1) per live
+    round, summed over eigenvalues; with P = 2 both are bisection's halvings,
+    and at the rule's P the halvings stay within one round an eigenvalue of
+    them, so a bound that reads `halvings` does not grow with the probes."""
+    H, k = CASES[name][0]()
+    d = H.shape[0]
+    runs = {}
+    for lanes in (2, None):
+        stats = {}
+        masked_eigh_tridiag_reference(torch.tensor(H), k, stats=stats, lanes=lanes)
+        runs[lanes] = stats
+    P = runs[None]["lanes"]
+    assert P == eigen.tridiag_lanes(d, k) and runs[2]["lanes"] == 2
+    assert runs[2]["halvings"] == runs[2]["probes"] <= d * k * eigen.TRIDIAG_BISECT_ITERS
+    live_rounds, rest = divmod(runs[None]["halvings"], P.bit_length() - 1)
+    assert rest == 0 and runs[None]["probes"] == (P - 1) * live_rounds
+    assert live_rounds <= d * k * runs[None]["rounds"]
+    assert abs(runs[None]["halvings"] - runs[2]["halvings"]) < d * k * (P.bit_length() - 1)
+
+
+@pytest.mark.parametrize("name", ["random_k8", "zero_subdiagonal", "wilkinson21", "K513_k384"])
+def test_newton_schulz_on_the_active_block(name):
+    """The two Newton–Schulz steps on Q[:, :k, :k] equal the padded (d, K, K)
+    product's: the identity columns and zero blocks exactly, the active
+    block up to GEMM summation order (1e-15)."""
+    H, k = CASES[name][0]()
+    Ht = torch.tensor(H)
+    _, Q = tridiag_eigh(Ht, k)
+    for _ in range(2):
+        Q = 1.5 * Q - 0.5 * (Q @ (Q.transpose(1, 2) @ Q))
+    _, got = masked_eigh_tridiag_mixed(Ht, k)
+    K = H.shape[1]
+    assert torch.equal(got[:, :, k:], torch.eye(K, dtype=got.dtype)[:, k:].expand(H.shape[0], K, K - k))
+    assert not got[:, k:, :k].any()
+    assert float((got - Q).abs().max()) <= 1e-15
