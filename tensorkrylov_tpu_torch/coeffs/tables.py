@@ -5,7 +5,9 @@ The Braess–Hackbusch tables are the port's own packed file,
 ``coeffs/data/bh_tables.npz`` beside this module, read with numpy; it holds
 the same arrays as the JAX package's file, and ``coeffs/preprocess.py``
 repacks it from the reference's raw files. Selection is tensor code on the
-tables' device, so the solver loop does not wait for the host.
+tables' device; the tables are indexed by Python ints, so it reads the
+row's digit and order, the row and the rank into Python (four reads through
+``utils/profiling.host_read``, each a wait for the device).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils.profiling import host_read
 
 TMAX = 63
 DEFAULT_NPZ = Path(__file__).resolve().parent / "data" / "bh_tables.npz"
@@ -72,18 +76,18 @@ def select_bh(kappa: torch.Tensor, tol, tables: BHTables, tmax: int = TMAX, row_
     n_orders = tables.grid.shape[1]
     order = torch.clamp(order, 0, n_orders - 1)
     digit = torch.clamp(digit, 1, 9)
-    row = tables.grid[digit, order]
+    row = host_read(tables.grid[host_read(digit, int), host_read(order, int)], int)
 
     errs = tables.err[row]                                  # (TMAX,)
     avail = torch.arange(TMAX, device=dev) < min(tmax, TMAX)
     ok = (errs <= tol) & avail
     first_ok = torch.argmax(ok.to(torch.int8))             # first index meeting tol
-    inf = torch.tensor(math.inf, dtype=dtype, device=dev)
-    best = torch.argmin(torch.where(torch.isfinite(errs) & avail, errs, inf))
+    best = torch.argmin(torch.where(torch.isfinite(errs) & avail, errs, math.inf))
     t_idx = torch.where(ok.any(), first_ok, best)
+    t = host_read(t_idx, int)
 
-    omega = tables.omega[row, t_idx]
-    alpha = tables.alpha[row, t_idx]
+    omega = tables.omega[row, t]
+    alpha = tables.alpha[row, t]
     if tmax > TMAX:
         omega = torch.nn.functional.pad(omega, (0, tmax - TMAX))
         alpha = torch.nn.functional.pad(alpha, (0, tmax - TMAX))
@@ -92,7 +96,7 @@ def select_bh(kappa: torch.Tensor, tol, tables: BHTables, tmax: int = TMAX, row_
         alpha = alpha[:tmax]
     rank = (t_idx + 1).to(torch.int32)
     t_mask = (torch.arange(tmax, device=dev) < rank).to(dtype)
-    return ExpSumCoeffs(omega, alpha, t_mask, rank, errs[t_idx])
+    return ExpSumCoeffs(omega, alpha, t_mask, rank, errs[t])
 
 
 def stenger_eps(rank, dtype=torch.float64):

@@ -66,6 +66,7 @@ from .parallel.sharding import ShardedOperator, _split, shard_basis, shard_opera
 from .solver import auto_eigh_impl
 from .types import CPTensor, KroneckerSumOperator, SolverConfig, Status
 from .utils.cp import cp_residual_cross_check_device, cp_residual_cross_check_host
+from .utils.profiling import host_read, span
 
 __all__ = ["DeflationBasis", "deflation_basis", "solve_deflated", "DeflatedResult", "expsum_sup_error"]
 
@@ -75,7 +76,7 @@ _NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32}
 def _host(t) -> np.ndarray:
     """A tensor or array as a host f64 numpy array."""
     if torch.is_tensor(t):
-        t = t.detach().cpu().numpy()
+        t = host_read(t.detach()).numpy()
     return np.asarray(t, np.float64)
 
 
@@ -752,256 +753,276 @@ def solve_deflated(
     (utils/cp.cp_residual_cross_check_device: a compensated f64 Gram, only the
     (d, 1+2t, 1+2t) Gram moving to the host) on a CUDA operator, and in numpy
     (cp_residual_cross_check_host) on the CPU; for df64, where final says.
+
+    Spans (utils/profiling.py): 'deflated' over the call; 'deflated.prepare'
+    from entry to the first step (checks, tables, the spectral interval, the
+    coefficients and their sup error, the host copies of the bands and b;
+    then the state), 'deflated.upload' (U to the device and b's split),
+    'deflated.step' for each step of either pass, 'deflated.evaluate' for
+    each checkpoint, 'deflated.finish' after the last (assembly or pass 2,
+    drift, the cross-check). Storages 'df64' and 'segmented' have no step
+    spans.
     """
     config = config or SolverConfig()
     if isinstance(op, ShardedOperator):
         raise ValueError("solve_deflated shards the problem itself (b's split and the basis need the whole "
                          "operator): call solve_deflated(op, b, mesh=sop.mesh, comm=sop.comm) with the unsharded "
                          "operator")
-    if mesh is not None and op.device != mesh.lead:
-        op = KroneckerSumOperator(op.bands.to(mesh.lead), op.offsets, op.symmetric)
-    dev = op.device
-    b = torch.as_tensor(b)
-    if b.dim() != 2 or b.shape[0] != op.d or b.shape[1] != op.n:
-        raise ValueError(f"b must be (d, n) = ({op.d}, {op.n}), got {tuple(b.shape)}")
-    if not op.symmetric:
-        raise ValueError("solve_deflated requires a symmetric operator")
-    if config.orth == "arnoldi":
-        raise ValueError("solve_deflated is a Lanczos-family solver")
-    basis = basis or deflation_basis(op, m, dtype=config.basis_dtype)
-    m = basis.m
-    pdt = config.proj_dtype
-    if tables is None:
-        tables = load_tables(dtype=pdt)
-    reorth = {"lanczos": "never", "lanczos_reorth": "always", "lanczos_reorth_auto": "auto"}[config.orth]
-    eigh_impl = _resolve_eigh_impl(config, op)
+    with span("deflated", device=op.device if mesh is None else mesh.lead):
+        with span("deflated.prepare"):
+            if mesh is not None and op.device != mesh.lead:
+                op = KroneckerSumOperator(op.bands.to(mesh.lead), op.offsets, op.symmetric)
+            dev = op.device
+            b = torch.as_tensor(b)
+            if b.dim() != 2 or b.shape[0] != op.d or b.shape[1] != op.n:
+                raise ValueError(f"b must be (d, n) = ({op.d}, {op.n}), got {tuple(b.shape)}")
+            if not op.symmetric:
+                raise ValueError("solve_deflated requires a symmetric operator")
+            if config.orth == "arnoldi":
+                raise ValueError("solve_deflated is a Lanczos-family solver")
+            basis = basis or deflation_basis(op, m, dtype=config.basis_dtype)
+            m = basis.m
+            pdt = config.proj_dtype
+            if tables is None:
+                tables = load_tables(dtype=pdt)
+            reorth = {"lanczos": "never", "lanczos_reorth": "always", "lanczos_reorth_auto": "auto"}[config.orth]
+            eigh_impl = _resolve_eigh_impl(config, op)
 
-    lam_np = np.asarray(basis.lam, np.float64)
-    lam_min = float(lam_np[:, 0].sum())
-    lam_max = _gershgorin_max(op)
+            lam_np = np.asarray(basis.lam, np.float64)
+            lam_min = float(lam_np[:, 0].sum())
+            lam_max = _gershgorin_max(op)
 
-    # the spectral interval is fixed for the whole solve: select the exp-sum
-    # coefficients once, at tol/2 so that the measured boundary has the rest
-    kappa = lam_max / lam_min
-    half_tol = 0.5 * config.tol
-    coeff_tol = half_tol / kappa if config.coeff_tol_scale == "kappa" else half_tol
-    coeffs = select_bh(torch.tensor(kappa, dtype=pdt), coeff_tol, tables, config.tmax, config.bh_row_select)
-    sup_err = expsum_sup_error(coeffs.omega, coeffs.alpha, kappa)
+            # the spectral interval is fixed for the whole solve: select the exp-sum
+            # coefficients once, at tol/2 so that the measured boundary has the rest
+            kappa = lam_max / lam_min
+            half_tol = 0.5 * config.tol
+            coeff_tol = half_tol / kappa if config.coeff_tol_scale == "kappa" else half_tol
+            coeffs = select_bh(torch.tensor(kappa, dtype=pdt), coeff_tol, tables, config.tmax, config.bh_row_select)
+            sup_err = expsum_sup_error(coeffs.omega, coeffs.alpha, kappa)
 
-    # the deflated Krylov space lives in the U-complement: dimension ≤ n − m
-    kmax = min(config.kmax, op.n - m)
-    if checkpoints is None:
-        checkpoints, ck = [], 32
-        while ck < kmax:
-            checkpoints.append(ck)
-            ck *= 2
-        checkpoints.append(kmax)
-    checkpoints = sorted({min(int(c_), kmax) for c_ in checkpoints})
+            # the deflated Krylov space lives in the U-complement: dimension ≤ n − m
+            kmax = min(config.kmax, op.n - m)
+            if checkpoints is None:
+                checkpoints, ck = [], 32
+                while ck < kmax:
+                    checkpoints.append(ck)
+                    ck *= 2
+                checkpoints.append(kmax)
+            checkpoints = sorted({min(int(c_), kmax) for c_ in checkpoints})
 
-    bands_host = _host(op.bands)
-    b_np = _host(b)
-    b_norm = float(np.prod(np.linalg.norm(b_np, axis=1)))
+            bands_host = _host(op.bands)
+            b_np = _host(b)
+            b_norm = float(np.prod(np.linalg.norm(b_np, axis=1)))
 
-    if storage == "auto":
-        storage = "full"
-    if storage not in ("full", "twopass", "segmented", "df64"):
-        raise ValueError(f"storage must be 'auto'|'full'|'twopass'|'segmented'|'df64', got {storage!r}")
-    if mesh is not None and storage == "df64" and comm == "ring":
-        raise ValueError("storage='df64' with mesh supports comm='gspmd' only (the pair SpMV runs on each shard's "
-                         "halo-extended slab; the ring kernel has no pair variant)")
-    if mesh is not None and storage == "segmented":
-        raise ValueError("storage='segmented' does not support mesh yet")
-    if mesh is not None and mesh.processes > 1 and storage == "df64":
-        raise NotImplementedError("storage='df64' over a mesh across processes is not ported: its once-per-solve "
-                                  "charges read every shard's bands and basis rows (df64_core._band_norm, "
-                                  "_split_rounding); run it on a one-process mesh (ROADMAP.md Queue 1, #11)")
-    if mesh is not None and mesh.processes > 1 and state_cache is not None:
-        raise NotImplementedError("state_cache over a mesh across processes is not ported: every rank would write "
-                                  "the one cache file; run it on a one-process mesh (ROADMAP.md Queue 1, #12)")
-    if storage != "df64" and (advance_budget is not None or save_every):
-        raise ValueError("advance_budget and save_every are storage='df64' options")
-    if storage == "twopass":
-        reorth = "never"        # no basis to sweep against; the btil probe measures the drift
-    if storage == "segmented":
-        reorth = "never"        # full reorthogonalization at every segment boundary instead
-        segment = int(segment)
-        if segment < 1:
-            raise ValueError(f"segment must be >= 1, got {segment}")
-        segment = min(segment, kmax)
-        kmax = (kmax // segment) * segment
-        checkpoints = sorted({min(max(segment, (ck // segment) * segment), kmax) for ck in checkpoints})
-    if project_every > 1 or sweep_every > 1:
-        warnings.warn(
-            f"project_every={project_every}/sweep_every={sweep_every} > 1: measured-unsound at production "
-            "spectra (the U-leak and the Gram grow exponentially outside the deflation window); validated "
-            "only on small-kappa oracles. The certificate folds the measured leak, but expect stalls at scale.",
-            RuntimeWarning, stacklevel=2)
-    if final == "auto" and storage != "df64":
-        final = "host"          # only df64 assembles and cross-checks where final says
-    final = _resolve_final(final, dev)
-    if final == "device" and storage != "df64":
-        raise ValueError("final='device' is implemented for storage='df64'")
-    if comm not in ("gspmd", "ring"):
-        raise ValueError(f"comm must be 'gspmd' or 'ring', got {comm!r}")
-    if pass2_impl == "auto":
-        pass2_impl = "host" if eigh_impl == "host" and storage == "twopass" and mesh is None else "device"
-    if pass2_impl not in ("host", "device"):
-        raise ValueError(f"pass2_impl must be 'auto'|'host'|'device', got {pass2_impl!r}")
-    if pass2_impl == "host" and (storage != "twopass" or mesh is not None):
-        raise ValueError("pass2_impl='host' requires storage='twopass' and no mesh")
-    if state_cache is not None and storage not in ("twopass", "df64"):
-        raise ValueError("state_cache requires storage='twopass' or 'df64'")
-
-    d, n, K = op.d, op.n, kmax + 1
-    problem_fp = resume = None
-    if state_cache is not None:
-        problem_fp = _fingerprint(bands_host, op.offsets, _b_perp_host(basis.U, b_np), lam_np)
-        if storage != "df64" and os.path.exists(state_cache):
-            resume = _load_state_cache(state_cache, problem_fp, d, n, K, project_every)
-
-    def to_dev(a):
-        return torch.as_tensor(np.require(a, requirements=("C", "W"))).to(device=dev, dtype=pdt)
-
-    # b's split, c = Uᵀb and b⊥ = b − U c, by the projection's own GEMMs (on the lead device of a mesh)
-    U = to_dev(basis.U)
-    b_dev = to_dev(b_np)
-    c = deflation_coeffs(b_dev, U)
-    b_perp = deflation_subtract(b_dev, U, c)
-    if storage == "df64":
-        Upair = pair_value(U)       # U's f32-pair value, the recurrence's deflation basis
-        sop, b_cols = None, b_dev[:, :, None]
-        if mesh is not None:        # the gspmd route: U, its pair, b and b⊥ split per shard
-            sop = shard_operator(op.astype(torch.float64), mesh, "gspmd")
-            U, Upair, b_perp = shard_basis(U, mesh, d), shard_basis(Upair, mesh, d), shard_rhs(b_perp, mesh, d)
-            b_cols = [x[:, :, None] for x in shard_rhs(b_dev, mesh, d)]
-        split = _split_rounding(U, Upair, b_cols, c[:, :, None], sop, shared=basis.U.shape[0] == 1)[:, 0]
-        del U, b_dev, b_cols
-        return _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoints, config.tol, coeffs,
-                           sup_err, lam_min, lam_max, state_cache, save_state, problem_fp, save_every, advance_budget,
-                           project_every, sweep_every, final, certify, verbose, sop)
-    del b_dev
-    op_c = op.astype(pdt)
-    # the step's operator: op_c, or its shards with b⊥ and U split alike
-    A = op_c
-    if mesh is not None:
-        A = shard_operator(op_c, mesh, comm)
-        b_perp, U = shard_rhs(b_perp, mesh, d), shard_basis(U, mesh, d)
-    V = None
-    if storage == "full":
-        V = like(b_perp, [torch.zeros((K,) + tuple(x.shape), dtype=pdt, device=x.device) for x in pieces(b_perp)])
-    st = _init_state(b_perp, K, A)
-    v0 = st.vp
-    if V is not None:
-        for Vi, x in zip(pieces(V), pieces(v0)):
-            Vi[0] = x
-    lam = to_dev(lam_np)
-    omega, alpha, t_mask = (t.to(device=dev, dtype=pdt) for t in (coeffs.omega, coeffs.alpha, coeffs.t_mask))
-    t_mask_np = _host(coeffs.t_mask)
-
-    k_prev = 1
-    if resume is not None:
-        fields, k_prev = resume
-        for f in _STATE_FIELDS + ("leak",):
-            val = to_dev(fields[f])
-            setattr(st, f, shard_rhs(val, mesh, d) if mesh is not None and f in ("vp", "vpp") else val)
-
-    rel_hist: List[float] = []
-    bound_hist: List[float] = []
-    status = int(Status.MAXITER)
-    k_done = 0
-    Yu = Yv = weights = None
-    segs: List[torch.Tensor] = []
-    boundary_drift = None
-    for ck in checkpoints:
-        if ck + 1 > k_prev:
+            if storage == "auto":
+                storage = "full"
+            if storage not in ("full", "twopass", "segmented", "df64"):
+                raise ValueError(f"storage must be 'auto'|'full'|'twopass'|'segmented'|'df64', got {storage!r}")
+            if mesh is not None and storage == "df64" and comm == "ring":
+                raise ValueError("storage='df64' with mesh supports comm='gspmd' only (the pair SpMV runs on each "
+                                 "shard's halo-extended slab; the ring kernel has no pair variant)")
+            if mesh is not None and storage == "segmented":
+                raise ValueError("storage='segmented' does not support mesh yet")
+            if mesh is not None and mesh.processes > 1 and storage == "df64":
+                raise NotImplementedError("storage='df64' over a mesh across processes is not ported: its "
+                                          "once-per-solve charges read every shard's bands and basis rows "
+                                          "(df64_core._band_norm, _split_rounding); run it on a one-process mesh "
+                                          "(ROADMAP.md Queue 1, #11)")
+            if mesh is not None and mesh.processes > 1 and state_cache is not None:
+                raise NotImplementedError("state_cache over a mesh across processes is not ported: every rank would "
+                                          "write the one cache file; run it on a one-process mesh (ROADMAP.md Queue 1, "
+                                          "#12)")
+            if storage != "df64" and (advance_budget is not None or save_every):
+                raise ValueError("advance_budget and save_every are storage='df64' options")
+            if storage == "twopass":
+                reorth = "never"        # no basis to sweep against; the btil probe measures the drift
             if storage == "segmented":
-                while k_prev <= ck:
-                    segs.append(_advance_store(op_c, st, b_perp, U, k_prev, segment, project_every))
-                    k_prev += segment
-                    boundary_drift = max(boundary_drift or 0.0, _boundary_reorth([v0[None]] + segs, st, U))
-            else:
-                _advance(A, st, b_perp, U, k_prev, ck + 1, V=V, reorth=reorth, reorth_tol=config.reorth_tol,
-                         project_every=project_every, measure_leak=storage == "twopass")
-                k_prev = ck + 1
-            if storage == "twopass" and state_cache is not None and save_state:
-                _save_state_cache(state_cache, st, k_prev, project_every, problem_fp, A)
-        # the boundary coupling of checkpoint ck is β_ck, recorded in od (a
-        # resumed solve's last β belongs to its last step, not to ck)
-        if eigh_impl == "host":
-            rel, brs, Yu, Yv, weights = _evaluate_host(
-                _host(st.dg), _host(st.od), _host(st.btil), _host(st.od[:, ck]), ck, lam_np, _host(c), b_norm,
-                lam_min, _host(coeffs.omega), _host(coeffs.alpha), t_mask_np)
-            Yu, Yv, weights = map(to_dev, (Yu, Yv, weights))
-        else:
-            rel, brs, Yu, Yv, weights = _evaluate(st.dg, st.od, st.btil, st.od[:, ck], ck, lam, c, b_norm, lam_min,
-                                                  omega, alpha, t_mask, eigh_impl)
-        bound = sup_err + float(np.sqrt(max(float(brs), 0.0)))
-        rel_hist.append(float(rel))
-        bound_hist.append(bound)
-        k_done = ck
-        if verbose:
-            print(f"  [solve_deflated] k={ck}: estimate {rel_hist[-1]:.3e}, certified bound {bound:.3e}", flush=True)
-        if bound < config.tol:
-            status = int(Status.CONVERGED)
-            break
+                reorth = "never"        # full reorthogonalization at every segment boundary instead
+                segment = int(segment)
+                if segment < 1:
+                    raise ValueError(f"segment must be >= 1, got {segment}")
+                segment = min(segment, kmax)
+                kmax = (kmax // segment) * segment
+                checkpoints = sorted({min(max(segment, (ck // segment) * segment), kmax) for ck in checkpoints})
+            if project_every > 1 or sweep_every > 1:
+                warnings.warn(
+                    f"project_every={project_every}/sweep_every={sweep_every} > 1: measured-unsound at production "
+                    "spectra (the U-leak and the Gram grow exponentially outside the deflation window); validated "
+                    "only on small-kappa oracles. The certificate folds the measured leak, but expect stalls at scale.",
+                    RuntimeWarning, stacklevel=2)
+            if final == "auto" and storage != "df64":
+                final = "host"          # only df64 assembles and cross-checks where final says
+            final = _resolve_final(final, dev)
+            if final == "device" and storage != "df64":
+                raise ValueError("final='device' is implemented for storage='df64'")
+            if comm not in ("gspmd", "ring"):
+                raise ValueError(f"comm must be 'gspmd' or 'ring', got {comm!r}")
+            if pass2_impl == "auto":
+                pass2_impl = "host" if eigh_impl == "host" and storage == "twopass" and mesh is None else "device"
+            if pass2_impl not in ("host", "device"):
+                raise ValueError(f"pass2_impl must be 'auto'|'host'|'device', got {pass2_impl!r}")
+            if pass2_impl == "host" and (storage != "twopass" or mesh is not None):
+                raise ValueError("pass2_impl='host' requires storage='twopass' and no mesh")
+            if state_cache is not None and storage not in ("twopass", "df64"):
+                raise ValueError("state_cache requires storage='twopass' or 'df64'")
 
-    # only the active exp-sum columns (t_mask) enter the assembly
-    act = torch.as_tensor(np.flatnonzero(t_mask_np > 0), device=dev)
-    Yu, Yv, weights = (a.index_select(-1, act) for a in (Yu, Yv, weights))
-    btil_np = _host(st.btil)
-    leak_val = None if storage == "full" else float(st.leak)
-    audit = None
-    if storage == "full":
-        xf = whole(A, like(V, [_assemble(Ui, Vi, yu, yv, k_done) for Ui, Vi, yu, yv in
-                               zip(pieces(U), pieces(V), scatter(A, Yu), scatter(A, Yv))]), axis=1)
-    else:
-        # the basis columns 0..k_done-1 carry the solution: column k_done only couples
-        Yv[:, k_done:] = 0.0
-        if storage == "segmented":
-            xf = v0[:, :, None] * Yv[:, 0, None, :]
-            for j, seg in enumerate(segs):
-                sl = Yv[:, 1 + j * segment:1 + (j + 1) * segment]
-                xf += torch.bmm(seg[:sl.shape[1]].permute(1, 2, 0), sl)
-            xf += _u_lift(U, Yu)
-        elif pass2_impl == "device":
-            X, audit = _pass2_accumulate(A, b_perp, U, st.od, Yv, k_done - 1, n_probes=min(16, max(k_done - 1, 1)),
-                                         project_every=project_every)
-            xf = whole(A, like(X, [_u_lift(Ui, yu) + Xi for Ui, yu, Xi in zip(pieces(U), scatter(A, Yu), pieces(X))]),
-                       axis=1)
-        else:
-            X, audit = _pass2_host(bands_host, op.offsets, _host(b_perp), basis.U, _host(st.od), _host(Yv), k_done - 1,
-                                   project_every=project_every, n_probes=min(16, max(k_done - 1, 1)), verbose=verbose)
-            xf = _u_lift(U, Yu) + to_dev(X)
-    x = CPTensor(weights, xf)
-    kk = np.arange(btil_np.shape[1])
-    live = (kk >= 1) & (kk <= k_done)
-    drift = float(np.max(np.abs(btil_np[:, live]) / (btil_np[:, :1] + 1e-300)))
-    # release the basis before the cross-check's (d, 1+2t, n) columns
-    del st, V, segs, U
-    measured = measured_floor = None
-    if certify:
-        if dev.type == "cuda":
-            check = cp_residual_cross_check_device(op, weights, xf, b)
-        else:
-            check = cp_residual_cross_check_host(bands_host, op.offsets, _host(weights), _host(xf), b_np)
-        measured, measured_floor = check.value / b_norm, check.floor / b_norm
-    return DeflatedResult(
-        x=x,
-        status=status,
-        niterations=k_done,
-        m=m,
-        relative_residual=rel_hist,
-        certified_bound=bound_hist,
-        checkpoints=list(checkpoints[:len(rel_hist)]),
-        measured_cp_residual=measured,
-        expsum_sup=sup_err,
-        expsum_rank=int(coeffs.rank),
-        lambda_min=lam_min,
-        lambda_max=lam_max,
-        orthogonality_drift=drift,
-        cp_residual_floor=measured_floor,
-        pass2_gram_max=None if audit is None else float(audit.gram_max),
-        pass2_beta_rel_dev=None if audit is None else float(audit.beta_rel_dev),
-        projection_leak=leak_val,
-        boundary_drift_max=boundary_drift,
-    )
+            d, n, K = op.d, op.n, kmax + 1
+            problem_fp = resume = None
+            if state_cache is not None:
+                problem_fp = _fingerprint(bands_host, op.offsets, _b_perp_host(basis.U, b_np), lam_np)
+                if storage != "df64" and os.path.exists(state_cache):
+                    resume = _load_state_cache(state_cache, problem_fp, d, n, K, project_every)
+
+            def to_dev(a):
+                return torch.as_tensor(np.require(a, requirements=("C", "W"))).to(device=dev, dtype=pdt)
+
+        with span("deflated.upload"):
+            # b's split, c = Uᵀb and b⊥ = b − U c, by the projection's own GEMMs (on the lead device of a mesh)
+            U = to_dev(basis.U)
+            b_dev = to_dev(b_np)
+            c = deflation_coeffs(b_dev, U)
+            b_perp = deflation_subtract(b_dev, U, c)
+        if storage == "df64":
+            Upair = pair_value(U)       # U's f32-pair value, the recurrence's deflation basis
+            sop, b_cols = None, b_dev[:, :, None]
+            if mesh is not None:        # the gspmd route: U, its pair, b and b⊥ split per shard
+                sop = shard_operator(op.astype(torch.float64), mesh, "gspmd")
+                U, Upair, b_perp = shard_basis(U, mesh, d), shard_basis(Upair, mesh, d), shard_rhs(b_perp, mesh, d)
+                b_cols = [x[:, :, None] for x in shard_rhs(b_dev, mesh, d)]
+            split = _split_rounding(U, Upair, b_cols, c[:, :, None], sop, shared=basis.U.shape[0] == 1)[:, 0]
+            del U, b_dev, b_cols
+            return _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoints, config.tol,
+                               coeffs, sup_err, lam_min, lam_max, state_cache, save_state, problem_fp, save_every,
+                               advance_budget, project_every, sweep_every, final, certify, verbose, sop)
+        with span("deflated.prepare"):
+            del b_dev
+            op_c = op.astype(pdt)
+            # the step's operator: op_c, or its shards with b⊥ and U split alike
+            A = op_c
+            if mesh is not None:
+                A = shard_operator(op_c, mesh, comm)
+                b_perp, U = shard_rhs(b_perp, mesh, d), shard_basis(U, mesh, d)
+            V = None
+            if storage == "full":
+                V = like(b_perp, [torch.zeros((K,) + tuple(x.shape), dtype=pdt, device=x.device)
+                                  for x in pieces(b_perp)])
+            st = _init_state(b_perp, K, A)
+            v0 = st.vp
+            if V is not None:
+                for Vi, x in zip(pieces(V), pieces(v0)):
+                    Vi[0] = x
+            lam = to_dev(lam_np)
+            omega, alpha, t_mask = (t.to(device=dev, dtype=pdt) for t in (coeffs.omega, coeffs.alpha, coeffs.t_mask))
+            t_mask_np = _host(coeffs.t_mask)
+
+            k_prev = 1
+            if resume is not None:
+                fields, k_prev = resume
+                for f in _STATE_FIELDS + ("leak",):
+                    val = to_dev(fields[f])
+                    setattr(st, f, shard_rhs(val, mesh, d) if mesh is not None and f in ("vp", "vpp") else val)
+
+        rel_hist: List[float] = []
+        bound_hist: List[float] = []
+        status = int(Status.MAXITER)
+        k_done = 0
+        Yu = Yv = weights = None
+        segs: List[torch.Tensor] = []
+        boundary_drift = None
+        for ck in checkpoints:
+            if ck + 1 > k_prev:
+                if storage == "segmented":
+                    while k_prev <= ck:
+                        segs.append(_advance_store(op_c, st, b_perp, U, k_prev, segment, project_every))
+                        k_prev += segment
+                        boundary_drift = max(boundary_drift or 0.0, _boundary_reorth([v0[None]] + segs, st, U))
+                else:
+                    _advance(A, st, b_perp, U, k_prev, ck + 1, V=V, reorth=reorth, reorth_tol=config.reorth_tol,
+                             project_every=project_every, measure_leak=storage == "twopass")
+                    k_prev = ck + 1
+                if storage == "twopass" and state_cache is not None and save_state:
+                    _save_state_cache(state_cache, st, k_prev, project_every, problem_fp, A)
+            with span("deflated.evaluate"):
+                # the boundary coupling of checkpoint ck is β_ck, recorded in od (a
+                # resumed solve's last β belongs to its last step, not to ck)
+                if eigh_impl == "host":
+                    rel, brs, Yu, Yv, weights = _evaluate_host(
+                        _host(st.dg), _host(st.od), _host(st.btil), _host(st.od[:, ck]), ck, lam_np, _host(c), b_norm,
+                        lam_min, _host(coeffs.omega), _host(coeffs.alpha), t_mask_np)
+                    Yu, Yv, weights = map(to_dev, (Yu, Yv, weights))
+                else:
+                    rel, brs, Yu, Yv, weights = _evaluate(st.dg, st.od, st.btil, st.od[:, ck], ck, lam, c, b_norm,
+                                                          lam_min, omega, alpha, t_mask, eigh_impl)
+                bound = sup_err + float(np.sqrt(max(host_read(brs, float), 0.0)))
+                rel_hist.append(host_read(rel, float))
+                bound_hist.append(bound)
+            k_done = ck
+            if verbose:
+                print(f"  [solve_deflated] k={ck}: estimate {rel_hist[-1]:.3e}, certified bound {bound:.3e}",
+                      flush=True)
+            if bound < config.tol:
+                status = int(Status.CONVERGED)
+                break
+
+        with span("deflated.finish"):
+            # only the active exp-sum columns (t_mask) enter the assembly
+            act = torch.as_tensor(np.flatnonzero(t_mask_np > 0), device=dev)
+            Yu, Yv, weights = (a.index_select(-1, act) for a in (Yu, Yv, weights))
+            btil_np = _host(st.btil)
+            leak_val = None if storage == "full" else host_read(st.leak, float)
+            audit = None
+            if storage == "full":
+                xf = whole(A, like(V, [_assemble(Ui, Vi, yu, yv, k_done) for Ui, Vi, yu, yv in
+                                       zip(pieces(U), pieces(V), scatter(A, Yu), scatter(A, Yv))]), axis=1)
+            else:
+                # the basis columns 0..k_done-1 carry the solution: column k_done only couples
+                Yv[:, k_done:] = 0.0
+                if storage == "segmented":
+                    xf = v0[:, :, None] * Yv[:, 0, None, :]
+                    for j, seg in enumerate(segs):
+                        sl = Yv[:, 1 + j * segment:1 + (j + 1) * segment]
+                        xf += torch.bmm(seg[:sl.shape[1]].permute(1, 2, 0), sl)
+                    xf += _u_lift(U, Yu)
+                elif pass2_impl == "device":
+                    X, audit = _pass2_accumulate(A, b_perp, U, st.od, Yv, k_done - 1,
+                                                 n_probes=min(16, max(k_done - 1, 1)), project_every=project_every)
+                    xf = whole(A, like(X, [_u_lift(Ui, yu) + Xi
+                                           for Ui, yu, Xi in zip(pieces(U), scatter(A, Yu), pieces(X))]), axis=1)
+                else:
+                    X, audit = _pass2_host(bands_host, op.offsets, _host(b_perp), basis.U, _host(st.od), _host(Yv),
+                                           k_done - 1, project_every=project_every,
+                                           n_probes=min(16, max(k_done - 1, 1)), verbose=verbose)
+                    xf = _u_lift(U, Yu) + to_dev(X)
+            x = CPTensor(weights, xf)
+            kk = np.arange(btil_np.shape[1])
+            live = (kk >= 1) & (kk <= k_done)
+            drift = float(np.max(np.abs(btil_np[:, live]) / (btil_np[:, :1] + 1e-300)))
+            # release the basis before the cross-check's (d, 1+2t, n) columns
+            del st, V, segs, U
+            measured = measured_floor = None
+            if certify:
+                if dev.type == "cuda":
+                    check = cp_residual_cross_check_device(op, weights, xf, b)
+                else:
+                    check = cp_residual_cross_check_host(bands_host, op.offsets, _host(weights), _host(xf), b_np)
+                measured, measured_floor = check.value / b_norm, check.floor / b_norm
+            return DeflatedResult(
+                x=x,
+                status=status,
+                niterations=k_done,
+                m=m,
+                relative_residual=rel_hist,
+                certified_bound=bound_hist,
+                checkpoints=list(checkpoints[:len(rel_hist)]),
+                measured_cp_residual=measured,
+                expsum_sup=sup_err,
+                expsum_rank=host_read(coeffs.rank, int),
+                lambda_min=lam_min,
+                lambda_max=lam_max,
+                orthogonality_drift=drift,
+                cp_residual_floor=measured_floor,
+                pass2_gram_max=None if audit is None else float(audit.gram_max),
+                pass2_beta_rel_dev=None if audit is None else float(audit.beta_rel_dev),
+                projection_leak=leak_val,
+                boundary_drift_max=boundary_drift,
+            )

@@ -32,6 +32,7 @@ import torch
 from .ops.orth import (_TINY, _auto_threshold, _breakdown, _deflate, _dot, _drift_probe, _project, _sqrt_rn,
                        _subtract, bdot, deflation_project)
 from .parallel.krylov import like, norms, pieces, psum, scatter, spmv_pieces
+from .utils.profiling import host_read, span
 
 __all__ = ["Pass2Audit", "accumulate_replay"]
 
@@ -122,7 +123,8 @@ def _step(op, st: _DeflState, b_perp, U, k: int, *, V=None, reorth: str = "never
         st.beta_dev = torch.maximum(st.beta_dev, torch.max(dev))
     else:
         ub = _dot(op, u, bp)
-        if reorth == "auto" and bool(_drift_probe(ub, st.btil[:, 0], beta_sq) > _auto_threshold(reorth_tol, u[0].dtype)):
+        if reorth == "auto" and host_read(_drift_probe(ub, st.btil[:, 0], beta_sq)
+                                          > _auto_threshold(reorth_tol, u[0].dtype), bool):
             u = _sweep(op, pieces(V), u, k)
             beta_sq, ub = _dot(op, u, u), _dot(op, u, bp)
         beta_new, lucky, safe = _breakdown(_sqrt_rn(torch.clamp(beta_sq, min=0.0)), torch.abs(alpha) + st.beta + _TINY,
@@ -140,7 +142,8 @@ def _step(op, st: _DeflState, b_perp, U, k: int, *, V=None, reorth: str = "never
 def _advance(op, st: _DeflState, b_perp, U, k0: int, k1: int, *, V=None, **step) -> None:
     """Steps k0..k1-1; with V, each writes its column V[k] (on every piece)."""
     for k in range(k0, k1):
-        v = _step(op, st, b_perp, U, k, V=V, **step)
+        with span("deflated.step"):
+            v = _step(op, st, b_perp, U, k, V=V, **step)
         if V is not None:
             for Vi, vi in zip(pieces(V), pieces(v)):
                 Vi[k] = vi
@@ -242,10 +245,13 @@ def _pass2_accumulate(op, b_perp, U, od, Yv, k_done: int, n_probes: int = 0,
     K = od.shape[1]
     st = _init_state(b_perp, K, op)
     st.od = od
-    X, gmax = accumulate_replay(op, st.vp, Yv, k_done,
-                                lambda k: _step(op, st, b_perp, U, k, project_every=project_every, replay=True),
-                                n_probes, K)
-    return like(b_perp, X), Pass2Audit(0.0 if gmax is None else float(gmax), float(st.beta_dev))
+
+    def regenerate(k):
+        with span("deflated.step"):
+            return _step(op, st, b_perp, U, k, project_every=project_every, replay=True)
+
+    X, gmax = accumulate_replay(op, st.vp, Yv, k_done, regenerate, n_probes, K)
+    return like(b_perp, X), Pass2Audit(0.0 if gmax is None else host_read(gmax, float), host_read(st.beta_dev, float))
 
 
 def _pass2_host(bands, offsets, b_perp, U, od, Yv, k_done: int, project_every: int = 1, n_probes: int = 16,

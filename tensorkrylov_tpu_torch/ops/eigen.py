@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..types import KroneckerSumOperator
+from ..utils.profiling import host_read
 from . import _build
 from ._cluster import cluster_plan, device_index, max_active_clusters, sm_count
 from .orth import _sqrt_rn
@@ -465,7 +466,7 @@ def tridiag_eigh(H: torch.Tensor, k, refine_vectors: bool = True) -> Tuple[torch
     contract): the CUDA kernel for a CUDA tensor, the plain version for a
     CPU tensor; any other device raises."""
     if H.device.type == "cuda":
-        return _tridiag_eigh_cuda(H, int(k), refine_vectors)
+        return _tridiag_eigh_cuda(H, host_read(k, int), refine_vectors)
     if H.device.type == "cpu":
         return masked_eigh_tridiag_reference(H, k, refine_vectors)
     raise ValueError(f"tridiag_eigh runs on cuda or cpu tensors, got {H.device}")
@@ -487,7 +488,7 @@ def masked_eigh_tridiag_mixed(H: torch.Tensor, k, refine_vectors: bool = True) -
     This is not masked_eigh's layout (its padded eigenvalues are sorted among
     the active ones); cp_solve_sym takes both, b̃ being zero on the pad.
     """
-    k = int(k)
+    k = host_read(k, int)
     w, Q = tridiag_eigh(H, k, refine_vectors)
     X = Q[:, :k, :k]
     for _ in range(2):

@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.profiling import host_read
+
 __all__ = ["cp_solve_sym", "cp_solve_nonsym", "cp_solve_nonsym_eig"]
 
 
@@ -87,7 +89,7 @@ def cp_solve_nonsym(H, btil, k, omega, alpha, t_mask, lam_min) -> Tuple[torch.Te
     Hm, btil_m, _ = _masked(H, btil, k)
     R = btil_m.shape[2]
     factors = torch.zeros((d, K, tmax, R), dtype=H.dtype, device=H.device)
-    for j in range(int(torch.sum(t_mask))):
+    for j in range(host_read(torch.sum(t_mask), int)):
         factors[:, :, j] = torch.linalg.matrix_exp(Hm * (-alpha[j] / lam_min)) @ btil_m
     factors = factors * t_mask[None, None, :, None]
     weights = torch.repeat_interleave((omega / lam_min) * t_mask, R)

@@ -29,6 +29,7 @@ import torch
 
 from ..parallel.krylov import like, piece_ranges, pieces, psum, scatter, spmv_pieces
 from ..types import KroneckerSumOperator
+from ..utils.profiling import host_read
 from .fused_lanczos import fixed_order_sum, fused_lanczos_core
 
 __all__ = ["KrylovState", "init_state", "lanczos_step", "arnoldi_step", "orthogonality_loss", "lanczos_algorithm",
@@ -292,7 +293,7 @@ def lanczos_step(op, state: KrylovState, b, k: int, *, reorth, proj_dtype, fused
         loss = probe
 
     if mode == "auto":
-        if bool(probe > _auto_threshold(reorth_tol, acc)):
+        if host_read(probe > _auto_threshold(reorth_tol, acc), bool):
             u = _subtract(op, Vs, u, _project(op, Vs, u, k, proj_dtype), k)
             beta_sq = _dot(op, u, u).to(proj_dtype)
             ub = _dot(op, u, bs).to(proj_dtype)
@@ -303,7 +304,7 @@ def lanczos_step(op, state: KrylovState, b, k: int, *, reorth, proj_dtype, fused
     v_new = [ui / sf.to(cdt)[:, None] for ui, sf in zip(u, scatter(op, safe))]
     # b̃_k = ⟨u/β, b⟩ = ub/β; a restart replaced v_new, so recompute it then
     bt_new = ub / safe
-    if bool(lucky.any()):
+    if host_read(lucky.any(), bool):
         v_new = _replace_lucky(op, Vs, v_new, lucky, k, proj_dtype, deflate_U=deflate_U)
         bt_new = _dot(op, v_new, [x.to(cdt) for x in bs]).to(proj_dtype)
 
@@ -337,7 +338,7 @@ def arnoldi_step(op, state: KrylovState, b, k: int, *, proj_dtype):
     h_new = _sqrt_rn(_dot(op, u, u).to(proj_dtype))
     h_new, lucky, safe = _breakdown(h_new, torch.sum(torch.abs(h), dim=1) + _TINY, cdt)
     v_new = [ui / sf.to(cdt)[:, None] for ui, sf in zip(u, scatter(op, safe))]
-    if bool(lucky.any()):
+    if host_read(lucky.any(), bool):
         v_new = _replace_lucky(op, Vs, v_new, lucky, k, proj_dtype)
 
     for Vi, vi in zip(Vs, v_new):

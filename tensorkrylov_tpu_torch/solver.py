@@ -45,6 +45,7 @@ from .parallel.krylov import like, pieces, scatter, whole
 from .parallel.sharding import Mesh, ShardedOperator, rhs_pieces, shard_operator
 from .types import CPTensor, KroneckerSumOperator, SolveResult, SolverConfig, Status
 from .utils.checkpoint import load_carry, save_carry
+from .utils.profiling import host_read, span
 
 __all__ = ["solve", "solve_host_projected", "solve_resumable", "solve_multi_rhs", "solve_on_mesh", "MultiRhsResult",
            "projected_step", "SolverConfig"]
@@ -336,7 +337,7 @@ def _record_check(h, k: int, ev: ProjectedEval, config: SolverConfig) -> Status:
     if config.debug:
         print(f"k={k}  rel_res={float(ev.rel):.3e}  r_comp={float(ev.r_comp):.3e}  "
               f"λ∈[{float(ev.lmin):.3e},{float(ev.lmax):.3e}]  t={int(ev.rank)}")
-    return Status(int(code))
+    return Status(host_read(code, int))
 
 
 def _result(x: CPTensor, status, niter: int, h, config: SolverConfig) -> SolveResult:
@@ -386,7 +387,8 @@ def _setup(op, b, config: Optional[SolverConfig], tables: Optional[BHTables]):
     config = _resolve_config(config, op)
     _check_identical_factors(config, op, b)
     if op.symmetric and tables is None:
-        tables = load_tables(dtype=config.proj_dtype, device=op.device)
+        with span("solve.tables"):
+            tables = load_tables(dtype=config.proj_dtype, device=op.device)
 
     K = config.kmax + 1
     pdt = config.proj_dtype
@@ -416,12 +418,14 @@ def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
     state = KrylovState(c.V, c.H, c.btil, c.beta)
     k, status, weights, Y = c.k, Status(c.status), c.weights, c.Y
     while k <= min(k_end, config.kmax) and status == Status.RUNNING:
-        state, loss = p.step(p.op, state, p.b, k)
+        with span("solve.step"):
+            state, loss = p.step(p.op, state, p.b, k)
         c.orth[k] = loss
         if k % config.check_every == 0 or k >= config.kmax:
-            ev = projected_step(state.H, state.btil, state.H[:, k, k - 1], k, p.b_norm_prod,
-                                config, p.tables, p.symmetric, p.op.n, p.W_A)
-            status = _record_check(c, k, ev, config)
+            with span("solve.check"):
+                ev = projected_step(state.H, state.btil, state.H[:, k, k - 1], k, p.b_norm_prod,
+                                    config, p.tables, p.symmetric, p.op.n, p.W_A)
+                status = _record_check(c, k, ev, config)
             # on breakdown the projected solution is untrustworthy: keep the previous one
             if status != Status.BREAKDOWN:
                 weights, Y = ev.weights, ev.Y
@@ -432,7 +436,8 @@ def _segment(p: _Problem, c: _Carry, k_end: int) -> _Carry:
 
 def _finalize(p: _Problem, c: _Carry) -> SolveResult:
     niter = c.k - 1
-    return _result(CPTensor(c.weights, _lift_pieces(p.op, c.V, c.Y, niter)), c.status, niter, c, p.config)
+    with span("solve.finalize"):
+        return _result(CPTensor(c.weights, _lift_pieces(p.op, c.V, c.Y, niter)), c.status, niter, c, p.config)
 
 
 def solve(op, b, config: Optional[SolverConfig] = None, tables: Optional[BHTables] = None) -> SolveResult:
@@ -445,9 +450,14 @@ def solve(op, b, config: Optional[SolverConfig] = None, tables: Optional[BHTable
     pieces, the projected stage on the lead device and x gathered there.
 
     One segment from step 1 to kmax: solve_resumable runs the same segment
-    in chunks and gives the same bits."""
-    p, carry = _setup(op, b, config, tables)
-    return _finalize(p, _segment(p, carry, p.config.kmax))
+    in chunks and gives the same bits.
+
+    Spans (utils/profiling.py): 'solve' over the call, 'solve.tables',
+    'solve.step' for each Krylov step, 'solve.check' for each projected
+    stage with the status read that ends it, 'solve.finalize'."""
+    with span("solve", device=op.device):
+        p, carry = _setup(op, b, config, tables)
+        return _finalize(p, _segment(p, carry, p.config.kmax))
 
 
 def solve_on_mesh(op: KroneckerSumOperator, b, config: SolverConfig, mesh: Mesh, comm: str,
@@ -468,7 +478,7 @@ def solve_resumable(op: KroneckerSumOperator, b, config: Optional[SolverConfig] 
     matrices, histories, status, k) written to checkpoint_path after each
     segment when it is given. resume=True starts from the carry at
     checkpoint_path. Segments and a restore are exact, so the result equals
-    solve()'s bit for bit."""
+    solve()'s bit for bit. Its spans are solve()'s, under one 'solve' root."""
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if checkpoint_path and isinstance(op, ShardedOperator) and op.mesh.processes > 1:
@@ -476,14 +486,15 @@ def solve_resumable(op: KroneckerSumOperator, b, config: Optional[SolverConfig] 
                                   "each rank holds only its basis pieces, and every rank would write the one "
                                   "checkpoint; chunk without a checkpoint, or use a one-process mesh "
                                   "(ROADMAP.md Queue 1, #13)")
-    p, carry = _setup(op, b, config, tables)
-    if resume and checkpoint_path:
-        carry = load_carry(checkpoint_path, carry)
-    while carry.k <= p.config.kmax and carry.status == Status.RUNNING:
-        carry = _segment(p, carry, carry.k + chunk - 1)
-        if checkpoint_path:
-            save_carry(checkpoint_path, carry)
-    return _finalize(p, carry)
+    with span("solve", device=op.device):
+        p, carry = _setup(op, b, config, tables)
+        if resume and checkpoint_path:
+            carry = load_carry(checkpoint_path, carry)
+        while carry.k <= p.config.kmax and carry.status == Status.RUNNING:
+            carry = _segment(p, carry, carry.k + chunk - 1)
+            if checkpoint_path:
+                save_carry(checkpoint_path, carry)
+        return _finalize(p, carry)
 
 
 class MultiRhsResult(NamedTuple):

@@ -29,6 +29,7 @@ from ..ops.banded import spmv
 from ..parallel.krylov import spmv_pieces, whole
 from ..parallel.sharding import ShardedOperator, shard_rhs
 from ..types import CPTensor, KroneckerSumOperator
+from .profiling import host_read
 
 __all__ = [
     "cp_dot",
@@ -58,7 +59,7 @@ _LD_EPS = float(np.finfo(np.longdouble).eps)
 def _host(t) -> np.ndarray:
     """A tensor or array as a host f64 numpy array."""
     if torch.is_tensor(t):
-        t = t.detach().cpu().numpy()
+        t = host_read(t.detach()).numpy()
     return np.asarray(t, np.float64)
 
 
