@@ -133,6 +133,13 @@ Phases, one output line each:
                and rank: wall, it/s, peak memory, launches, and the ms per step in halo
                exchange and all-gathers. A rank that fails or passes its timeout ends the
                phase and the other rank;
+ 16. expsum_sup — the deflated certificate's exp-sum sup error (ops/expsum.py,
+               csrc/expsum_sup.cu) at every row of tests/test_torch_expsum_sup.py on the
+               full 200 000-point grid: the kernel against its plain version on the card
+               (bit for bit) and the host longdouble function (within 1e-17), one launch a
+               call; at the flagship's row (κ ≈ 1.05e6, rank 47) the kernel timed with CUDA
+               events beside its operations bound, the call with its 8-byte read, the plain
+               version on the card and the host function.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -188,13 +195,14 @@ class Failed(Exception):
     pass
 
 
-# tridiag_eigh launches of the main-path runs that the phases read, summed for the kernels line
-EIGH_TALLY = {"tridiag_eigh": 0}
+# tridiag_eigh and expsum_sup launches of the main-path runs that the phases read, summed for the kernels line
+MAIN_TALLY = {"tridiag_eigh": 0, "expsum_sup": 0}
 
 
 def tally(counts):
-    """Adds a run's tridiag_eigh launches to EIGH_TALLY; returns counts."""
-    EIGH_TALLY["tridiag_eigh"] += counts.get("tridiag_eigh", 0)
+    """Adds a run's tridiag_eigh and expsum_sup launches to MAIN_TALLY; returns counts."""
+    for kernel in MAIN_TALLY:
+        MAIN_TALLY[kernel] += counts.get(kernel, 0)
     return counts
 
 
@@ -202,6 +210,13 @@ def eigh_launches(dev, checks):
     """The tridiag_eigh launches a solve with eigh_impl='auto' makes: one per
     check on the card, none on the CPU (where 'auto' is the dense eigh)."""
     return {"tridiag_eigh": checks} if dev.type == "cuda" and checks else {}
+
+
+def sup_launches(dev, calls=1):
+    """The exp-sum sup error's launches (ops/expsum.py): one per coefficient
+    selection of a deflated or recorded solve on the card, none on the CPU
+    (where the host longdouble function runs)."""
+    return {"expsum_sup": calls} if dev.type == "cuda" else {}
 
 
 def emit(phase, **fields):
@@ -1609,7 +1624,7 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     require("CONTRADICT" not in verdict, f"deflated flagship: the cross-check contradicts the bound: {verdict}")
     require((res.status, k) == (dense_row["status"], dense_row["niterations"]),
             f"deflated flagship: {res.status}/{k} vs the dense eigh's {dense_row['status']}/{dense_row['niterations']}")
-    want = {"banded_spmv": k + xc, **eigh_launches(dev, len(res.checkpoints))}
+    want = {"banded_spmv": k + xc, **eigh_launches(dev, len(res.checkpoints)), **sup_launches(dev)}
     require(counts == want, f"deflated flagship: launches {counts} in {k} steps (want {want})")
     require(x.shape[:2] == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device.type == dev.type,
             f"deflated flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
@@ -1645,7 +1660,7 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     require(t_equal and rt.certified_bound == rf.certified_bound and rt.relative_residual == rf.relative_residual,
             f"deflated mid: twopass's T equal {t_equal}, bounds {rt.certified_bound} vs {rf.certified_bound}")
     require(x_diff <= DEFLATED_X_RTOL, f"deflated mid: twopass x differs from full's by {x_diff}")
-    eigh = eigh_launches(dev, len(rf.checkpoints))
+    eigh = {**eigh_launches(dev, len(rf.checkpoints)), **sup_launches(dev)}
     require(cf == {"banded_spmv": k + xc, **eigh} and ct == {"banded_spmv": 2 * k - 1 + xc, **eigh},
             f"deflated mid: launches full {cf}, twopass {ct} in {k} steps (want {k + xc}, {2 * k - 1 + xc}, {eigh})")
     launched += cf["banded_spmv"] + ct["banded_spmv"]
@@ -1654,7 +1669,8 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
                                   basis=basis, storage="segmented", segment=q["segment"])
     mid["segmented"] = dict(segment=q["segment"], **deflated_summary(res, wall, counts, dev))
     require(res.boundary_drift_max is not None and math.isfinite(res.certified_bound[-1])
-            and counts == {"banded_spmv": res.niterations + xc, **eigh_launches(dev, len(res.checkpoints))},
+            and counts == {"banded_spmv": res.niterations + xc, **eigh_launches(dev, len(res.checkpoints)),
+                           **sup_launches(dev)},
             f"deflated mid segmented: bound {res.certified_bound}, drift {res.boundary_drift_max}, "
             f"launches {counts}")
     launched += counts["banded_spmv"]
@@ -1672,7 +1688,7 @@ def phase_deflated(tkt, dev=torch.device("cuda"), p=DEFLATED, keep=None):
     require(res.certified_bound == rt.certified_bound and torch.equal(res.x.factors, rt.x.factors),
             f"deflated mid: the resumed twopass differs from the uninterrupted one ({res.certified_bound} vs "
             f"{rt.certified_bound})")
-    want = {"banded_spmv": want, **eigh_launches(dev, len(res.checkpoints))}
+    want = {"banded_spmv": want, **eigh_launches(dev, len(res.checkpoints)), **sup_launches(dev)}
     require(counts == want, f"deflated mid resumed: launches {counts}, want {want}")
     launched += counts["banded_spmv"]
     out["mid"] = mid
@@ -1807,7 +1823,8 @@ def phase_recorded(tkt, dev=torch.device("cuda"), p=RECORDED, keep=None):
     t_phase = time.perf_counter()
     out, launched = {}, 0
     keep = keep or {}
-    one = {"banded_spmv": 1}    # the device cross-check's A·X: final='device' runs it on either device
+    # the device cross-check's A·X (final='device' runs it on either device) and, on the card, the sup error's
+    one = {"banded_spmv": 1, **sup_launches(dev)}
 
     # (d) the transforms on the card
     chk = ex.eft_selfcheck(device=dev)
@@ -1876,7 +1893,8 @@ def phase_recorded(tkt, dev=torch.device("cuda"), p=RECORDED, keep=None):
     require(res.converged and res.certified_bound[-1] < q["config"]["tol"],
             f"recorded config 4: status {res.status} after {res.niterations}, bounds {res.certified_bound}")
     require("CONTRADICT" not in verdict, f"recorded config 4: {verdict}")
-    require(counts == one, f"recorded config 4: launches {counts} (want {one})")
+    want = {"banded_spmv": 1, **sup_launches(dev, len(res.checkpoints))}     # the sup error at every checkpoint
+    require(counts == want, f"recorded config 4: launches {counts} (want {want})")
     launched += counts.get("banded_spmv", 0)
     del res, op4, B, basis
 
@@ -2025,7 +2043,8 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
             f"sharded twopass flagship: status {res.status} after {k} steps, bounds {res.certified_bound}")
     require("CONTRADICT" not in row["cross_check_verdict"],
             f"sharded twopass flagship: the cross-check contradicts the bound: {row['cross_check_verdict']}")
-    expect(counts, {"ring_spmv": 2 * k - 1, "banded_spmv": 1, **eigh_launches(dev, len(res.checkpoints))},
+    expect(counts, {"ring_spmv": 2 * k - 1, "banded_spmv": 1, **eigh_launches(dev, len(res.checkpoints)),
+                    **sup_launches(dev)},
            "twopass flagship")
     require(tuple(x.shape[:2]) == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device == dev,
             f"sharded twopass flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
@@ -2053,7 +2072,7 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
             f"sharded df64 flagship: the cross-check contradicts the bound: {row['cross_check_verdict']}")
     require(diff is None or diff <= SHARDED_DF64_RTOL,
             f"sharded df64 flagship: bound {res.certified_bound[-1]} vs phase 12's {ref} (relative {diff})")
-    expect(counts, {"banded_spmv": 1}, "df64 flagship")
+    expect(counts, {"banded_spmv": 1, **sup_launches(dev)}, "df64 flagship")
     require(tuple(x.shape[:2]) == (q["d"], q["n"]) and bool(torch.isfinite(x).all()) and x.device == dev,
             f"sharded df64 flagship: bad solution (shape {tuple(x.shape)}, device {x.device})")
     count(counts)
@@ -2080,9 +2099,10 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
     require(all(abs(a - r) <= SHARDED_MID_RTOL * r + SHARDED_MID_ATOL
                 for a, r in zip(res.certified_bound, ref.certified_bound)),
             f"sharded mid: bounds differ by {diff} relative ({res.certified_bound} vs {ref.certified_bound})")
-    expect(counts, {"banded_spmv": SHARDS * k + 1, **eigh_launches(dev, len(res.checkpoints))}, "mid full gspmd")
-    expect(counts_ref, {"banded_spmv": ref.niterations + 1, **eigh_launches(dev, len(ref.checkpoints))},
-           "mid unsharded")
+    expect(counts, {"banded_spmv": SHARDS * k + 1, **eigh_launches(dev, len(res.checkpoints)), **sup_launches(dev)},
+           "mid full gspmd")
+    expect(counts_ref, {"banded_spmv": ref.niterations + 1, **eigh_launches(dev, len(ref.checkpoints)),
+                        **sup_launches(dev)}, "mid unsharded")
     count(counts)
     count(counts_ref)
     del res, ref, op, b, basis
@@ -2109,7 +2129,7 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
     # twopass on the ring route: one launch per SpMV of both passes, and the cross-check's A·X; the
     # tridiagonal eigensolver at each check of both
     expect(counts, {"banded_spmv": SHARDS * ks + 1, "ring_spmv": 2 * kd - 1,
-                    **eigh_launches(dev, len(checked(rs)) + len(rd.checkpoints))}, "example 03")
+                    **eigh_launches(dev, len(checked(rs)) + len(rd.checkpoints)), **sup_launches(dev)}, "example 03")
     count(counts)
     with tempfile.TemporaryDirectory() as tmp:
         if on_card:
@@ -2561,7 +2581,7 @@ def phase_multihost(tkt, p=MULTIHOST):
         for path in paths:
             with open(path) as f:
                 ranks.append(json.load(f))
-    launched = {"banded_spmv": 0, "ring_spmv": 0, "tridiag_eigh": 0}
+    launched = {"banded_spmv": 0, "ring_spmv": 0, "tridiag_eigh": 0, "expsum_sup": 0}
     for r, out in enumerate(ranks):
         # the backend rule: gloo where the ranks share a card, NCCL for a card each
         require(out["backend"] == backend and out["world"] == 2, f"rank {r}: backend {out['backend']}")
@@ -2576,7 +2596,8 @@ def phase_multihost(tkt, p=MULTIHOST):
             for key in ("alpha_beta", "trace", "x"):
                 require(got[key] == ref[key], f"multihost {name} rank {r}: {key} differs from one controller's")
             if name == "deflated":
-                want = {"ring_spmv": 2 * k - 1, "banded_spmv": 1}        # both passes, and the cross-check
+                # both passes, the cross-check, and the sup error on the rank's lead
+                want = {"ring_spmv": 2 * k - 1, "banded_spmv": 1, **sup_launches(dev)}
             elif got["route"] == "ring":
                 want = {"ring_spmv": k}                                   # one launch per rank and SpMV
             else:
@@ -2634,6 +2655,64 @@ def phase_multihost(tkt, p=MULTIHOST):
     return launched["banded_spmv"], launched["ring_spmv"]
 
 
+# phase 16: the rows of tests/test_torch_expsum_sup.py, (κ, coefficient tolerance); the flagship's is the
+# deflated cells' 0.5·tol/κ at κ ≈ 1.05e6, the rank-47 row
+EXPSUM_SUP = dict(rows=[(1e2, 1e-8 / 1e2), (1e3, 1e-10), (1e6, 0.5e-8 / 1e6), (1.05e6, 0.5e-8 / 1.05e6),
+                        (1e7, 0.5e-8 / 1e7)],
+                  flagship=3, reps=200, plain_reps=3, host_reps=2)
+EXPSUM_SUP_ATOL = 1e-17   # kernel vs the host longdouble function (its own error is ~1e-19)
+
+
+def phase_expsum_sup(tkt, dev=torch.device("cuda"), p=EXPSUM_SUP):
+    """Phase 16: the sup error's kernel at every row against its plain
+    version on the card (limit 0.0) and the host function (EXPSUM_SUP_ATOL),
+    one launch a call; at the flagship's row, timed. Returns the kernels
+    line's entry."""
+    from tensorkrylov_tpu_torch import deflate
+    from tensorkrylov_tpu_torch.coeffs.tables import load_tables, select_bh
+    from tensorkrylov_tpu_torch.ops import _build, expsum
+
+    t_phase = time.perf_counter()
+    tables = load_tables()
+    rows, worst = [], 0.0
+    for kappa, tol in p["rows"]:
+        co = select_bh(torch.tensor(kappa, dtype=torch.float64), tol, tables)
+        om, al = expsum._terms(co.omega, co.alpha)
+        h = expsum._grid_step(kappa, expsum.N_GRID)
+        _build.launches.clear()
+        got = expsum.expsum_sup_error_dd(co.omega, co.alpha, kappa, expsum.N_GRID, device=dev)
+        launches = dict(_build.launches)
+        plain = float(expsum._sup_residuals(om, al, h, expsum.N_GRID, dev).max())
+        host = deflate.expsum_sup_error(co.omega, co.alpha, kappa, expsum.N_GRID)
+        worst = max(worst, abs(got - plain))
+        rows.append(dict(kappa=kappa, coeff_tol=tol, rank=int(co.rank), sup=got, plain=plain, host=host,
+                         abs_err_vs_host=abs(got - host), launches=launches,
+                         flops=expsum.expsum_sup_ops(co.omega, co.alpha, kappa, expsum.N_GRID)))
+        require(launches == {"expsum_sup": 1}, f"expsum_sup κ={kappa}: launches {launches}")
+        require(got == plain, f"expsum_sup κ={kappa}: kernel {got!r} vs plain {plain!r}")
+        require(abs(got - host) <= EXPSUM_SUP_ATOL, f"expsum_sup κ={kappa}: kernel {got!r} vs host {host!r}")
+
+    kappa, tol = p["rows"][p["flagship"]]
+    co = select_bh(torch.tensor(kappa, dtype=torch.float64), tol, tables)
+    om, al = expsum._terms(co.omega, co.alpha)
+    h = expsum._grid_step(kappa, expsum.N_GRID)
+    ms = time_one(lambda: expsum._sup_cuda(om, al, h, expsum.N_GRID, dev), reps=p["reps"])
+    t0 = time.perf_counter()
+    for _ in range(p["reps"]):
+        expsum.expsum_sup_error_dd(co.omega, co.alpha, kappa, expsum.N_GRID, device=dev)
+    call_ms = (time.perf_counter() - t0) / p["reps"] * 1e3
+    plain_ms = time_one(lambda: expsum._sup_residuals(om, al, h, expsum.N_GRID, dev), reps=p["plain_reps"], warm=1)
+    t0 = time.perf_counter()
+    for _ in range(p["host_reps"]):
+        deflate.expsum_sup_error(co.omega, co.alpha, kappa, expsum.N_GRID)
+    host_ms = (time.perf_counter() - t0) / p["host_reps"] * 1e3
+    flagship = dict(rows[p["flagship"]], ms=ms, call_ms=call_ms, plain_ms=plain_ms, host_ms=host_ms,
+                    **bound(8 + 2 * 8 * int(om.numel()), rows[p["flagship"]]["flops"], torch.float64))
+    emit("expsum_sup", rows=rows, flagship=flagship, seconds=time.perf_counter() - t_phase)
+    return dict(max_abs_err=worst, **{k: flagship[k] for k in (
+        "ms", "call_ms", "plain_ms", "host_ms", "bound_ms", "bound_by", "rank", "kappa")})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2667,6 +2746,7 @@ def main():
         banded, ring = phase_multihost(tkt)
         launches["banded_spmv"] += banded
         ring_launches["ring_spmv"] += ring
+        sup = phase_expsum_sup(tkt)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2684,9 +2764,12 @@ def main():
                         bound_ms=ring_times["bound_ms"], bound_by=ring_times["bound_by"],
                         library_ms=ring_times["library_ms"]))
     kernels.append(dict(name="tridiag_eigh", route="cuda", source=f"{pkg}/tridiag_eigh.cu",
-                        replaces="tensorkrylov_tpu/ops/eigen.py:182", launches=EIGH_TALLY["tridiag_eigh"],
+                        replaces="tensorkrylov_tpu/ops/eigen.py:182", launches=MAIN_TALLY["tridiag_eigh"],
                         max_abs_err=worst["tridiag_eigh"], ms=times["tridiag_eigh"][0],
                         plain_ms=times["tridiag_eigh"][1], **extra["tridiag_eigh"]))
+    kernels.append(dict(name="expsum_sup", route="cuda", source=f"{pkg}/expsum_sup.cu",
+                        replaces="none: tensorkrylov_tpu/deflate.py:448 on the host",
+                        launches=MAIN_TALLY["expsum_sup"], **sup))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

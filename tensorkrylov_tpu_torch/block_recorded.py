@@ -37,8 +37,8 @@ import numpy as np
 import torch
 
 from .coeffs.tables import BHTables, load_tables, select_bh
-from .deflate import (DeflationBasis, _assemble, _gershgorin_per_factor, _host, _resolve_final, deflation_basis,
-                      expsum_sup_error)
+from .deflate import (DeflationBasis, _assemble, _gershgorin_per_factor, _host, _resolve_final, _sup_error,
+                      deflation_basis)
 from .df64_core import (BAND_CHARGE_SCALE, _band_rounding, _deflation_residual, _deviation, _df64_gram_deviation_host,
                         _eft_eps, _gamma, _norm, _project_pair_recorded, _round_pair, _split_rounding, _sweep_pair,
                         pair_value)
@@ -450,7 +450,7 @@ def solve_block_recorded(
         half_tol = 0.5 * config.tol
         coeff_tol = half_tol / kappa if config.coeff_tol_scale == "kappa" else half_tol
         co = select_bh(torch.tensor(kappa, dtype=pdt), coeff_tol, tables, config.tmax, config.bh_row_select)
-        return co, expsum_sup_error(co.omega, co.alpha, kappa)
+        return co, _sup_error(co, kappa, dev)
 
     bands_h, bands_l = ex.pair_from_f64(op.bands.to(pdt))
     eps_elem = _eft_eps(dev)

@@ -17,8 +17,9 @@ closes exactly, and convergence is declared on the certified bound
 sup|1 − x g(x)| + √(boundary)/‖b‖. The final cross-check re-measures
 ‖b − A x‖ from the CP factors, basis-free.
 
-The host setup (the eigenpairs, the spectral interval, the exp-sum sup) is
-numpy, as in the JAX package; b's split, the recurrence, the checkpoint
+The host setup (the eigenpairs, the spectral interval) is numpy, as in the
+JAX package; the exp-sum sup is host longdouble on the CPU and a df64 kernel
+on a CUDA operator (``_sup_error``); b's split, the recurrence, the checkpoint
 algebra (the tridiagonal eigensolver on the card, the dense eigh on the CPU,
 as ``eigh_impl`` says), the assembly and the cross-check run on the
 operator's device. Storages 'full', 'twopass' and 'segmented' share one step
@@ -58,7 +59,7 @@ from .df64_core import (BAND_CHARGE_SCALE, _application_rounding, _band_rounding
 from .models.gallery import bands_to_dense
 from .ops.eigen import masked_eigh, masked_eigh_tridiag_mixed
 from .ops import expansion as ex
-from .ops.expsum import cp_solve_sym
+from .ops.expsum import cp_solve_sym, expsum_sup_error_dd
 from .ops.gram import residual_norm_sq
 from .ops.orth import deflation_coeffs, deflation_subtract
 from .parallel.krylov import like, pieces, scatter, whole
@@ -263,6 +264,16 @@ def expsum_sup_error(omega, alpha, kappa: float, n_grid: int = 200_000) -> float
         if w_ != 0.0:
             g += w_ * np.exp(-a_ * x)
     return float(np.max(np.abs(1.0 - x * g)))
+
+
+def _sup_error(coeffs, kappa: float, device: torch.device) -> float:
+    """expsum_sup_error of the selected coefficients on the operator's device
+    type: on a CUDA device the df64 kernel (ops/expsum.expsum_sup_error_dd,
+    one launch and one read), elsewhere the host longdouble function."""
+    if device.type == "cuda":
+        return expsum_sup_error_dd(coeffs.omega.to("cpu", torch.float64), coeffs.alpha.to("cpu", torch.float64),
+                                   kappa, device=device)
+    return expsum_sup_error(coeffs.omega, coeffs.alpha, kappa)
 
 
 def _evaluate(dg, od, btil, beta, k: int, lam, c, b_norm: float, lam_min: float, omega, alpha, t_mask,
@@ -756,8 +767,9 @@ def solve_deflated(
 
     Spans (utils/profiling.py): 'deflated' over the call; 'deflated.prepare'
     from entry to the first step (checks, tables, the spectral interval, the
-    coefficients and their sup error, the host copies of the bands and b;
-    then the state), 'deflated.upload' (U to the device and b's split),
+    coefficients and their sup error, on a CUDA operator one launch of the
+    df64 kernel and an 8-byte read, the host copies of the bands and b; then
+    the state), 'deflated.upload' (U to the device and b's split),
     'deflated.step' for each step of either pass, 'deflated.evaluate' for
     each checkpoint, 'deflated.finish' after the last (assembly or pass 2,
     drift, the cross-check). Storages 'df64' and 'segmented' have no step
@@ -798,7 +810,7 @@ def solve_deflated(
             half_tol = 0.5 * config.tol
             coeff_tol = half_tol / kappa if config.coeff_tol_scale == "kappa" else half_tol
             coeffs = select_bh(torch.tensor(kappa, dtype=pdt), coeff_tol, tables, config.tmax, config.bh_row_select)
-            sup_err = expsum_sup_error(coeffs.omega, coeffs.alpha, kappa)
+            sup_err = _sup_error(coeffs, kappa, dev)
 
             # the deflated Krylov space lives in the U-complement: dimension ≤ n − m
             kmax = min(config.kmax, op.n - m)

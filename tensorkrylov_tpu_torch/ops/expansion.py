@@ -4,7 +4,9 @@ A value is an unevaluated sum hi + md + lo of f32 tensors (a ``Triple``,
 about 2^-71 relative after ``renorm3``); a pair (hi, lo) is the 48-bit
 storage form of the recording solvers' basis (``df64_core.py``,
 ``block_recorded.py``). The algorithms are the textbook ones: Knuth's TwoSum,
-Dekker's split and TwoProduct, Priest's renormalization.
+Dekker's split and TwoProduct, Priest's renormalization. ``two_sum`` and
+``two_prod`` also take f64 tensors: the compensated Gram of ``utils/cp.py``
+and the double-double sup error of ``ops/expsum.py`` are built on them.
 
 Every step is its own rounded tensor op. PyTorch's eager ops round one at a
 time on the CPU and on the card, so the error-free transforms hold exactly on
@@ -52,13 +54,16 @@ def _fast_two_sum(a, b):
     return s, b - (s - a)
 
 
-_SPLIT = 4097.0  # 2^12 + 1: Veltkamp's splitter for f32
+# Veltkamp's splitters: 2^12 + 1 for f32, 2^27 + 1 for f64
+_SPLIT = {torch.float32: 4097.0, torch.float64: 134217729.0}
 
 
 def two_prod(a, b):
-    """Dekker TwoProduct: p + e == a * b exactly, without an FMA."""
+    """Dekker TwoProduct: p + e == a * b exactly, without an FMA, for an f32
+    or f64 tensor a and a tensor or float b of a's precision."""
     p = a * b
-    ca, cb = _SPLIT * a, _SPLIT * b
+    split = _SPLIT[a.dtype]
+    ca, cb = split * a, split * b
     ah, bh = ca - (ca - a), cb - (cb - b)
     al, bl = a - ah, b - bh
     return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl

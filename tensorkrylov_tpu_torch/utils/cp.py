@@ -26,6 +26,7 @@ import torch
 
 from ..models.gallery import bands_to_dense
 from ..ops.banded import spmv
+from ..ops.expansion import two_prod, two_sum
 from ..parallel.krylov import spmv_pieces, whole
 from ..parallel.sharding import ShardedOperator, shard_rhs
 from ..types import CPTensor, KroneckerSumOperator
@@ -180,26 +181,6 @@ def cp_residual_cross_check_device(op: KroneckerSumOperator, weights, X_dev, b_d
     return _cross_check_from_gram(G, _host(weights), d, t, R=R, b_weights=np.ones(R), entry_eps=_LD_EPS)
 
 
-_SPLITTER = 134217729.0   # 2^27 + 1: Dekker's split of an f64 into two halves of 26 bits
-
-
-def _two_sum(a: torch.Tensor, b: torch.Tensor):
-    """(s, e) with s = fl(a + b) and a + b = s + e exactly (Knuth's TwoSum)."""
-    s = a + b
-    z = s - a
-    return s, (a - (s - z)) + (b - z)
-
-
-def _two_prod(a: torch.Tensor, b: torch.Tensor):
-    """(p, e) with p = fl(a·b) and a·b = p + e exactly (Dekker's TwoProduct;
-    each operation is its own rounded tensor op, none fused into an FMA)."""
-    p = a * b
-    ca, cb = _SPLITTER * a, _SPLITTER * b
-    ah, bh = ca - (ca - a), cb - (cb - b)
-    al, bl = a - ah, b - bh
-    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
-
-
 def _gram_dot2(C: torch.Tensor):
     """G = C Cᵀ per batch for C (d, P, n), as (hi, lo) f64 pairs (d, P, P):
     each entry a compensated dot product (Ogita, Rump and Oishi's Dot2, its
@@ -210,11 +191,11 @@ def _gram_dot2(C: torch.Tensor):
     hi = torch.zeros((d, P, P), dtype=C.dtype, device=C.device)
     lo = torch.zeros_like(hi)
     for i in range(P):
-        p, e = _two_prod(C[:, i:, :], C[:, i:i + 1, :])                 # (d, P - i, n)
+        p, e = two_prod(C[:, i:, :], C[:, i:i + 1, :])                 # (d, P - i, n)
         while p.shape[-1] > 1:
             if p.shape[-1] % 2:
                 p, e = (torch.nn.functional.pad(t, (0, 1)) for t in (p, e))
-            s, err = _two_sum(p[..., 0::2], p[..., 1::2])
+            s, err = two_sum(p[..., 0::2], p[..., 1::2])
             p, e = s, e[..., 0::2] + e[..., 1::2] + err
         hi[:, i, i:], lo[:, i, i:] = p[..., 0], e[..., 0]
         hi[:, i:, i], lo[:, i:, i] = p[..., 0], e[..., 0]

@@ -10,7 +10,9 @@ import pytest
 import torch
 
 import tensorkrylov_tpu_torch as tkt
-from tensorkrylov_tpu_torch.ops import _build, _cluster
+from tensorkrylov_tpu_torch import deflate
+from tensorkrylov_tpu_torch.coeffs.tables import load_tables, select_bh
+from tensorkrylov_tpu_torch.ops import _build, _cluster, expsum
 from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
 from tensorkrylov_tpu_torch.ops import fused_lanczos
 from tensorkrylov_tpu_torch.ops.fused_lanczos import fused_lanczos_core, fused_lanczos_core_reference
@@ -799,7 +801,7 @@ def test_solve_deflated_on_card_equals_cpu(cuda, storage, n):
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=rtol, atol=atol)
     assert tkt.kron_residual_dense(op, got.x, b) <= got.certified_bound[-1] + 1e-14
     steps = 2 * k - 1 if storage == "twopass" else k
-    assert dict(_build.launches) == {"banded_spmv": steps + 1, "tridiag_eigh": len(got.checkpoints)}
+    assert dict(_build.launches) == {"banded_spmv": steps + 1, "tridiag_eigh": len(got.checkpoints), "expsum_sup": 1}
     assert got.cp_residual_floor is not None and got.measured_cp_residual is not None
 
 
@@ -869,8 +871,8 @@ def test_expansion_arithmetic_on_card_equals_cpu(cuda):
 def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
     """storage='df64', final='device' on the card: status, steps and
     checkpoints as on the CPU, the bounds within 1e-9 (cuBLAS and the CPU
-    round the GEMMs apart), one banded_spmv launch (the cross-check's A·X),
-    x on the card; a solve stopped at 8 and resumed from its cache equals
+    round the GEMMs apart), one banded_spmv launch (the cross-check's A·X)
+    and one of the sup error's kernel, x on the card; a solve stopped at 8 and resumed from its cache equals
     the uninterrupted one bit for bit."""
     def problem(device):
         op = tkt.laplace(2, 64, shift=30.0, device=device)
@@ -884,7 +886,7 @@ def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
     _build.launches.clear()
     got = tkt.solve_deflated(op, b, cfg, **kw)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
     assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-9)
     assert got.x.factors.device.type == cuda.type and got.gram_deviation < 1e-12
@@ -897,14 +899,17 @@ def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
 def test_solve_block_recorded_on_card_equals_cpu(cuda):
     """solve_block_recorded on the card ('auto' is final='device' there):
     status, steps and checkpoints as on the CPU, the bounds within 1e-9 up to
-    the relation terms, one banded_spmv launch (the rank-R cross-check's A·X)."""
+    the relation terms, one banded_spmv launch (the rank-R cross-check's A·X)
+    and one sup-error launch per checkpoint (its coefficients follow the Ritz
+    λ_min there)."""
     B = np.random.default_rng(1).standard_normal((2, 2, 48))
     cfg = tkt.SolverConfig(kmax=23, tol=1e-8)
     ref = tkt.solve_block_recorded(tkt.laplace(2, 48, shift=2000.0, device="cpu"), B, cfg, m=4)
     _build.launches.clear()
     got = tkt.solve_block_recorded(tkt.laplace(2, 48, shift=2000.0, device=cuda), B, cfg, m=4)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1} and got.x.factors.device.type == cuda.type
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": len(got.checkpoints)}
+    assert got.x.factors.device.type == cuda.type
     assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     # the relation terms (dev, η, r2 ∝ ρ²) are roundoff records, which cuBLAS and the CPU round apart
     slack = max(r.relation_dev_term + r.relation_eta_term + r.relation_r2_term for r in (got, ref))
@@ -924,8 +929,8 @@ def test_sharded_deflated_twopass_ring_on_card(cuda):
     checkpoints equal, the bounds within 1e-6 (plain Lanczos: the pieces'
     sums round apart and the recurrence amplifies it, 1e-7 on the CPU), x
     gathered on the card within 1e-10; one ring launch per SpMV of both
-    passes (k + k − 1), one banded_spmv launch (the cross-check's A·X) and
-    one tridiag_eigh launch per checkpoint."""
+    passes (k + k − 1), one banded_spmv launch (the cross-check's A·X), one
+    tridiag_eigh launch per checkpoint and one sup-error launch on the lead."""
     op, b = _sharded_deflated_problem(cuda)
     cfg = tkt.SolverConfig(kmax=48, tol=1e-8)
     kw = dict(m=8, storage="twopass", checkpoints=[16, 32, 48])
@@ -934,7 +939,8 @@ def test_sharded_deflated_twopass_ring_on_card(cuda):
     got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), comm="ring", **kw)
     torch.cuda.synchronize()
     k = got.niterations
-    assert dict(_build.launches) == {"ring_spmv": 2 * k - 1, "banded_spmv": 1, "tridiag_eigh": len(got.checkpoints)}
+    assert dict(_build.launches) == {"ring_spmv": 2 * k - 1, "banded_spmv": 1, "tridiag_eigh": len(got.checkpoints),
+                                     "expsum_sup": 1}
     assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     assert got.status == tkt.Status.CONVERGED
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
@@ -950,7 +956,8 @@ def test_sharded_deflated_df64_gspmd_on_card(cuda):
     roundoff records that the pieces' sums and the card's GEMMs move, 3e-8
     relative at the flagship), the cross-checks within twice the larger
     floor, one banded_spmv launch (the cross-check's: the pair SpMV is
-    expansion arithmetic in torch ops on each shard's halo-extended slab)."""
+    expansion arithmetic in torch ops on each shard's halo-extended slab) and
+    one sup-error launch on the lead."""
     op, b = _sharded_deflated_problem(cuda)
     cfg = tkt.SolverConfig(kmax=48, tol=1e-8)
     kw = dict(m=8, storage="df64", final="device", checkpoints=[16, 32, 48])
@@ -958,7 +965,7 @@ def test_sharded_deflated_df64_gspmd_on_card(cuda):
     _build.launches.clear()
     got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), **kw)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
     assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     assert got.status == tkt.Status.CONVERGED
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
@@ -1251,3 +1258,77 @@ def test_default_deflated_on_card_takes_the_tridiagonal_kernel(cuda):
     assert _build.launches["tridiag_eigh"] == len(got.checkpoints)
     assert (got.status, got.checkpoints) == (dense.status, dense.checkpoints)
     np.testing.assert_allclose(got.certified_bound, dense.certified_bound, rtol=1e-9)
+
+
+# (κ, coefficient tolerance) rows of tests/test_torch_expsum_sup.py: a κ = 1e2 solve's, a plain tol, the
+# deflated cells' 0.5·tol/κ at the flagship's κ ≈ 1.05e6 and around it
+SUP_ROWS = [(1e2, 1e-8 / 1e2), (1e3, 1e-10), (1e6, 0.5e-8 / 1e6), (1.05e6, 0.5e-8 / 1.05e6), (1e7, 0.5e-8 / 1e7)]
+
+
+def _sup_row(kappa, tol):
+    return select_bh(torch.tensor(kappa, dtype=torch.float64), tol, load_tables())
+
+
+def _sup_plain(co, kappa, n_grid, device):
+    """The plain version's maximum on `device`."""
+    om, al = expsum._terms(co.omega, co.alpha)
+    return float(expsum._sup_residuals(om, al, expsum._grid_step(kappa, n_grid), n_grid, device).max())
+
+
+@pytest.mark.parametrize("kappa,tol", SUP_ROWS)
+def test_expsum_sup_kernel_equals_plain(cuda, kappa, tol):
+    """The full 200 000-point grid: one launch, the plain version's bits on
+    the card (every product and sum rounded on its own, TwoProduct exact
+    either way), within 1e-17 of the host longdouble function; a second
+    launch repeats (a maximum does not depend on the atomics' order)."""
+    co = _sup_row(kappa, tol)
+    before = _build.launches["expsum_sup"]
+    got = expsum.expsum_sup_error_dd(co.omega, co.alpha, kappa, device=cuda)
+    assert _build.launches["expsum_sup"] == before + 1
+    assert got == _sup_plain(co, kappa, expsum.N_GRID, cuda)
+    assert abs(got - deflate.expsum_sup_error(co.omega, co.alpha, kappa)) <= 1e-17
+    assert expsum.expsum_sup_error_dd(co.omega, co.alpha, kappa, device=cuda) == got
+
+
+@pytest.mark.parametrize("n_grid", [1, 255, 257, 4001, 200_001])
+def test_expsum_sup_kernel_ragged_grids(cuda, n_grid):
+    """Grids that do not fill the last block: the CPU's plain version's bits
+    (the card's at 200 001), within 1e-17 of the host function."""
+    kappa, tol = SUP_ROWS[3]
+    co = _sup_row(kappa, tol)
+    got = expsum.expsum_sup_error_dd(co.omega, co.alpha, kappa, n_grid, device=cuda)
+    plain = (expsum.expsum_sup_error_dd(co.omega, co.alpha, kappa, n_grid) if n_grid <= 4001
+             else _sup_plain(co, kappa, n_grid, cuda))
+    assert got == plain
+    assert abs(got - deflate.expsum_sup_error(co.omega, co.alpha, kappa, n_grid)) <= 1e-17
+
+
+def test_expsum_sup_wrapper_rejects_bad_input(cuda):
+    co = _sup_row(*SUP_ROWS[3])
+    with pytest.raises(TypeError, match="on the CPU"):
+        expsum.expsum_sup_error_dd(co.omega.to(cuda), co.alpha.to(cuda), 1e6, device=cuda)
+    with pytest.raises(TypeError):
+        expsum.expsum_sup_error_dd(co.omega.float(), co.alpha, 1e6, device=cuda)
+    with pytest.raises(ValueError, match="one length"):
+        expsum.expsum_sup_error_dd(co.omega, co.alpha[:-1], 1e6, device=cuda)
+
+
+@pytest.mark.parametrize("storage", ["full", "twopass"])
+def test_expsum_sup_one_launch_per_deflated_solve(cuda, storage):
+    """solve_deflated on the card launches the sup error's kernel once, and
+    its expsum_sup is the host function's of the same row within 1e-17;
+    solve launches it never."""
+    op, b = _deflated_problem(cuda, 40)
+    cfg = tkt.SolverConfig(kmax=32, tol=1e-7, orth="lanczos" if storage == "twopass" else "lanczos_reorth")
+    _build.launches.clear()
+    res = tkt.solve_deflated(op, b, cfg, m=6, checkpoints=[8, 16, 24, 32], storage=storage)
+    torch.cuda.synchronize()
+    assert _build.launches["expsum_sup"] == 1
+    kappa = res.lambda_max / res.lambda_min
+    co = select_bh(torch.tensor(kappa, dtype=torch.float64), 0.5 * cfg.tol / kappa, load_tables(), cfg.tmax,
+                   cfg.bh_row_select)
+    assert abs(res.expsum_sup - deflate.expsum_sup_error(co.omega, co.alpha, kappa)) <= 1e-17
+    _build.launches.clear()
+    res = tkt.solve(op, b, tkt.SolverConfig(kmax=40, tol=1e-8))      # converges as the space fills, n = 40
+    torch.cuda.synchronize()
+    assert res.status == tkt.Status.CONVERGED and _build.launches["expsum_sup"] == 0
