@@ -10,6 +10,14 @@ or a metric adds files and edits none.
 The program under test is ``tensorkrylov_tpu_torch``; this module imports it
 only inside ``run``, on the device ``run`` is given (``run.py`` insists on a
 CUDA card; the tests drive a tiny cell on the CPU).
+
+A configuration may name a mesh, ``"mesh": {"cards": C, "factor_parallel":
+F}``: the run then builds ``parallel.make_mesh`` over C cards from the lead
+device on (C slots of the CPU in the tests) and passes it to the entry point
+as ``mesh=``; the operator, the pool and the set-up objects stay on the lead
+device, where the program expects them. A configuration with no mesh is one
+card. Every card of the cell is synchronized around each solve and has its
+peak memory read; the fullest card's is the cell's.
 """
 from __future__ import annotations
 
@@ -31,7 +39,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "tensorkrylov_tpu")
 CONVERGED = 1
 PROFILED_S = 1.0
 
-__all__ = ["load_spec", "cell", "metric_entries", "load_metric", "run", "judge", "forbidden_modules", "emit"]
+__all__ = ["load_spec", "cell", "mesh_cards", "metric_entries", "load_metric", "run", "judge", "forbidden_modules",
+           "emit"]
 
 
 def load_spec(root: Path) -> dict:
@@ -62,9 +71,17 @@ def cell(spec: dict, name: str, root: Path, bench: Path = BENCH) -> dict:
     w = work[name]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
     cfg = _load_json(root / conf["file"])
+    if w["chips"] != mesh_cards(cfg):
+        raise ValueError(f"cell {name!r} asks for {w['chips']} chip(s), its configuration {w['config']!r} runs on "
+                         f"{mesh_cards(cfg)} card(s)")
     family = cfg["operator"]["family"]
     return dict(workload=w, config=cfg, traffic=_load_json(bench / "traffic" / f"{w['traffic']}.json"),
                 reference=_load_module(bench / "reference" / f"{family}.py", f"tkbench_reference_{family}"))
+
+
+def mesh_cards(cfg: dict) -> int:
+    """The cards a configuration runs on: its mesh's, or one."""
+    return int(cfg.get("mesh", {}).get("cards", 1))
 
 
 def metric_entries(spec: dict, name: str, traced: bool) -> list:
@@ -83,9 +100,30 @@ def forbidden_modules() -> list:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def _sync(device):
+def _peaks(cards) -> list:
+    """Each card's max_memory_allocated since its last reset (0 off CUDA)."""
+    return [torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0 for dev in cards]
+
+
+def _reset_peaks(cards):
+    for dev in cards:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _mesh(tkt, cfg: dict, device):
+    """The configuration's mesh over cards device, device + 1, … (slots of
+    one CPU device off CUDA), or None; and the distinct devices of the
+    cell, the lead first."""
+    if "mesh" not in cfg:
+        return None, [device]
+    cards, fp = mesh_cards(cfg), int(cfg["mesh"].get("factor_parallel", 1))
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        devices = [torch.device("cuda", (device.index or 0) + i) for i in range(cards)]
+    else:
+        devices = [device] * cards
+    mesh = tkt.parallel.make_mesh(n_devices=cards, factor_parallel=fp, devices=devices)
+    return mesh, list(dict.fromkeys(devices))
 
 
 def _solver_config(tkt, cfg: dict, traffic: dict):
@@ -160,15 +198,18 @@ def run(spec: dict, name: str, seed: int, seconds: float, traced: bool, device, 
     kwargs = dict(cfg.get("call", {}), **tr.get("call", {}))
     for key, how in cfg.get("setup", {}).items():
         kwargs[key] = getattr(tkt, how["call"])(op, **how.get("args", {}))
+    mesh, cards = _mesh(tkt, cfg, device)
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     entry = getattr(tkt, cfg["entry"])
     sched = traffic_mod.Schedule(pool.shape[0], seed)
     _log(f"built in {time.perf_counter() - t_start:.3f} s since start")
 
     def solve(b):
-        _sync(device)
+        tracing.sync(cards)
         t0 = time.perf_counter()
         res = entry(op, b, config, **kwargs)
-        _sync(device)
+        tracing.sync(cards)
         return res, time.perf_counter() - t0
 
     warm = []
@@ -182,10 +223,11 @@ def run(spec: dict, name: str, seed: int, seconds: float, traced: bool, device, 
     checked = sched.checked(expected, int(tr["check_sample"]))
 
     trace = tracing.Trace(_load_json(bench / "peaks.json"))
+    if len(cards) > 1:
+        trace.cards = [dev.index for dev in cards]
     samples = []
-    setup_peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    setup_peaks = _peaks(cards)
+    _reset_peaks(cards)
 
     def window(until):
         """Solves back to back until the deadline (at least one)."""
@@ -222,7 +264,9 @@ def run(spec: dict, name: str, seed: int, seconds: float, traced: bool, device, 
     window_s = trace.window_s = time.perf_counter() - t_window
     _log(f"host speed after the window: a fixed Python loop {_host_loop_ms():.2f} ms; "
          f"harness copies in the window {trace.copy_s:.3f} s")
-    trace.peak_bytes = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    window_peaks = _peaks(cards)
+    # the fullest card bounds the deployment
+    trace.peak_bytes = max(window_peaks)
     w = sorted(trace.walls)
     _log(f"window {window_s:.3f} s, {len(w)} solves, setup {trace.setup_s:.3f} s; solve walls min "
          f"{w[0]:.4f} median {w[len(w) // 2]:.4f} max {w[-1]:.4f} s")
@@ -232,24 +276,30 @@ def run(spec: dict, name: str, seed: int, seconds: float, traced: bool, device, 
         value = readers[m["name"]].read(trace)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    card_peaks = [max(s, w) for s, w in zip(setup_peaks, window_peaks)]
     dev_info = {"platform": "gpu" if device.type == "cuda" else device.type,
                 "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-                "count": 1, "memory_peak_bytes": max(setup_peak, trace.peak_bytes)}
+                "count": len(cards), "memory_peak_bytes": max(card_peaks)}
     result = {"correct": False, "attempted": len(trace.results),
               "failed": sum(1 for r in trace.results if r["status"] != CONVERGED),
               "metrics": metrics, "device": dev_info}
+    if trace.cards:
+        dev_info["cards"] = [{"device": str(dev), "memory_peak_bytes": p} for dev, p in zip(cards, card_peaks)]
     if traced:
-        busy, gaps = tracing.busy_and_gaps(trace)
+        # busy time card by card on several cards (their mean; the lead's idle gaps), else the union
+        per_card = [tracing.busy_and_gaps(trace, c) for c in trace.cards or [None]]
+        for card, (card_busy, _) in zip(dev_info.get("cards", []), per_card):
+            card["busy_s"] = card_busy
         w0, w1 = trace.window_ns or (0, 0)
-        dev_info.update(busy_s=busy, window_s=(w1 - w0) / 1e9)
-        result["breakdown"] = _breakdown(trace, gaps)
+        dev_info.update(busy_s=sum(b for b, _ in per_card) / len(per_card), window_s=(w1 - w0) / 1e9)
+        result["breakdown"] = _breakdown(trace, per_card[0][1])
 
     # the program's state goes before the reference runs, so that the
     # reference neither meets it in memory nor sets the peak
-    del op, kwargs, entry
+    del op, kwargs, entry, mesh
     gc.collect()
     if device.type == "cuda":
-        torch.cuda.empty_cache()
+        torch.cuda.empty_cache()        # every card's cached blocks
     t_check = time.perf_counter()
     checks = judge(cfg, ref, pool, samples, trace.results, device)
     _log(f"reference check of {len(samples)} answers: {time.perf_counter() - t_check:.3f} s")

@@ -1,0 +1,7 @@
+"""sharded.span.defl_evaluate.ms: span.defl_evaluate.ms in the four-card cell,
+where it moves sharded_solve_s. The reader is span.defl_evaluate.ms's."""
+from tkbench.harness import load_metric
+
+_base = load_metric("span.defl_evaluate.ms")
+read = _base.read
+RECORDS = getattr(_base, "RECORDS", [])

@@ -55,12 +55,30 @@ def test_names_unique_and_every_cell_complete():
         names = [x["name"] for x in group]
         assert len(names) == len(set(names))
     assert len({(w["config"], w["traffic"]) for w in SPEC["workloads"]}) == len(SPEC["workloads"])
-    assert all(w["chips"] == 1 for w in SPEC["workloads"])
     for w in SPEC["workloads"]:
         e2e = [m["name"] for m in harness.metric_entries(SPEC, w["name"], False)]
         assert "setup_s" in e2e and len(e2e) >= 2
         assert harness.metric_entries(SPEC, w["name"], True)
         assert 1 <= len(w["why"]) <= 200
+
+
+@pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
+def test_a_cell_asks_for_its_configurations_cards(w):
+    cfg = json.loads((REPO / {c["name"]: c for c in SPEC["configs"]}[w["config"]]["file"]).read_text())
+    assert w["chips"] in (1, 4) and w["chips"] == harness.mesh_cards(cfg)
+
+
+def test_few_cells_ask_for_four_chips():
+    four = [w["name"] for w in SPEC["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(SPEC["workloads"]) // 4), four
+
+
+def test_a_cell_whose_chips_differ_from_its_cards_is_refused():
+    spec = json.loads(json.dumps(SPEC))
+    w = next(w for w in spec["workloads"] if w["chips"] == 1)
+    w["chips"] = 4
+    with pytest.raises(ValueError, match="chip"):
+        harness.cell(spec, w["name"], REPO)
 
 
 @pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
@@ -88,6 +106,34 @@ def test_spmv_bytes_are_the_hand_numbers():
     assert ops == 2 * 3 * 10 * 131072
 
 
+def test_ring_spmv_bytes_are_the_hand_numbers():
+    ring = harness.load_metric("ring_spmv_roofline")
+    # one of four cards at d=10, n=131072: n_l = 32768, 3 bands, one vector, H = 1
+    nbytes, ops = ring.work((10, 3, 32768), 1, 1, 2, 8)
+    assert nbytes == 8 * (10 * 32768 * 5 + 2 * 10)       # 13.1 MB: bands, v, the output, two edge columns
+    assert nbytes / 3.35e12 == pytest.approx(3.913e-6, rel=1e-3)
+    assert ops == 2 * 3 * 10 * 32768 and ops / 3.4e13 < nbytes / 3.35e12
+    assert ring.work((10, 3, 32768), 1, 1, 1, 8)[0] == nbytes - 8 * 10          # a chain end: one neighbour
+    assert ring.work((10, 3, 32768), 4, 1, 2, 8) == (8 * (10 * 32768 * 11 + 2 * 40), 4 * ops)
+    # four shards on one card, cap 8: one launch; ten shards: two launches
+    one = ((10, 3, 32768), 1, 1, (1, 2, 2, 1), 8, 8)
+    assert ring.launches(one) == [(4 * 8 * 10 * 32768 * 5 + 6 * 8 * 10, 4 * ops)]
+    assert [n for n, _ in ring.launches(((10, 3, 32768), 1, 1, (2,) * 10, 8, 8))] == [8 * nbytes, 2 * nbytes]
+
+
+def test_ring_spmv_share_pairs_launches_with_kernels():
+    ring = harness.load_metric("ring_spmv_roofline")
+    rec = ((10, 3, 32768), 1, 1, (1,), 8, 8)
+    nbytes, _ = ring.work((10, 3, 32768), 1, 1, 1, 8)
+    t = type("T", (), dict(peaks={"hbm_bytes_per_s": 3.35e12, "flop_per_s": {"float64": 3.4e13}},
+                           records={"ring_spmv": [rec] * 4},
+                           device_events=[("void ring_spmv_kernel<double>", 0, 10_000)] * 4
+                           + [("banded_spmv_kernel", 0, 10_000)]))
+    assert ring.read(t) == pytest.approx(100 * nbytes / 3.35e12 / 1e-5)
+    t.device_events = t.device_events[1:]               # a launch the profiler did not see: no reading
+    assert ring.read(t) is None
+
+
 def test_eigh_bytes_are_the_hand_numbers():
     eigh = harness.load_metric("tridiag_eigh_roofline")
     nbytes, ops = eigh.work((10, 201, 201), 29, 8)
@@ -100,11 +146,17 @@ def test_solve_s_is_the_window_over_its_solves():
     t = type("T", (), dict(walls=[1.0, 2.0, 1.0, 2.0], window_s=7.5, copy_s=0.5))
     assert harness.load_metric("solve_s").read(t) == 1.75          # a gap between solves counts
     assert harness.load_metric("deflated_solve_s").read(t) == 1.75
+    assert harness.load_metric("sharded_solve_s").read(t) == 1.75
 
 
-@pytest.mark.parametrize("name", [m["name"] for m in METRICS if m["name"].startswith("deflated.")])
+OWN_READERS = {"sharded.device.idle_pct", "sharded.peer_copy.ms_per_solve"}     # the four-card cell's own
+
+
+@pytest.mark.parametrize("name", [m["name"] for m in METRICS if m["name"].split(".")[0] in ("deflated", "sharded")
+                                  and m["name"] not in OWN_READERS])
 def test_a_deflated_copy_reads_as_its_base(name):
-    base = harness.load_metric(name[len("deflated."):])
+    """The deflated cells' and the four-card cell's copies read as the metric they copy."""
+    base = harness.load_metric(name.split(".", 1)[1])
     copy = harness.load_metric(name)
     assert copy.read.__code__.co_filename == base.read.__code__.co_filename
     names = lambda m: [(r["name"], r["module"], r["attr"]) for r in getattr(m, "RECORDS", [])]

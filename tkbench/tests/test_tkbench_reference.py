@@ -103,7 +103,7 @@ def test_reference_loads_nothing_of_either_package():
     assert out.returncode == 0 and out.stdout.strip() == "[]", out.stderr
 
 
-@pytest.mark.parametrize("cell", ["tiny.solve", "tiny.deflated_full"])
+@pytest.mark.parametrize("cell", ["tiny.solve", "tiny.deflated_full", "tiny.sharded_ring4"])
 def test_control_fails_and_reference_passes(tmp_path, cell):
     spec, root, bench = tkbench_tiny.make(tmp_path)
     low = control.control(spec, cell, 11, torch.float32, torch.device("cpu"), root, bench)

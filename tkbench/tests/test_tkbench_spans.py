@@ -25,12 +25,17 @@ SEED = 2 ** 31 + 4242
 DEVICES = [pytest.param("cpu", id="cpu"), pytest.param("cuda", id="cuda", marks=pytest.mark.cuda)]
 NEW = {"host_reads", "deflated.host_reads", "span.tables.ms", "span.step.ms", "span.check.ms",
        "span.defl_prepare.ms", "span.defl_upload.ms", "span.defl_step.ms", "span.defl_evaluate.ms",
-       "span.defl_finish.ms"}
+       "span.defl_finish.ms", "sharded.host_reads", "sharded.span.defl_prepare.ms", "sharded.span.defl_upload.ms",
+       "sharded.span.defl_step.ms", "sharded.span.defl_evaluate.ms", "sharded.span.defl_finish.ms"}
 
 
-def _device(name):
+def _device(name, spec=None, cell=None):
     if name == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    if name == "cuda" and cell is not None:
+        cards = next(w["chips"] for w in spec["workloads"] if w["name"] == cell)
+        if torch.cuda.device_count() < cards:
+            pytest.skip(f"needs {cards} CUDA devices")
     return torch.device(name, 0) if name == "cuda" else torch.device(name)
 
 
@@ -45,17 +50,18 @@ def test_the_new_metrics_are_in_the_benchmark():
     assert NEW <= set(per_layer)
     for name in NEW:
         cells = per_layer[name]["workloads"]
-        assert all(c.startswith("rd_kappa1e6." if "defl" in name else "rd_kappa1e2.") for c in cells)
+        assert all(c.startswith("rd_kappa1e6." if "defl" in name or "sharded" in name else "rd_kappa1e2.")
+                   for c in cells)
 
 
 @pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("cell", sorted(tkbench_tiny.CELLS))
 def test_a_traced_tiny_cell_reports_every_per_layer_metric(tiny, cell, device):
     spec, root, bench = tiny
-    dev = _device(device)
+    dev = _device(device, spec, cell)
     result, checks = harness.run(spec, cell, SEED, 0.3, True, dev, time.perf_counter(), root, bench)
     assert result["correct"], checks
-    full = tkbench_tiny.FULL[tkbench_tiny.CELLS[cell][1]]
+    full = tkbench_tiny.CELLS[cell][2]
     want = [m for m in spec["per_layer"] if full in m["workloads"]]
     if dev.type == "cpu":       # no device trace on the CPU: its readers report nothing there
         want = [m for m in want if m["source"] != "device_trace"]
@@ -81,6 +87,9 @@ def _problem(spec, root, bench, cell, device):
     kwargs = dict(cfg.get("call", {}), **tr.get("call", {}))
     for key, how in cfg.get("setup", {}).items():
         kwargs[key] = getattr(tkt, how["call"])(op, **how.get("args", {}))
+    mesh, _ = harness._mesh(tkt, cfg, device)
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     return getattr(tkt, cfg["entry"]), op, b, harness._solver_config(tkt, cfg, tr), kwargs
 
 
@@ -117,7 +126,7 @@ def test_on_the_card_every_counted_read_is_a_synchronizing_call(tiny, cell):
     uploads."""
     from tensorkrylov_tpu_torch.utils import profiling
 
-    dev = _device("cuda")
+    dev = _device("cuda", tiny[0], cell)
     entry, op, b, config, kwargs = _problem(*tiny, cell, dev)
     entry(op, b, config, **kwargs)
     torch.cuda.synchronize(dev)

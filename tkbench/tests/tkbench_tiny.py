@@ -12,14 +12,17 @@ TINY = {
     "tiny_rd_kappa1e4": dict(base="rd_d10_n131072_kappa1e6", d=3, n=64, kappa=1e4, solver=dict(kmax=48),
                              call=dict(checkpoints=[24, 32, 48]), setup=dict(basis=dict(call="deflation_basis",
                                                                                        args=dict(m=8)))),
+    # four slots of the CPU in place of four cards, the ring route kept
+    "tiny_rd_kappa1e4_ring4": dict(base="rd_d10_n131072_kappa1e6_ring4", d=3, n=64, kappa=1e4, solver=dict(kmax=48),
+                                   call=dict(checkpoints=[24, 32, 48], comm="ring"),
+                                   setup=dict(basis=dict(call="deflation_basis", args=dict(m=8)))),
 }
-CELLS = {"tiny.solve": ("tiny_rd_kappa1e2", "solve"),
-         "tiny.solve_check8": ("tiny_rd_kappa1e2", "solve_check8"),
-         "tiny.deflated_full": ("tiny_rd_kappa1e4", "deflated_full"),
-         "tiny.deflated_twopass": ("tiny_rd_kappa1e4", "deflated_twopass")}
-# each tiny cell reports the metrics of the full-size cell of its traffic
-FULL = {"solve": "rd_kappa1e2.solve", "solve_check8": "rd_kappa1e2.solve_check8",
-        "deflated_full": "rd_kappa1e6.deflated_full", "deflated_twopass": "rd_kappa1e6.deflated_twopass"}
+# each tiny cell: its configuration, its traffic, and the full-size cell whose metrics it reports
+CELLS = {"tiny.solve": ("tiny_rd_kappa1e2", "solve", "rd_kappa1e2.solve"),
+         "tiny.solve_check8": ("tiny_rd_kappa1e2", "solve_check8", "rd_kappa1e2.solve_check8"),
+         "tiny.deflated_full": ("tiny_rd_kappa1e4", "deflated_full", "rd_kappa1e6.deflated_full"),
+         "tiny.deflated_twopass": ("tiny_rd_kappa1e4", "deflated_twopass", "rd_kappa1e6.deflated_twopass"),
+         "tiny.sharded_ring4": ("tiny_rd_kappa1e4_ring4", "deflated_twopass", "rd_kappa1e6.sharded_ring4")}
 
 
 def make(tmp: Path):
@@ -38,10 +41,12 @@ def make(tmp: Path):
         (bench / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         spec["configs"].append(dict(name=name, source="https://doi.org/10.1137/090756843",
                                     file=f"tkbench/configs/{name}.json", reduced=["n"], why="CPU test size"))
-    for cell, (config, traffic) in CELLS.items():
-        spec["workloads"].append(dict(name=cell, config=config, traffic=traffic, chips=1, why="CPU test size"))
+    chips = {w["name"]: w["chips"] for w in spec["workloads"]}
+    for cell, (config, traffic, full) in CELLS.items():
+        spec["workloads"].append(dict(name=cell, config=config, traffic=traffic, chips=chips[full],
+                                      why="CPU test size"))
         for m in spec["end_to_end"] + spec["per_layer"]:
-            if FULL[traffic] in m.get("workloads", []):
+            if full in m.get("workloads", []):
                 m["workloads"].append(cell)
     (root / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
     return spec, root, bench

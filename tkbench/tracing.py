@@ -11,6 +11,9 @@ Two kinds of solve, never mixed:
   label (no sync), so an idle gap can be put down to the layer the host was
   in, and each function a metric names in its ``RECORDS`` notes its
   arguments' shapes, so a kernel's launches can be given their work.
+
+Each device event keeps its card index beside it, so that a cell on several
+cards can take busy time card by card.
 """
 from __future__ import annotations
 
@@ -18,11 +21,11 @@ import contextlib
 import importlib
 import time
 from collections import defaultdict
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
-__all__ = ["Trace", "spans", "profiled", "busy_and_gaps"]
+__all__ = ["Trace", "sync", "spans", "profiled", "busy_and_gaps"]
 
 
 class Trace:
@@ -40,15 +43,24 @@ class Trace:
         self.spans: Dict[str, List[float]] = defaultdict(list)
         self.span_solves = 0
         self.records: Dict[str, List[tuple]] = defaultdict(list)
-        self.device_events: List[tuple] = []   # (name, start_ns, end_ns) on the device
+        self.device_events: List[tuple] = []   # (name, start_ns, end_ns) on the device, every card's
+        self.card_events: Dict[int, List[tuple]] = defaultdict(list)   # the same rows by card index
+        self.cards: List[int] = []             # a cell's CUDA cards where it has several, the lead first
         self.host_events: List[tuple] = []     # (name, start_ns, end_ns) on the host
         self.profiled_solves = 0
         self.window_ns = None                  # (start, end) of the profiled solves, profiler clock
 
 
 def _targets(specs):
+    """(spec, owner, name) of each spec's function: attr names a function of
+    the module, or with a dot a method of one of its classes
+    ('RingLaunch.__call__')."""
     for spec in specs:
-        yield spec, importlib.import_module(spec["module"]), spec["attr"]
+        owner = importlib.import_module(spec["module"])
+        *path, name = spec["attr"].split(".")
+        for part in path:
+            owner = getattr(owner, part)
+        yield spec, owner, name
 
 
 @contextlib.contextmanager
@@ -65,9 +77,11 @@ def _patched(specs, wrap: Callable):
             setattr(mod, attr, fn)
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def sync(devices):
+    """Wait for every CUDA device among `devices`."""
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 @contextlib.contextmanager
@@ -78,10 +92,10 @@ def spans(specs, trace: Trace, device):
 
     def timed(name, fn):
         def run(*args, **kwargs):
-            _sync(device)
+            sync((device,))
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            _sync(device)
+            sync((device,))
             trace.spans[name].append(time.perf_counter() - t0)
             return out
         return run
@@ -129,22 +143,24 @@ def profiled(label_specs, record_specs, trace: Trace, device):
             # timeline (gpu user annotations, named as the labels) are no work
             if not (row[0].startswith("tk:") or getattr(e, "is_user_annotation", bool)()):
                 trace.device_events.append(row)
+                trace.card_events[e.device_index()].append(row)
         else:
             trace.host_events.append(row)
             if row[0] == "tk:window":
                 trace.window_ns = (row[1], row[2])
 
 
-def busy_and_gaps(trace: Trace):
+def busy_and_gaps(trace: Trace, card: Optional[int] = None):
     """(device busy seconds inside the profiled window, [(host label, gap
     seconds)] for each idle gap), the busy time being the union of the
-    device's kernel, copy and set intervals. A gap is put down to the
-    innermost host event that spans its middle, prefixed by the innermost
-    'tk:' label there."""
+    kernel, copy and set intervals of every card, or of card `card` alone.
+    A gap is put down to the innermost host event that spans its middle,
+    prefixed by the innermost 'tk:' label there."""
     if trace.window_ns is None:
         return 0.0, []
     w0, w1 = trace.window_ns
-    spans_ = sorted((max(s, w0), min(e, w1)) for _, s, e in trace.device_events if e > w0 and s < w1)
+    events = trace.device_events if card is None else trace.card_events.get(card, [])
+    spans_ = sorted((max(s, w0), min(e, w1)) for _, s, e in events if e > w0 and s < w1)
     busy, gaps, end = 0, [], w0
     for s, e in spans_:
         if s > end:
