@@ -79,8 +79,9 @@ def main(argv=None):
     t_solve = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
     k = int(res.niterations)
-    # the residuals are recorded at the check cadence: take the last finite one
-    hist = res.relative_residual.cpu().numpy()[:k]
+    # the residuals are recorded at the check cadence: take the last finite
+    # one up to step k, the check that ended the solve
+    hist = res.relative_residual.cpu().numpy()[:k + 1]
     fin = np.flatnonzero(np.isfinite(hist))
     k_rec = int(fin[-1]) if fin.size else k - 1
     rel = float(hist[k_rec])

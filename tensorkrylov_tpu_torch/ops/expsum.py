@@ -68,7 +68,8 @@ def cp_solve_nonsym_eig(H, btil, k, omega, alpha, t_mask, lam_min) -> Tuple[torc
     """Nonsymmetric projected solve through one complex eigendecomposition
     per factor: y_j = S exp(−γ_j Λ) S⁻¹ b̃ for all t terms at once, with
     γ_j = α_j/λ_min. It rests on the Arnoldi Hessenberg being non-defective
-    (generic for the convection–diffusion family).
+    (generic for the convection–diffusion family). The eigendecomposition
+    counts as one host read (utils/profiling.host_read).
 
     H (d, K, K) Hessenberg factors (padded); btil (d, K) or (d, K, R); k the
     active size. Returns (weights (tmax·R,), factors (d, K, tmax·R)).
@@ -80,7 +81,9 @@ def cp_solve_nonsym_eig(H, btil, k, omega, alpha, t_mask, lam_min) -> Tuple[torc
     # decoupled positive padding (the corner Rayleigh value, as in
     # masked_eigh) keeps the padded eigenvalues simple; b̃ is zero there
     Hm = Hm + torch.diag_embed((1.0 - m)[None, :] * H[:, 0, 0][:, None])
-    w, S = torch.linalg.eig(Hm)                               # complex (d, K), (d, K, K)
+    # on a CUDA tensor eig waits for the card (its LAPACK-style routine works
+    # on the host): a host read
+    w, S = host_read(Hm, torch.linalg.eig)                    # complex (d, K), (d, K, K)
     g = torch.linalg.solve(S, btil_m.to(S.dtype))             # S⁻¹ b̃: (d, K, R)
     expw = torch.exp(-w[:, :, None] * (alpha / lam_min).to(S.dtype)[None, None, :])  # (d, K, tmax)
     # Σ_j S[k, j]·expw[j, t]·g[j, r] as one pairwise contraction over j

@@ -134,17 +134,19 @@ def projected_step(H, btil, subdiag, k, b_norm_prod, config: SolverConfig, table
         kappa_eff = kappa
     else:
         # Bendixson bound from the symmetric part of the H minors
-        w, _ = eig(0.5 * (H + H.transpose(1, 2)))
-        lmin, lmax = sym_extremes_from_eigs(w)
-        if lmin_override is not None:
-            lmin = torch.clamp(lmin, min=float(lmin_override))
-        signorm = _power_norm_sum(H, k)
+        with span("solve.check.bendixson"):
+            w, _ = eig(0.5 * (H + H.transpose(1, 2)))
+            lmin, lmax = sym_extremes_from_eigs(w)
+            if lmin_override is not None:
+                lmin = torch.clamp(lmin, min=float(lmin_override))
+            signorm = _power_norm_sum(H, k)
         # 'kappa' certifies the residual (ε·κ ≤ tol); 'reference' is tol·λ_min
         eps_target = config.tol * lmin / signorm if config.coeff_tol_scale == "kappa" else config.tol * lmin
         coeffs = select_stenger(eps_target, config.tmax, pdt, H.device)
         nonsym_solve = cp_solve_nonsym_eig if config.nonsym_solve_impl == "eig" else cp_solve_nonsym
         # identical factors and RHS rows make every (H_s, b̃_s) equal: solve once
-        weights, Y = nonsym_solve(H[:eig_d], btil[:eig_d], k, coeffs.omega, coeffs.alpha, coeffs.t_mask, lmin)
+        with span("solve.check.eig"):
+            weights, Y = nonsym_solve(H[:eig_d], btil[:eig_d], k, coeffs.omega, coeffs.alpha, coeffs.t_mask, lmin)
         if eig_d != d:
             Y = Y.expand(d, *Y.shape[1:])
         kappa_eff = signorm / lmin
@@ -454,7 +456,10 @@ def solve(op, b, config: Optional[SolverConfig] = None, tables: Optional[BHTable
 
     Spans (utils/profiling.py): 'solve' over the call, 'solve.tables',
     'solve.step' for each Krylov step, 'solve.check' for each projected
-    stage with the status read that ends it, 'solve.finalize'."""
+    stage with the status read that ends it, 'solve.finalize'. On the
+    nonsymmetric path each check has two children: 'solve.check.bendixson'
+    (the symmetric part's eigh and the norm sum) and 'solve.check.eig' (the
+    CP solve, config.nonsym_solve_impl's)."""
     with span("solve", device=op.device):
         p, carry = _setup(op, b, config, tables)
         return _finalize(p, _segment(p, carry, p.config.kmax))

@@ -4,9 +4,10 @@
 Perfetto read. ``span`` marks a stretch of the program: ``solve`` and
 ``solve_deflated`` open a root span each call and spans at their layers
 inside it, and ``host_read`` counts each read of a device value into
-Python. Spans are on only while a ``torch.profiler`` session is active or
-inside ``tracing()``; off, ``span`` is one flag check and a shared null
-context, and ``host_read`` one more.
+Python, and each call that waits for the device as a read does. Spans are
+on only while a ``torch.profiler`` session is active or inside
+``tracing()``; off, ``span`` is one flag check and a shared null context,
+and ``host_read`` one more.
 
     with profiling.tracing():
         tkt.solve(op, b, cfg)
@@ -190,10 +191,12 @@ def tracing():
 
 def host_read(x, to=torch.Tensor.cpu):
     """to(x), a read of x into host memory (``bool``, ``int``, ``float``,
-    ``torch.Tensor.cpu``, ``.item``, ``.tolist``), returned as the bare read
-    returns it. While spans are on, a tensor read on its root's device type
-    adds one to the innermost open span's host_reads (on a CUDA solve, each
-    is a wait for the card's queue to drain)."""
+    ``torch.Tensor.cpu``, ``.item``, ``.tolist``) or a call that waits for x
+    as such a read does (``torch.linalg.eig``, which on a CUDA tensor
+    synchronizes the card with the host), returned as the bare call returns
+    it. While spans are on, a tensor read on its root's device type adds one
+    to the innermost open span's host_reads (on a CUDA solve, each is a wait
+    for the card's queue to drain)."""
     if _STACK and isinstance(x, torch.Tensor):
         top = _STACK[-1]
         if top.device is None or x.device.type == top.device.type:

@@ -168,15 +168,18 @@ def test_config4_block_main_on_the_cpu(tmp_path):
 def test_nonsym_scale_main_matches_jax(tmp_path, monkeypatch):
     """The nonsymmetric runner at the JAX runner's CPU size (--cpu --n 512
     --kappa 1e3 --kmax 120: d=10, tmax=801, Arnoldi) against the JAX runner
-    at the same size: the same σ, status, steps and exp-sum rank, the last
-    recorded estimate to 1e-6 (the Arnoldi traces' tolerance,
-    tests/test_torch_nonsym.py), the cross-checks within twice the floor.
+    at the same size: the same σ, status and steps, the estimate and the
+    exp-sum rank of the check that ended the solve (read from the JAX
+    solve's own history: its runner reports the check before) to 1e-6 (the
+    Arnoldi traces' tolerance, tests/test_torch_nonsym.py), the
+    cross-checks within twice the floor.
     Both cross-checks read the exp-sum's active columns: the JAX runner's
     host function is given only those (a zero-weight column adds exact
     zeros to its contraction), which spares it the (1 + d·801)² longdouble
     products. The JAX runner's compilation cache stays off."""
     import sys
 
+    import tensorkrylov_tpu as jtk
     from tensorkrylov_tpu.experiments import nonsym_scale as jnsc
     from tensorkrylov_tpu.utils import cache as jcache, cp as jcp
     from tensorkrylov_tpu_torch.experiments import nonsym_scale as nsc
@@ -189,6 +192,8 @@ def test_nonsym_scale_main_matches_jax(tmp_path, monkeypatch):
 
     monkeypatch.setattr(jcp, "cp_residual_cross_check_host", active_only)
     monkeypatch.setattr(jcache, "enable_compilation_cache", lambda *a, **k: None)
+    solved, jax_solve = [], jtk.solve
+    monkeypatch.setattr(jtk, "solve", lambda *a, **k: solved.append(jax_solve(*a, **k)) or solved[-1])
     size = ["--cpu", "--n", "512", "--kappa", "1e3", "--kmax", "120"]
     monkeypatch.setattr(sys, "argv", ["nonsym_scale"] + size + ["--out", str(tmp_path / "jax.json")])
     jnsc.main()
@@ -199,8 +204,24 @@ def test_nonsym_scale_main_matches_jax(tmp_path, monkeypatch):
         assert json.load(fh) == json.loads(json.dumps(art))
     assert art["problem"] == ref["problem"] and art["timing"]["device"] == "cpu"
     mine, theirs = art["result"], ref["result"]
-    for key in ("status", "converged", "niterations", "expsum_rank"):
+    for key in ("status", "converged", "niterations"):
         assert mine[key] == theirs[key], key
-    np.testing.assert_allclose(mine["relative_residual"], theirs["relative_residual"], rtol=1e-6)
+    k = int(solved[-1].niterations)
+    assert mine["expsum_rank"] == int(np.asarray(solved[-1].expsum_rank)[k])
+    np.testing.assert_allclose(mine["relative_residual"], np.asarray(solved[-1].relative_residual)[k], rtol=1e-6)
     assert mine["cp_residual_floor"] == pytest.approx(theirs["cp_residual_floor"], rel=1e-6)
     assert abs(mine["measured_cp_residual"] - theirs["measured_cp_residual"]) <= 2 * mine["cp_residual_floor"]
+
+
+def test_nonsym_scale_reports_the_check_that_converged(tmp_path):
+    """A CONVERGED run reports the estimate of its last check, step k, which
+    is below tol (reading the histories up to k - 1 gave the check before,
+    above tol)."""
+    from tensorkrylov_tpu_torch.experiments import nonsym_scale as nsc
+
+    art = nsc.main(["--cpu", "--d", "3", "--n", "128", "--kappa", "1e2", "--kmax", "96",
+                    "--out", str(tmp_path / "port.json")])
+    res = art["result"]
+    assert res["converged"] and res["status"] == 1 and res["niterations"] % 16 == 0
+    assert res["relative_residual"] < art["problem"]["tol"]
+
