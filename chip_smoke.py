@@ -109,7 +109,8 @@ Phases, one output line each:
                with gspmd (4 banded_spmv launches per step) against the unsharded solve,
                the bounds within 1e-9 (beside 1e-15); examples/03_sharded_torch.py; and the nonsymmetric
                runner (experiments/nonsym_scale.py) at the TPU artifact's recipe (d=10,
-               n=16384, κ=1e4, kmax=384, tmax=801), unsharded, beside the TPU's numbers;
+               n=16384, κ=1e4, kmax=384, tmax=801), unsharded, beside the TPU's numbers
+               (one hess_eig launch a check);
  14. sharded_solvers — the JAX dry run's sharded call forms on shard slots of cuda:0:
                config 4 through solve_block(shard_operator(op, mesh, comm), shard_rhs(B,
                mesh, d)) on 4 mode shards, gspmd (4 banded_spmv launches per block step)
@@ -140,6 +141,19 @@ Phases, one output line each:
                call; at the flagship's row (κ ≈ 1.05e6, rank 47) the kernel timed with CUDA
                events beside its operations bound, the call with its 8-byte read, the plain
                version on the card and the host function.
+ 17. hess_eig — the nonsymmetric check's Hessenberg eigensolver (ops/hess_eig.py,
+               csrc/hess_eig.cu) on Arnoldi's H of the Arnoldi cell's operator (d=10,
+               n=131072, κ=1e4, K=385, 304 steps) at k = 16, 64, 128, 304: one launch,
+               info 0, every pair's residual ‖AV − VΛ‖/‖A‖, the eigenvalues against
+               torch.linalg.eig of the active block and (first factor) the plain
+               version on the CPU; the launch and the call (with V = Z·X) timed with
+               CUDA events beside the operations the kernel counts, the plain version
+               on the card at k=16, torch.linalg.eig on the active block and on the
+               padded (10, 385, 385) stack (library_ms); the main path, the cell's own
+               solve (kmax 384, tmax 513, check every 16) on that operator: 19 checks,
+               one launch each, no torch.linalg.eig, its true residual on the card
+               within tol; and conv_diff(3, 30) through solve against the dense oracle,
+               one launch a check.
 Each path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of the kernels (each with its bound: the larger of its bytes
 over 3.35 TB/s and its operations over the peak rate of its type, 67 TFLOP/s f32
@@ -210,6 +224,12 @@ def eigh_launches(dev, checks):
     """The tridiag_eigh launches a solve with eigh_impl='auto' makes: one per
     check on the card, none on the CPU (where 'auto' is the dense eigh)."""
     return {"tridiag_eigh": checks} if dev.type == "cuda" and checks else {}
+
+
+def hess_launches(dev, checks):
+    """The hess_eig launches of a nonsymmetric Arnoldi solve: one per check
+    on the card, none on the CPU (where torch.linalg.eig runs)."""
+    return {"hess_eig": checks} if dev.type == "cuda" and checks else {}
 
 
 def sup_launches(dev, calls=1):
@@ -2143,8 +2163,10 @@ def phase_sharded_deflated(tkt, dev=torch.device("cuda", 0), p=SHARDED_DEFLATED,
     nonsym = dict(art, printed=printed.getvalue().splitlines(), wall_s=wall, launches=counts, tpu=p["tpu_nonsym"])
     require(r["converged"] and math.isfinite(r["relative_residual"]) and math.isfinite(r["measured_cp_residual"]),
             f"nonsym_scale: {r}")
-    # one banded_spmv launch per Arnoldi step, and the device cross-check's A·X
-    expect(counts, {"banded_spmv": r["niterations"] + 1}, "nonsym_scale")
+    # one banded_spmv launch per Arnoldi step, and the device cross-check's A·X; hess_eig at each check
+    rec = art["recipe"]
+    checks = sum(1 for k in range(1, r["niterations"] + 1) if k % rec["check_every"] == 0 or k >= rec["kmax"])
+    expect(counts, {"banded_spmv": r["niterations"] + 1, **hess_launches(dev, checks)}, "nonsym_scale")
     count(counts)
     emit("sharded_deflated", mid=mid, example_03=ex03, nonsym_scale=nonsym, launches=launched,
          seconds=time.perf_counter() - t_phase)
@@ -2713,6 +2735,142 @@ def phase_expsum_sup(tkt, dev=torch.device("cuda"), p=EXPSUM_SUP):
         "ms", "call_ms", "plain_ms", "host_ms", "bound_ms", "bound_by", "rank", "kappa")})
 
 
+HESS_EIG = dict(d=10, n=131072, c=10.0, kappa=1e4, K=385, steps=304, ks=(16, 64, 128, 304),
+                twin_ks=(16, 64, 128, 304), reps=5, eig_reps=2, plain_k=16, res_limit=1e-12, w_limit=1e-10,
+                main=dict(kmax=384, tol=1e-8, tmax=513, check_every=16, checks=19),
+                solve=dict(d=3, n=30, kmax=30, tol=1e-8, tmax=601, check_every=3))
+
+
+def phase_hess_eig(tkt, dev=torch.device("cuda"), p=HESS_EIG):
+    """Phase 17: the Hessenberg eigensolver's kernel on the Arnoldi cell's
+    H against torch.linalg.eig and its plain version, timed beside them;
+    then the main path, the cell's own solve (conv_diff d=10, n=131072,
+    Arnoldi, kmax 384, check_every 16), with its launches, the calls of
+    torch.linalg.eig and its true residual on the card; and a small
+    nonsymmetric solve against the dense oracle. Returns the kernels line's
+    entry, whose launches are the main path's."""
+    from tensorkrylov_tpu_torch.ops import _build
+    from tensorkrylov_tpu_torch.ops import hess_eig as he
+    from tensorkrylov_tpu_torch.ops.orth import arnoldi_step, init_state
+    from tensorkrylov_tpu_torch.utils.cp import cp_residual_cross_check_device
+
+    t_phase = time.perf_counter()
+    d, n, K = p["d"], p["n"], p["K"]
+    op = tkt.conv_diff(d, n, c=p["c"], shift=sigma_for_kappa(n, p["kappa"]), device=dev)
+    b = tkt.random_rhs(d, n, seed=11, identical=False, device=dev)
+    st, _ = init_state(op, b, K - 1, torch.float64)
+    for k in range(1, p["steps"] + 1):
+        st, _ = arnoldi_step(op, st, b, k, proj_dtype=torch.float64)
+    H = st.H.clone()
+    del st
+    torch.cuda.empty_cache()
+
+    def match(w, ref):
+        w, used, worst = w.cpu().numpy(), np.zeros(w.numel(), bool), 0.0
+        for z in ref.cpu().numpy():
+            dist = np.where(used, np.inf, np.abs(w - z))
+            j = int(np.argmin(dist))
+            used[j] = True
+            worst = max(worst, float(dist[j]))
+        return worst
+
+    rows = []
+    for k in p["ks"]:
+        _build.launches.clear()
+        w, Z, X, info, stats = he._hess_eig_cuda(H, k, stats=True)
+        V = he._vectors(Z, X)[0]
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        A = torch.triu(H[:, :k, :k], -1)
+        nrm = torch.linalg.matrix_norm(A)
+        res = float((torch.linalg.matrix_norm(A.to(V.dtype) @ V - V * w[:, None, :]) / nrm).max())
+        ref = torch.linalg.eigvals(A)
+        w_err = max(match(w[f], ref[f]) / float(nrm[f]) for f in range(d))
+        row = dict(k=k, launches=launches, info=info.tolist(), iterations=stats[:, 0].tolist(),
+                   bulge_steps=stats[:, 1].tolist(), flops=int(stats[:, 2].sum()), residual=res, w_err_vs_eig=w_err,
+                   complex_pairs=int((w.imag > 0).sum()))
+        if k in p["twin_ks"]:
+            pw, _, _, _, pstats = he._hess_eig_plain(H[:1].cpu(), k)
+            row["w_err_vs_plain"] = match(w[0], pw[0]) / float(nrm[0])
+            row["plain_iterations"] = int(pstats[0, 0])
+        emit("hess_eig_check", **row)
+        require(launches == {"hess_eig": 1}, f"hess_eig k={k}: launches {launches}")
+        require(not bool(info.any()), f"hess_eig k={k}: info {info.tolist()}")
+        require(res <= p["res_limit"], f"hess_eig k={k}: residual {res}")
+        require(w_err <= p["w_limit"] and row.get("w_err_vs_plain", 0.0) <= p["w_limit"],
+                f"hess_eig k={k}: eigenvalues off by {w_err}, {row.get('w_err_vs_plain')}")
+        row["kernel_ms"] = time_one(lambda: he._hess_eig_cuda(H, k), reps=p["reps"], warm=1)
+        row["ms"] = time_one(lambda: he.hess_eig(H, k), reps=p["reps"], warm=1)
+        Ak = A.contiguous()
+        row["library_ms"] = time_one(lambda: torch.linalg.eig(Ak), reps=p["eig_reps"], warm=1)
+        row.update(bound(0, row["flops"], torch.float64))
+        rows.append(row)
+    Hm = torch.triu(H, -1)
+    padded_ms = time_one(lambda: torch.linalg.eig(Hm), reps=p["eig_reps"], warm=1)
+    Hp = H[:, :p["plain_k"] + 1, :p["plain_k"] + 1].contiguous()
+    t0 = time.perf_counter()
+    he.hess_eig_reference(Hp, p["plain_k"])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+
+    def counted_solve(sop, sb, q):
+        """tkt.solve on the card with its launches, its torch.linalg.eig
+        calls and its checks."""
+        cfg = tkt.SolverConfig(kmax=q["kmax"], tol=q["tol"], orth="arnoldi", tmax=q["tmax"],
+                               check_every=q["check_every"])
+        eig_calls = []
+        real_eig = torch.linalg.eig
+        torch.linalg.eig = lambda A_: eig_calls.append(1) or real_eig(A_)
+        try:
+            _build.launches.clear()
+            t0 = time.perf_counter()
+            res = tkt.solve(sop, sb, cfg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = dict(_build.launches)
+        finally:
+            torch.linalg.eig = real_eig
+        checks = sum(1 for k in range(1, res.niterations + 1) if k % cfg.check_every == 0 or k >= cfg.kmax)
+        out = dict(niterations=res.niterations, status=int(res.status), checks=checks, launches=launches,
+                   eig_calls=len(eig_calls), estimate=float(res.relative_residual[res.niterations]), seconds=secs)
+        return res, out
+
+    # the main path: the Arnoldi cell's solve (the b that built H), one launch a check
+    q = p["main"]
+    res, main = counted_solve(op, b, q)
+    act = torch.nonzero(res.x.weights).flatten()
+    check = cp_residual_cross_check_device(op, res.x.weights[act], res.x.factors[:, :, act], b)
+    b_norm = float(torch.prod(torch.linalg.vector_norm(b, dim=1)))
+    main.update(true_residual=check.value / b_norm, floor=check.floor / b_norm)
+    del res, op, b
+    torch.cuda.empty_cache()
+    emit("hess_eig_main", **main)
+    require(main["status"] == int(tkt.Status.CONVERGED) and main["true_residual"] <= q["tol"],
+            f"hess_eig main path: status {main['status']}, true residual {main['true_residual']}")
+    require(main["launches"].get("hess_eig") == main["checks"] == q["checks"] and main["eig_calls"] == 0,
+            f"hess_eig main path: {main['launches']} for {main['checks']} checks (expected {q['checks']}), "
+            f"torch.linalg.eig {main['eig_calls']}")
+
+    # a small solve against the dense oracle
+    q = p["solve"]
+    sop, sb = tkt.conv_diff(q["d"], q["n"], device=dev), tkt.random_rhs(q["d"], q["n"], seed=7, device=dev)
+    res, small = counted_solve(sop, sb, q)
+    small["oracle"] = tkt.kron_residual_dense(sop, res.x, sb)
+    require(small["status"] == int(tkt.Status.CONVERGED) and small["oracle"] <= q["tol"],
+            f"hess_eig solve: {small['status']}, {small['oracle']}")
+    require(small["launches"].get("hess_eig") == small["checks"] and small["eig_calls"] == 0,
+            f"hess_eig solve: {small['launches']} for {small['checks']} checks, torch.linalg.eig "
+            f"{small['eig_calls']}")
+    top = rows[-1]
+    emit("hess_eig", rows=rows, padded_library_ms=padded_ms, plain_ms=plain_ms, plain_k=p["plain_k"], main=main,
+         solve=small, seconds=time.perf_counter() - t_phase)
+    return dict(launches=main["launches"]["hess_eig"], checks=main["checks"], k=top["k"], ms=top["ms"],
+                kernel_ms=top["kernel_ms"],
+                bound_ms=top["bound_ms"],
+                bound_by=top["bound_by"], library_ms=top["library_ms"], padded_library_ms=padded_ms,
+                plain_ms=plain_ms, plain_k=p["plain_k"], max_residual=max(r["residual"] for r in rows))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2747,6 +2905,7 @@ def main():
         launches["banded_spmv"] += banded
         ring_launches["ring_spmv"] += ring
         sup = phase_expsum_sup(tkt)
+        hess = phase_hess_eig(tkt)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2770,6 +2929,9 @@ def main():
     kernels.append(dict(name="expsum_sup", route="cuda", source=f"{pkg}/expsum_sup.cu",
                         replaces="none: tensorkrylov_tpu/deflate.py:448 on the host",
                         launches=MAIN_TALLY["expsum_sup"], **sup))
+    kernels.append(dict(name="hess_eig", route="cuda", source=f"{pkg}/hess_eig.cu",
+                        replaces="none: torch.linalg.eig in ops/expsum.py cp_solve_nonsym_eig (the JAX package's "
+                        "tensorkrylov_tpu/ops/expsum.py calls jnp.linalg.eig there)", **hess))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -36,8 +36,8 @@ import torch
 from .coeffs.tables import BHTables, load_tables
 from .ops.orth import _TINY, KrylovState, _acc_dtype, _breakdown, _dot, _project, _replace_lucky, _sqrt_rn, _subtract
 from .parallel.krylov import like, norms, pieces, psum, scatter, spmv_pieces
-from .solver import (_check_block, _check_identical_factors, _lift_pieces, _new_history, _record_check,
-                     _resolve_config, _result, projected_step)
+from .solver import (_check_block, _check_hess_eig_size, _check_identical_factors, _lift_pieces, _new_history,
+                     _record_check, _resolve_config, _result, projected_step)
 from .types import CPTensor, SolveResult, SolverConfig, Status
 
 __all__ = ["solve_block", "block_krylov_step", "init_block_state"]
@@ -181,4 +181,6 @@ def solve_block(op, B, config: Optional[SolverConfig] = None, tables: Optional[B
     # Galerkin solve is exact, and further steps would only add exhausted columns
     if config.kmax * R > op.n:
         config = dataclasses.replace(config, kmax=max(op.n // R, 1))
+    if R == 1:                 # block Arnoldi's H has R subdiagonals: upper Hessenberg only here
+        _check_hess_eig_size(op, config)
     return _solve_block(op, B, tables, config, R)

@@ -110,7 +110,7 @@ def main(argv=None):
         "problem": {"family": "conv_diff + sigma*I", "d": args.d, "n": args.n, "c": args.c, "sigma": sigma,
                     "kappa_target": args.kappa, "tol": args.tol, "seed": args.seed},
         "recipe": {"orth": "arnoldi (CGS2, full basis)", "expsum": "stenger sinc", "tmax": args.tmax,
-                   "kmax": args.kmax, "solver": solver.__name__,
+                   "kmax": args.kmax, "check_every": args.check_every, "solver": solver.__name__,
                    "memory_strategy": "full basis (see module docstring: restarts rejected - they break the "
                                       "exp-sum residual identity; mode sharding is the scaling axis)"},
         "result": {"status": int(res.status), "converged": int(res.status) == 1, "niterations": k,

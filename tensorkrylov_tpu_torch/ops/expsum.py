@@ -7,7 +7,9 @@ H y = b̃ with H = Σ_s ⊕ H_s is solved in rank-t CP form via
 The nonsymmetric solves use native f64 LAPACK-style routines
 (``torch.linalg.eig``, ``solve`` and ``matrix_exp``), which run on the CPU and
 on CUDA; the JAX package's LU-free Taylor ``expm_taylor_ss`` exists only
-because the TPU has no f64 LU and is not ported.
+because the TPU has no f64 LU and is not ported. On a CUDA tensor whose H is
+upper Hessenberg (Arnoldi's), the eigendecomposition is instead the CUDA
+kernel ``csrc/hess_eig.cu`` on the active blocks (``ops/hess_eig.py``).
 
 ``expsum_sup_error_dd`` is the certificate's sup_{x ∈ [1, κ]} |1 − x·g(x)|,
 g(x) = Σ_j ω_j e^{−α_j x}, on ``deflate.expsum_sup_error``'s log-spaced grid,
@@ -18,7 +20,7 @@ on ``expansion.two_sum``/``two_prod``) on the CPU.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,9 +28,10 @@ import torch
 from ..utils.profiling import host_read
 from . import _build
 from .expansion import _fast_two_sum, two_prod, two_sum
+from .hess_eig import hess_eig_solve
 
-__all__ = ["cp_solve_sym", "cp_solve_nonsym", "cp_solve_nonsym_eig", "expsum_sup_error_dd", "exp_dd",
-           "expsum_sup_ops"]
+__all__ = ["cp_solve_sym", "cp_solve_nonsym", "cp_solve_nonsym_eig", "cp_solve_nonsym_eig_ex", "expsum_sup_error_dd",
+           "exp_dd", "expsum_sup_ops", "EIG_NOT_CONVERGED"]
 
 
 def cp_solve_sym(w, Q, btil, k, omega, alpha, t_mask, lam_min) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -91,6 +94,48 @@ def cp_solve_nonsym_eig(H, btil, k, omega, alpha, t_mask, lam_min) -> Tuple[torc
     factors = factors * t_mask[None, None, :, None] * m[None, :, None, None]
     weights = torch.repeat_interleave((omega / lam_min) * t_mask, R)
     return weights, factors.reshape(d, K, tmax * R)
+
+
+# what a nonzero info of cp_solve_nonsym_eig_ex means
+EIG_NOT_CONVERGED = "the Hessenberg QR iteration did not converge (hess_eig info)"
+
+
+def cp_solve_nonsym_eig_ex(H, btil, k, omega, alpha, t_mask, lam_min,
+                           hessenberg: bool) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """cp_solve_nonsym_eig's solve, and its info: hessenberg says the caller
+    built H upper Hessenberg (Arnoldi's, not a block Arnoldi's). Returns
+    (weights, factors, info).
+
+    On a CUDA tensor with hessenberg: one launch of the Hessenberg QR kernel
+    on the active blocks (k ≤ hess_eig.MAX_K, else it raises ValueError),
+    S⁻¹ b̃ through its triangular eigenvector matrix
+    (ops/hess_eig.hess_eig_solve), the terms contracted over the active
+    block; nothing waits for the card, and info is an int32 0-d tensor, 1
+    where that failed (EIG_NOT_CONVERGED), for the caller's next read.
+    Otherwise cp_solve_nonsym_eig (``torch.linalg.eig`` on the padded stack,
+    which raises itself), and info is None.
+    """
+    if hessenberg and H.device.type == "cuda":
+        return _cp_solve_hessenberg(H, btil, k, omega, alpha, t_mask, lam_min)
+    return (*cp_solve_nonsym_eig(H, btil, k, omega, alpha, t_mask, lam_min), None)
+
+
+def _cp_solve_hessenberg(H, btil, k, omega, alpha, t_mask, lam_min):
+    """cp_solve_nonsym_eig_ex's kernel path (hess_eig, hence the plain
+    version on a CPU tensor); factors past row k stay zero."""
+    d, K, _ = H.shape
+    tmax = alpha.shape[0]
+    if btil.dim() == 2:
+        btil = btil[:, :, None]
+    R = btil.shape[2]
+    (w, S, eig_info), g = hess_eig_solve(H, k, btil[:, :k])    # complex (d, k), (d, k, k); S⁻¹ b̃ (d, k, R)
+    expw = torch.exp(-w[:, :, None] * (alpha / lam_min).to(S.dtype)[None, None, :])  # (d, k, tmax)
+    factors = H.new_zeros((d, K, tmax, R))
+    factors[:, :k] = torch.einsum("dkjr,djt->dktr", S[:, :, :, None] * g[:, None, :, :], expw).real
+    factors *= t_mask[None, None, :, None]
+    weights = torch.repeat_interleave((omega / lam_min) * t_mask, R)
+    info = (eig_info != 0).any().to(torch.int32)
+    return weights, factors.reshape(d, K, tmax * R), info
 
 
 def cp_solve_nonsym(H, btil, k, omega, alpha, t_mask, lam_min) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -37,8 +37,9 @@ import torch
 from .coeffs.tables import TMAX, BHTables, ExpSumCoeffs, load_tables, select_bh, select_stenger
 from .ops.eigen import (analytic_laplace_extremes, dense_minor_window, masked_eigh, masked_eigh_tridiag_mixed,
                         sym_extremes_from_eigs)
-from .ops.expsum import cp_solve_nonsym, cp_solve_nonsym_eig, cp_solve_sym
+from .ops.expsum import EIG_NOT_CONVERGED, cp_solve_nonsym, cp_solve_nonsym_eig_ex, cp_solve_sym
 from .ops.gram import residual_norm_sq
+from .ops.hess_eig import MAX_K as HESS_EIG_MAX_K
 from .ops.orth import _REORTH, KrylovState, _acc_dtype, arnoldi_step, init_state, lanczos_step
 from .ops.resident_lanczos import lanczos_resident_steps
 from .parallel.krylov import like, pieces, scatter, whole
@@ -71,6 +72,7 @@ class ProjectedEval(NamedTuple):
     lmax: torch.Tensor
     rank: torch.Tensor      # int32 exp-sum term count
     breakdown: torch.Tensor  # bool
+    info: Optional[torch.Tensor] = None   # the nonsymmetric eig's info (nonzero: not converged), read with the status
 
 
 def _power_norm_sum(H, k):
@@ -98,6 +100,11 @@ def projected_step(H, btil, subdiag, k, b_norm_prod, config: SolverConfig, table
     lmin_override: an exact λ_min of the projected Kronecker sum (the host's
     nonsymmetric eigenvalues in solve_host_projected); it raises the
     Bendixson bound, which lowers the sinc rank.
+    subdiag: Arnoldi's (d,) subdiagonal entry, or block Arnoldi's (d, R, R)
+    block; H is upper Hessenberg where it is one entry a factor, and on a
+    CUDA tensor the nonsymmetric eig then runs the Hessenberg QR kernel,
+    whose failure the returned info carries to the status read
+    (_record_check).
     """
     d, K, _ = H.shape
     pdt = config.proj_dtype
@@ -112,6 +119,7 @@ def projected_step(H, btil, subdiag, k, b_norm_prod, config: SolverConfig, table
         w, Q = eigh(W[:eig_d], k)
         return (w.expand(d, K), Q.expand(d, K, K)) if config.identical_factors else (w, Q)
 
+    info = None
     if symmetric:
         # 'A_minor' estimates the spectrum from A's dense minors, but the solve
         # still diagonalizes H itself
@@ -143,10 +151,14 @@ def projected_step(H, btil, subdiag, k, b_norm_prod, config: SolverConfig, table
         # 'kappa' certifies the residual (ε·κ ≤ tol); 'reference' is tol·λ_min
         eps_target = config.tol * lmin / signorm if config.coeff_tol_scale == "kappa" else config.tol * lmin
         coeffs = select_stenger(eps_target, config.tmax, pdt, H.device)
-        nonsym_solve = cp_solve_nonsym_eig if config.nonsym_solve_impl == "eig" else cp_solve_nonsym
         # identical factors and RHS rows make every (H_s, b̃_s) equal: solve once
+        args = (H[:eig_d], btil[:eig_d], k, coeffs.omega, coeffs.alpha, coeffs.t_mask, lmin)
         with span("solve.check.eig"):
-            weights, Y = nonsym_solve(H[:eig_d], btil[:eig_d], k, coeffs.omega, coeffs.alpha, coeffs.t_mask, lmin)
+            if config.nonsym_solve_impl == "eig":
+                hessenberg = subdiag.dim() == 1 or subdiag.shape[-1] == 1
+                weights, Y, info = cp_solve_nonsym_eig_ex(*args, hessenberg=hessenberg)
+            else:
+                (weights, Y), info = cp_solve_nonsym(*args), None
         if eig_d != d:
             Y = Y.expand(d, *Y.shape[1:])
         kappa_eff = signorm / lmin
@@ -165,7 +177,7 @@ def projected_step(H, btil, subdiag, k, b_norm_prod, config: SolverConfig, table
     )
     r_comp = torch.sqrt(torch.clamp(r_comp_sq_eff, min=0.0))
     r_norm = torch.sqrt(torch.clamp(terms.boundary_sq + r_comp_sq_eff, min=0.0))
-    return ProjectedEval(weights, Y, r_norm / b_norm_prod, r_comp, lmin, lmax, coeffs.rank, breakdown)
+    return ProjectedEval(weights, Y, r_norm / b_norm_prod, r_comp, lmin, lmax, coeffs.rank, breakdown, info)
 
 
 def _resident_eligible(config: SolverConfig, op: KroneckerSumOperator) -> bool:
@@ -266,6 +278,17 @@ def _check_problem(op, b, config: SolverConfig):
     return b
 
 
+def _check_hess_eig_size(op, config: SolverConfig) -> None:
+    """A nonsymmetric check of an upper Hessenberg H on the card runs the
+    hess_eig kernel on the active block, whose size (at most kmax) the kernel
+    caps at HESS_EIG_MAX_K: refuse a larger kmax when the solve is set up,
+    not at the check that would reach it."""
+    if (not op.symmetric and op.device.type == "cuda" and config.nonsym_solve_impl == "eig"
+            and config.kmax > HESS_EIG_MAX_K):
+        raise ValueError(f"a nonsymmetric solve on a CUDA operator takes kmax <= {HESS_EIG_MAX_K} (the largest "
+                         f"active block of the hess_eig kernel, ops/hess_eig.py), got kmax={config.kmax}")
+
+
 def _check_block(op, B):
     """A block right-hand side B (R, d, n) on the operator's device; over a
     ShardedOperator, B whole (then split) or its (R, d_f, n_local) pieces."""
@@ -332,14 +355,21 @@ def _new_history(K: int, pdt, dev) -> _History:
 def _record_check(h, k: int, ev: ProjectedEval, config: SolverConfig) -> Status:
     """Write check k's estimate into the histories of h (a _History or a
     _Carry) and return the status it decides: BREAKDOWN, CONVERGED or
-    RUNNING. On BREAKDOWN the caller keeps its previous projected solution."""
+    RUNNING. On BREAKDOWN the caller keeps its previous projected solution.
+    A nonsymmetric eig's fault (ev.info) is folded into the same read and
+    raises torch.linalg.LinAlgError here."""
     h.rel_res[k], h.r_comp[k], h.lmin_h[k], h.lmax_h[k], h.rank_h[k] = ev.rel, ev.r_comp, ev.lmin, ev.lmax, ev.rank
     code = torch.where(ev.breakdown, int(Status.BREAKDOWN),
                        torch.where(ev.rel < config.tol, int(Status.CONVERGED), int(Status.RUNNING)))
+    if ev.info is not None:
+        code = torch.where(ev.info == 0, code, -1)
     if config.debug:
         print(f"k={k}  rel_res={float(ev.rel):.3e}  r_comp={float(ev.r_comp):.3e}  "
               f"λ∈[{float(ev.lmin):.3e},{float(ev.lmax):.3e}]  t={int(ev.rank)}")
-    return Status(host_read(code, int))
+    status = host_read(code, int)
+    if status < 0:
+        raise torch.linalg.LinAlgError(f"the projected stage at step {k}: {EIG_NOT_CONVERGED}")
+    return Status(status)
 
 
 def _result(x: CPTensor, status, niter: int, h, config: SolverConfig) -> SolveResult:
@@ -387,6 +417,7 @@ def _setup(op, b, config: Optional[SolverConfig], tables: Optional[BHTables]):
     config = config or SolverConfig()
     b = _check_problem(op, b, config)
     config = _resolve_config(config, op)
+    _check_hess_eig_size(op, config)
     _check_identical_factors(config, op, b)
     if op.symmetric and tables is None:
         with span("solve.tables"):

@@ -5,12 +5,14 @@ card and without JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import tensorkrylov_tpu_torch as tkt
-from tensorkrylov_tpu_torch import deflate
+from tensorkrylov_tpu_torch import deflate, solver
 from tensorkrylov_tpu_torch.coeffs.tables import load_tables, select_bh
 from tensorkrylov_tpu_torch.ops import _build, _cluster, expsum
 from tensorkrylov_tpu_torch.ops.banded import spmv, spmv_reference
@@ -1332,3 +1334,167 @@ def test_expsum_sup_one_launch_per_deflated_solve(cuda, storage):
     res = tkt.solve(op, b, tkt.SolverConfig(kmax=40, tol=1e-8))      # converges as the space fills, n = 40
     torch.cuda.synchronize()
     assert res.status == tkt.Status.CONVERGED and _build.launches["expsum_sup"] == 0
+
+
+# ---- the Hessenberg QR eigensolver (csrc/hess_eig.cu) ----------------------
+
+HESS_D, HESS_K = 10, 385
+
+
+@functools.lru_cache(maxsize=1)
+def _convdiff_arnoldi_H():
+    """Arnoldi's H (10, 385, 385) after 304 steps on the Arnoldi cell's
+    operator (conv_diff, d=10, n=131072, c=10, σ for κ=1e4), as the
+    check at k = 304 sees it."""
+    from tensorkrylov_tpu_torch.experiments.northstar import sigma_for_kappa
+    from tensorkrylov_tpu_torch.ops.orth import arnoldi_step, init_state
+    n, dev = 131072, torch.device("cuda")
+    op = tkt.conv_diff(HESS_D, n, c=10.0, shift=sigma_for_kappa(n, 1e4), device=dev)
+    b = tkt.random_rhs(HESS_D, n, seed=11, identical=False, device=dev)
+    st, _ = init_state(op, b, HESS_K - 1, torch.float64)
+    for k in range(1, 305):
+        st, _ = arnoldi_step(op, st, b, k, proj_dtype=torch.float64)
+    H = st.H.clone()
+    del st
+    torch.cuda.empty_cache()
+    return H
+
+
+def _hess_input(kind, dev):
+    if kind == "convdiff":
+        return _convdiff_arnoldi_H().to(dev)
+    g = np.random.default_rng(5)
+    return torch.tensor(np.triu(g.standard_normal((HESS_D, HESS_K, HESS_K)), -1), device=dev)
+
+
+def _match(w, ref, scale):
+    """Largest ratio, over ref's eigenvalues, of the distance to the nearest
+    unused one of w (a greedy matching of the multisets) to that
+    eigenvalue's scale."""
+    w, used, worst = w.cpu().numpy(), np.zeros(w.numel(), bool), 0.0
+    for z, sc in zip(ref.cpu().numpy(), scale):
+        dist = np.where(used, np.inf, np.abs(w - z))
+        j = int(np.argmin(dist))
+        used[j] = True
+        worst = max(worst, float(dist[j]) / sc)
+    return worst
+
+
+def _eig_scales(A):
+    """‖A‖_F·(1 + κ_i) for each eigenvalue of A (k, k) on the CPU, κ_i its
+    condition number ‖x_i‖‖y_i‖/|y_iᴴx_i| from torch.linalg.eig: a
+    backward-stable Schur form moves λ_i by ~eps·‖A‖·κ_i."""
+    w, V = torch.linalg.eig(A)
+    kappa = torch.linalg.vector_norm(torch.linalg.inv(V), dim=1) * torch.linalg.vector_norm(V, dim=0)
+    return w, (torch.linalg.matrix_norm(A) * (1.0 + kappa)).numpy()
+
+
+@pytest.mark.parametrize("k", [16, 128, 304])
+@pytest.mark.parametrize("kind", ["convdiff", "random"])
+def test_hess_eig_kernel_matches_eig_and_twin(cuda, kind, k):
+    """One launch for all ten factors (also with g = V⁻¹ b); every pair's residual
+    ‖AV − VΛ‖/‖A‖ ≤ 1e-12 with unit columns; the eigenvalues as multisets
+    against torch.linalg.eig of the active block, and against the plain
+    version (on the CPU, first factor), within 1e-12·‖A‖·(1 + κ_i) (two
+    backward-stable Schur forms: their eigenvalues differ by ~k·eps·‖A‖
+    times each eigenvalue's condition number κ_i, which reaches ~1e4 in
+    random Hessenbergs of order 304)."""
+    from tensorkrylov_tpu_torch.ops.hess_eig import hess_eig, hess_eig_solve
+    H = _hess_input(kind, cuda)
+    b = torch.randn((HESS_D, k, 2), dtype=torch.float64, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    _build.launches.clear()
+    (w, V, info), g = hess_eig_solve(H, k, b)
+    torch.cuda.synchronize()
+    assert _build.launches["hess_eig"] == 1 and not bool(info.any())
+    assert all(torch.equal(x, y) for x, y in zip((w, V, info), hess_eig(H, k)))
+    # g = V⁻¹ b through the triangular X: a normwise backward error near eps
+    back = torch.linalg.vector_norm(V @ g - b.to(g.dtype), dim=1) / (
+        torch.linalg.matrix_norm(V, ord=2)[:, None] * torch.linalg.vector_norm(g, dim=1))
+    assert float(back.max()) <= 1e-13
+    A = torch.triu(H[:, :k, :k], -1)
+    nrm = torch.linalg.matrix_norm(A)
+    res = torch.linalg.matrix_norm(A.to(V.dtype) @ V - V * w[:, None, :]) / nrm
+    assert float(res.max()) <= 1e-12
+    assert float((torch.linalg.vector_norm(V, dim=1) - 1.0).abs().max()) <= 1e-14
+    for f in range(HESS_D):
+        ref, scale = _eig_scales(A[f].cpu())
+        assert _match(w[f], ref, scale) <= 1e-12, f
+        if f == 0:
+            plain = hess_eig(H[:1].cpu(), k)
+            assert not bool(plain.info.any()) and _match(plain.w[0], ref, scale) <= 1e-12
+
+
+def test_hess_eig_nonconvergence_raises_at_the_status_read(cuda):
+    """A NaN never deflates: the cap stops that factor, its info is nonzero,
+    and the check's status read raises as torch.linalg.eig would."""
+    from tensorkrylov_tpu_torch.coeffs.tables import select_stenger
+    from tensorkrylov_tpu_torch.ops.hess_eig import hess_eig
+    k = 16
+    H = _hess_input("random", cuda)[:2, :k + 1, :k + 1].contiguous()
+    H[1, 5, 4] = float("nan")
+    info = hess_eig(H, k).info.cpu()
+    assert int(info[0]) == 0 and int(info[1]) > 0
+    st = select_stenger(torch.tensor(1e-10), 101, torch.float64, cuda)
+    bt = torch.ones((2, k + 1), dtype=torch.float64, device=cuda)
+    args = (H, bt, k, st.omega, st.alpha, st.t_mask, torch.tensor(0.1, dtype=torch.float64, device=cuda))
+    _, _, code = expsum.cp_solve_nonsym_eig_ex(*args, hessenberg=True)
+    one = torch.tensor(1.0, dtype=torch.float64, device=cuda)
+    ev = solver.ProjectedEval(one, one, one * 0.5, one, one, one, torch.tensor(3, device=cuda),
+                              torch.tensor(False, device=cuda), code)
+    h = solver._new_history(k + 1, torch.float64, cuda)
+    with pytest.raises(torch.linalg.LinAlgError, match="did not converge"):
+        solver._record_check(h, k, ev, tkt.SolverConfig(kmax=k, tol=1e-8, orth="arnoldi"))
+
+
+def test_hess_eig_wrapper_rejects_bad_input(cuda):
+    from tensorkrylov_tpu_torch.ops.hess_eig import MAX_K, hess_eig
+    H = _hess_input("random", cuda)[:2, :8, :8].contiguous()
+    with pytest.raises(TypeError):
+        hess_eig(H.float(), 8)
+    with pytest.raises(ValueError):
+        hess_eig(H[0], 8)
+    with pytest.raises(ValueError):
+        hess_eig(H[:, :, :7], 7)
+    for k in (0, 9):
+        with pytest.raises(ValueError):
+            hess_eig(H, k)
+    with pytest.raises(ValueError, match="kernel takes k"):
+        hess_eig(torch.zeros((1, MAX_K + 1, MAX_K + 1), dtype=torch.float64, device=cuda), MAX_K + 1)
+
+
+@pytest.mark.parametrize("entry", ["solve", "solve_block"])
+def test_nonsym_solve_on_card_refuses_kmax_past_hess_eig(cuda, entry):
+    """kmax past the kernel's MAX_K is refused before the first step, as a
+    ValueError, on solve and on a one-column solve_block."""
+    from tensorkrylov_tpu_torch.ops.hess_eig import MAX_K
+    op = tkt.conv_diff(2, 2 * MAX_K, device=cuda)
+    b = tkt.random_rhs(2, 2 * MAX_K, seed=7, device=cuda)
+    cfg = tkt.SolverConfig(kmax=MAX_K + 1, tol=1e-8, orth="arnoldi")
+    _build.launches.clear()
+    with pytest.raises(ValueError, match=f"kmax <= {MAX_K}"):
+        tkt.solve(op, b, cfg) if entry == "solve" else tkt.solve_block(op, b[None], cfg)
+    assert sum(_build.launches.values()) == 0
+
+
+@pytest.mark.parametrize("identical", [False, True])
+def test_nonsym_solve_on_card_takes_hess_eig(cuda, monkeypatch, identical):
+    """A nonsymmetric solve on the card launches hess_eig once a check and
+    calls torch.linalg.eig never; identical_factors passes one factor. The
+    CPU solve (torch.linalg.eig) reaches the same residual history."""
+    calls = []
+    real = torch.linalg.eig
+    monkeypatch.setattr(torch.linalg, "eig", lambda A: calls.append(A.device.type) or real(A))
+    cfg = tkt.SolverConfig(kmax=30, tol=1e-8, orth="arnoldi", tmax=601, check_every=3, identical_factors=identical)
+    op = tkt.conv_diff(3, 30, device=cuda)
+    b = tkt.random_rhs(3, 30, seed=7, device=cuda)
+    _build.launches.clear()
+    res = tkt.solve(op, b, cfg)
+    torch.cuda.synchronize()
+    checks = sum(1 for k in range(1, res.niterations + 1) if k % cfg.check_every == 0 or k >= cfg.kmax)
+    assert res.status == tkt.Status.CONVERGED and checks > 0
+    assert _build.launches["hess_eig"] == checks and calls == []
+    assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8
+    cpu = tkt.solve(tkt.conv_diff(3, 30, device="cpu"), b.cpu(), cfg)
+    assert cpu.niterations == res.niterations and calls == ["cpu"] * checks
+    ks = [k for k in range(1, res.niterations + 1) if k % cfg.check_every == 0]
+    np.testing.assert_allclose(res.relative_residual[ks].cpu().numpy(), cpu.relative_residual[ks].numpy(), rtol=1e-6)
