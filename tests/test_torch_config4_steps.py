@@ -1,7 +1,9 @@
 """Config 4's block-step count: the JAX package's plain solve_block and the
-port's, on the CPU, at the recipe of chip_smoke.py phase 10 (d=10, n=10240,
-R=4, κ=1e4 per factor, kmax 96, check_every 8). Both stop at the same block
-step with the same estimates.
+port's, on the CPU, at config 4's recipe (d=10, n=10240, R=4, κ=1e4 per
+factor, kmax 96, check_every 8), which tests/test_torch_cuda.py's
+test_config4_block_and_recorded_on_card runs on the card (and the sharded
+block tests at n=2048). Both stop at the same block step with the same
+estimates.
 
 The TPU artifact (tensorkrylov_tpu/experiments/data/config4_block_d10_n10240_r4.json)
 records 64 block steps: it is solve_block_recorded with checkpoints 8, 16,
@@ -24,7 +26,7 @@ TRACE_RTOL = 1e-10  # f64 traces of the two packages' block solves (CGS2; ~1e-13
 
 
 def sigma_for_kappa(n, kappa):
-    """Diagonal shift that gives a Laplacian factor the condition number κ (chip_smoke.py's)."""
+    """Diagonal shift that gives a Laplacian factor the condition number κ (tests/test_torch_cuda.py's)."""
     lmax = 4.0 * (n + 1) ** 2 * np.sin(n * np.pi / (2 * (n + 1))) ** 2
     lmin = 4.0 * (n + 1) ** 2 * np.sin(np.pi / (2 * (n + 1))) ** 2
     return float((lmax - kappa * lmin) / (kappa - 1.0))

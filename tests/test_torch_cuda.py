@@ -5,6 +5,7 @@ card and without JAX they run with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -47,10 +48,12 @@ def _op(offsets, d, n, seed, dtype, device):
     return tkt.KroneckerSumOperator(torch.tensor(bands, dtype=dtype, device=device), offsets)
 
 
-@pytest.mark.parametrize("shape", [(3, 1001), (3, 4, 1001), (10, 131072)])
+@pytest.mark.parametrize("shape", [(3, 1001), (3, 4, 1001), (10, 131072), (10, 63, 131072)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_spmv_kernel_equals_plain(cuda, dtype, shape):
-    """Same products, summed in the same order, each rounded: equal bits."""
+    """Same products, summed in the same order, each rounded: equal bits;
+    (10, 63, 131072) is one kron_apply_cp of a rank-63 solution at the main
+    path's width."""
     op = _op((-2, -1, 0, 1, 2), shape[0], shape[-1], 0, dtype, cuda)
     v = torch.randn(shape, dtype=dtype, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
     before = _build.launches["banded_spmv"]
@@ -186,6 +189,40 @@ def test_solve_on_card_goes_through_kernel(cuda, fields, kernel):
     assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8
 
 
+def test_golden_on_card(cuda):
+    """tests/golden_laplace_d4_n100.json reproduced on the card: its status,
+    steps and relative-residual trace within 1e-6."""
+    import json
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden_laplace_d4_n100.json")) as f:
+        g = json.load(f)
+    op = tkt.laplace(g["d"], g["n"], device=cuda)
+    b = tkt.random_rhs(g["d"], g["n"], seed=g["seed"], device=cuda)
+    b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
+    res = tkt.solve(op, b, tkt.SolverConfig(kmax=g["n"], tol=g["tol"], orth=g["orth"]))
+    assert (res.status, res.niterations) == (g["status"], g["niterations"])
+    np.testing.assert_allclose(res.relative_residual[1:g["niterations"] + 1].cpu().numpy(), g["relative_residual"],
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("fields", [dict(), dict(orth="lanczos_reorth_auto", step_impl="fused")],
+                         ids=["default", "fused"])
+def test_solve_on_card_equals_cpu(cuda, fields):
+    """The κ = 1e2 cells' solve at d=10, n=4096 on the card and on the CPU,
+    both through the tridiagonal eigensolver (its plain version on the CPU):
+    the same status and steps, the residual trace within 1e-6 and the λ
+    traces within 1e-12."""
+    cfg = tkt.SolverConfig(kmax=200, tol=1e-8, eigh_impl="tridiag_mixed", **fields)
+    ref = tkt.solve(*_rd_problem("cpu", 4096, 1e2), cfg)
+    got = tkt.solve(*_rd_problem(cuda, 4096, 1e2), cfg)
+    _traces_close(got, ref, 1e-6)
+    k = got.niterations
+    for f in ("lambda_min", "lambda_max"):
+        np.testing.assert_allclose(getattr(got, f)[1:k + 1].cpu().numpy(), getattr(ref, f)[1:k + 1].numpy(),
+                                   rtol=1e-12, err_msg=f)
+
+
 def _unit_rows(d, n, seed, device):
     v = torch.randn((d, n), dtype=torch.float64, generator=torch.Generator().manual_seed(seed))
     return (v / torch.linalg.vector_norm(v, dim=1, keepdim=True)).float().to(device)
@@ -250,7 +287,7 @@ def _force_cluster(monkeypatch, G):
 
 @pytest.mark.parametrize("u_in", ["shared", "l2"])
 @pytest.mark.parametrize("case", sorted(RESIDENT_CASES))
-@pytest.mark.parametrize("G", [1, 2, 8, 16])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 16])
 def test_resident_cluster_sizes_equal_plain(cuda, monkeypatch, G, case, u_in):
     """Every cluster size gives the plain version's bits, with u in shared
     memory or in the scratch row: chunk ownership by blocks leaves the fixed
@@ -360,6 +397,43 @@ def test_host_projected_on_card_goes_through_kernel(cuda, step_impl, kernel):
     assert res.x.factors.is_cuda and bool(torch.isfinite(res.x.factors).all())
 
 
+def _checked(res):
+    """The steps at which a check recorded a residual."""
+    r = res.relative_residual.cpu().numpy()
+    return np.flatnonzero(np.isfinite(r) & (r > 0))
+
+
+def test_host_projected_routes_and_cpu_on_card(cuda):
+    """solve_host_projected with plain f32 Lanczos (check every 8, kmax 200)
+    on the κ = 1e2 slice: at n=131072 the unfused route's λ traces within
+    1e-4 of the resident route's (two f32 roundings) and its residual trace
+    within a factor of 2 (past the f32 floor near k = 24 each route's
+    rounding drives its own drift), the same status; at n=4096 the resident
+    route on the card equals the CPU's (status and steps, the traces within
+    1e-6, λ within 1e-12), and the CPU launches no kernel."""
+    cfg = dict(kmax=200, tol=1e-8, orth="lanczos", basis_dtype=torch.float32, check_every=8)
+    op, b = _rd_problem(cuda, 131072, 1e2)
+    routes = {}
+    for impl in ("resident", "xla"):
+        res = tkt.solve_host_projected(op, b, tkt.SolverConfig(**cfg, step_impl=impl))
+        assert bool(torch.isfinite(res.x.factors).all())
+        routes[impl] = dataclasses.replace(res, x=None)
+    a, c = routes["resident"], routes["xla"]
+    assert a.status == c.status
+    idx = np.intersect1d(_checked(a), _checked(c))
+    for f, rtol in (("lambda_min", 1e-4), ("lambda_max", 1e-4), ("relative_residual", 1.0)):
+        np.testing.assert_allclose(getattr(a, f).numpy()[idx], getattr(c, f).numpy()[idx], rtol=rtol, err_msg=f)
+    del op, b, routes
+    _build.launches.clear()
+    cpu = tkt.solve_host_projected(*_rd_problem("cpu", 4096, 1e2), tkt.SolverConfig(**cfg, step_impl="resident"))
+    assert not any(_build.launches.values())
+    got = tkt.solve_host_projected(*_rd_problem(cuda, 4096, 1e2), tkt.SolverConfig(**cfg, step_impl="resident"))
+    assert (got.status, got.niterations) == (cpu.status, cpu.niterations)
+    idx = _checked(cpu)
+    for f, rtol in (("relative_residual", 1e-6), ("lambda_min", 1e-12), ("lambda_max", 1e-12)):
+        np.testing.assert_allclose(getattr(got, f).numpy()[idx], getattr(cpu, f).numpy()[idx], rtol=rtol, err_msg=f)
+
+
 @pytest.mark.parametrize("entry", ["solve", "solve_host_projected"])
 def test_arnoldi_conv_diff_on_card(cuda, entry):
     """The verify recipe on the card: the dense-oracle residual is ≤ 1e-8."""
@@ -369,6 +443,22 @@ def test_arnoldi_conv_diff_on_card(cuda, entry):
     res = getattr(tkt, entry)(op, b, tkt.SolverConfig(kmax=30, tol=1e-8, orth="arnoldi", tmax=601))
     assert res.status == tkt.Status.CONVERGED and _build.launches["banded_spmv"] == res.niterations
     assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8
+
+
+@pytest.mark.slow
+def test_host_projected_conv_diff_at_width_on_card(cuda):
+    """solve_host_projected on conv_diff at d=10, n=16384, κ = 1e4 through
+    Arnoldi (kmax 384, tmax 801, check every 16): converged, x of rank tmax
+    finite, one banded_spmv launch per step."""
+    n = 16384
+    op = tkt.conv_diff(10, n, shift=_sigma_for_kappa(n, 1e4), device=cuda)
+    b = tkt.random_rhs(10, n, seed=1234, device=cuda)
+    cfg = tkt.SolverConfig(kmax=384, tol=1e-8, orth="arnoldi", tmax=801, check_every=16)
+    _build.launches.clear()
+    res = tkt.solve_host_projected(op, b / torch.linalg.vector_norm(b, dim=1, keepdim=True), cfg)
+    torch.cuda.synchronize()
+    assert res.status == tkt.Status.CONVERGED and _build.launches["banded_spmv"] == res.niterations
+    assert tuple(res.x.factors.shape) == (10, n, 801) and bool(torch.isfinite(res.x.factors).all())
 
 
 def _dominant_op(offsets, d, n, seed, dtype, device):
@@ -415,6 +505,24 @@ def test_resident_spmv_equals_plain(cuda, dtype, gallery, m_case):
     ref = spmv_multi_apply_reference(op, v, m, scale)
     assert bool(ref.abs().max() > 1e-20)  # the applies did not vanish
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("gallery", ["laplace", "penta_distinct"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_spmv_forced_generic_equals_plain(cuda, monkeypatch, dtype, gallery):
+    """The centred 3- and 5-band operators forced onto the generic
+    instantiation: the plain version's bits, m past two launches."""
+    from tensorkrylov_tpu_torch.ops import resident_spmv as rs
+
+    monkeypatch.setattr(rs, "_centred", lambda op: False)
+    make = RESIDENT_OPS[gallery]
+    M, T = resident_spmv_plan(make(3, 64, dtype, cuda))
+    op = make(3, 2 * T + 333, dtype, cuda)
+    m = 2 * M + 3
+    scale = float(1.0 / op.bands.abs().sum(1).max())
+    v = torch.randn((3, op.n), dtype=dtype, device=cuda, generator=torch.Generator(cuda).manual_seed(9))
+    ref = spmv_multi_apply_reference(op, v, m, scale)
+    assert bool(ref.abs().max() > 1e-20) and torch.equal(spmv_multi_apply(op, v, m, scale), ref)
 
 
 def test_resident_spmv_small_n_and_zero_applies(cuda):
@@ -543,9 +651,6 @@ def test_ring_two_processes(cuda, tmp_path, cards):
     if torch.cuda.device_count() < cards:
         pytest.skip(f"needs {cards} CUDA devices")
     import hashlib
-    import os
-    import socket
-    import subprocess
     import sys
 
     offsets = RING_OFFSETS["penta"]
@@ -555,18 +660,29 @@ def test_ring_two_processes(cuda, tmp_path, cards):
     want = hashlib.sha256(gather(got, sop.mesh).cpu().numpy().tobytes()).hexdigest()
     np.save(tmp_path / "bands.npy", op.bands.cpu().numpy())
     np.save(tmp_path / "v.npy", v.cpu().numpy())
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    port = str(_free_port())
+    outs = _processes([[sys.executable, "-c", _RING_RANK, port, str(r), str(tmp_path / "bands.npy"),
+                        str(tmp_path / "v.npy")] for r in range(2)], timeout=180, first_card_only=cards == 1)
+    for out in outs:
+        line = next(ln for ln in out.splitlines() if ln.startswith("RING "))
+        assert line == f"RING {'gloo' if cards == 1 else 'nccl'} {{'ring_spmv': 1}} {want}", line
+
+
+def _processes(argvs, timeout=300, first_card_only=True):
+    """Run one process per argv from the repository's root (on the first card
+    alone unless first_card_only is false), kill them all at the timeout;
+    their stdouts, each having exited 0."""
+    import os
+    import subprocess
+
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    if cards == 1:
+    if first_card_only:
         env["CUDA_VISIBLE_DEVICES"] = env.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
-    procs = [subprocess.Popen([sys.executable, "-c", _RING_RANK, str(port), str(r), str(tmp_path / "bands.npy"),
-                               str(tmp_path / "v.npy")], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=repo) for r in range(2)]
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=repo)
+             for a in argvs]
     try:
-        outs = [p.communicate(timeout=180) for p in procs]
+        outs = [p.communicate(timeout=timeout) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -574,8 +690,125 @@ def test_ring_two_processes(cuda, tmp_path, cards):
                 p.communicate()
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
-        line = next(ln for ln in out.splitlines() if ln.startswith("RING "))
-        assert line == f"RING {'gloo' if cards == 1 else 'nccl'} {{'ring_spmv': 1}} {want}", line
+    return [out for out, _ in outs]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+# one process of test_two_ranks_on_card_equal_one_controller: rank 0 or 1 of two, each owning 2 slots of cuda:0,
+# or (rank -1) one controller over 4 slots; prints each case's status, steps, checks, digests, launches and traffic
+_CASES_PROCESS = """
+import hashlib, json, sys
+import numpy as np, torch
+import tensorkrylov_tpu_torch as tkt
+from tensorkrylov_tpu_torch.ops import _build
+from tensorkrylov_tpu_torch.parallel import init_distributed, make_mesh, make_pod_mesh, shard_operator, shard_rhs
+from tensorkrylov_tpu_torch.parallel.sharding import comm_stats
+rank = int(sys.argv[2])
+if rank >= 0:
+    init_distributed(f"localhost:{sys.argv[1]}", 2, rank, 2)
+dev = torch.device("cuda", 0)
+mesh_of = (lambda fp: make_pod_mesh(factor_parallel=fp)) if rank >= 0 else (
+    lambda fp: make_mesh(devices=[dev] * 4, factor_parallel=fp))
+
+def unit(b):
+    return (b / torch.linalg.vector_norm(b, dim=1, keepdim=True)).to(dev)
+
+def digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(torch.as_tensor(t).detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+def run(solve):
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    comm_stats.clear()
+    res = solve()
+    torch.cuda.synchronize()
+    k = res.niterations
+    if torch.is_tensor(res.relative_residual):
+        r = res.relative_residual.cpu().numpy()
+        trace, checks = digest(res.relative_residual[:k + 1]), int((np.isfinite(r) & (r > 0)).sum())
+    else:
+        trace, checks = digest(res.relative_residual + res.certified_bound), len(res.checkpoints)
+    return dict(status=int(res.status), k=k, checks=checks, trace=trace, x=digest(res.x.weights, res.x.factors),
+                spectrum=digest(res.lambda_min, res.lambda_max),
+                launches=dict(_build.launches), traffic={c: v for c, v in comm_stats.items() if c.endswith("_calls")})
+
+n = 4096
+lmax, lmin = (4.0 * (n + 1) ** 2 * np.sin(j * np.pi / (2 * (n + 1))) ** 2 for j in (n, 1))
+rd = tkt.reaction_diffusion(10, n, float((lmax - 1e2 * lmin) / (1e2 - 1.0)), device="cpu")
+op, b = tkt.KroneckerSumOperator(rd.bands.to(dev), rd.offsets), unit(tkt.random_rhs(10, n, seed=1234))
+cfg = tkt.SolverConfig(kmax=200, tol=1e-8)
+out = {}
+for name, fp, comm in (("ring_factor2x2", 2, "ring"), ("ring", 1, "ring"), ("gspmd", 1, "gspmd")):
+    mesh = mesh_of(fp)
+    sop, bs = shard_operator(op, mesh, comm), shard_rhs(b, mesh, op.d)
+    out[name] = dict(run(lambda: tkt.solve(sop, bs, cfg)), factor_parallel=fp)
+dop, db = tkt.laplace(3, 256, shift=3000.0, device=dev), unit(tkt.random_rhs(3, 256, seed=5))
+out["deflated"] = dict(run(lambda: tkt.solve_deflated(dop, db, tkt.SolverConfig(kmax=48, tol=1e-8), m=8,
+                                                      storage="twopass", checkpoints=[16, 32, 48], mesh=mesh_of(1),
+                                                      comm="ring")), factor_parallel=1)
+print("CASES " + json.dumps(out))
+"""
+
+
+def test_two_ranks_on_card_equal_one_controller(cuda):
+    """Two ranks on cuda:0 over gloo, 2 shard slots each (init_distributed,
+    make_pod_mesh): the κ = 1e2 slice at n=4096 with 'factor' across the
+    ranks (ring) and 'mode' across them (ring and gspmd, the halo between
+    slots 1 and 2 crossing), and a deflated twopass on the ring route; each
+    converges at one controller's step on 4 slots with the trace (or bounds),
+    λ_min and λ_max (a solve's from H's α and β) and x bit-equal on both ranks and to
+    it; each rank launches the ring
+    kernel once per SpMV, or the SpMV kernel once per slot and SpMV, and the
+    tridiagonal eigensolver once per check; 'mode' across the ranks exchanges
+    one halo per SpMV, 'factor' none, and every case all-gathers."""
+    import json
+    import sys
+
+    def cases(out):
+        return json.loads(next(ln for ln in out.splitlines() if ln.startswith("CASES "))[6:])
+
+    single = cases(_processes([[sys.executable, "-c", _CASES_PROCESS, "0", "-1"]])[0])
+    port = str(_free_port())
+    ranks = [cases(o) for o in _processes([[sys.executable, "-c", _CASES_PROCESS, port, str(r)] for r in range(2)])]
+    for got_all in ranks:
+        for name, ref in single.items():
+            got, k = got_all[name], ref["k"]
+            assert ref["status"] == tkt.Status.CONVERGED and (got["status"], got["k"]) == (ref["status"], k), name
+            assert (got["trace"], got["x"], got["spectrum"]) == (ref["trace"], ref["x"], ref["spectrum"]), name
+            if name == "deflated":   # both passes, the cross-check and the sup error on each rank
+                want = {"ring_spmv": 2 * k - 1, "banded_spmv": 1, "expsum_sup": 1}
+            elif name == "gspmd":
+                want = {"banded_spmv": 2 * k}
+            else:
+                want = {"ring_spmv": k}
+            want["tridiag_eigh"] = got["checks"]
+            assert got["launches"] == want, (name, got["launches"])
+            traffic, spmvs = got["traffic"], want.get("ring_spmv", k)
+            assert traffic.get("halo_calls", 0) == (spmvs if got["factor_parallel"] == 1 else 0), (name, traffic)
+            assert traffic.get("psum_calls", 0) > 0 and traffic.get("gather_calls", 0) > 0, (name, traffic)
+
+
+def test_parallel_smoke_two_ranks_on_card(cuda):
+    """parallel/_smoke.py as two ranks on the card: both print the same
+    SMOKE line, CONVERGED."""
+    import sys
+
+    port = _free_port()
+    outs = _processes([[sys.executable, "-m", "tensorkrylov_tpu_torch.parallel._smoke", "--coordinator",
+                        f"localhost:{port}", "--num-processes", "2", "--process-id", str(r), "--local-devices", "2"]
+                       for r in range(2)])
+    lines = [next((ln for ln in o.splitlines() if ln.startswith("SMOKE ")), None) for o in outs]
+    assert lines[0] is not None and lines[0] == lines[1] and lines[0].startswith("SMOKE 1 "), lines
 
 
 def test_ring_kernel_across_two_cards(cuda):
@@ -651,6 +884,31 @@ def test_solve_sharded_on_card_goes_through_kernel(cuda, fp, comm, orth):
     assert (res.status, k) == (ref.status, ref.niterations) and res.status == tkt.Status.CONVERGED
     torch.testing.assert_close(res.relative_residual[1:k + 1], ref.relative_residual[1:k + 1], rtol=1e-8, atol=1e-12)
     assert res.x.factors.device == ref.x.factors.device
+
+
+@pytest.mark.parametrize("kernel", ["fused_lanczos", "ring_spmv"])
+def test_kernel_graph_replay_equals_call(cuda, kernel):
+    """The fused core and the ring SpMV over 4 shards of the card, captured in
+    a CUDA graph (the timer's device-only ms): a replay gives the call's
+    bits."""
+    op = _op((-1, 0, 1), 4, 8000, 44, torch.float64, cuda)
+    g = torch.Generator(cuda).manual_seed(45)
+    v, v_pprev, b = (torch.randn((4, 8000), dtype=torch.float64, device=cuda, generator=g) for _ in range(3))
+    if kernel == "fused_lanczos":
+        beta = torch.rand(4, dtype=torch.float64, device=cuda, generator=g)
+        call = lambda: tuple(fused_lanczos_core(op, v, v_pprev, beta, b))
+    else:
+        mesh = make_mesh(devices=[cuda] * 4)
+        sop, vs = shard_operator(op, mesh, "ring"), shard_rhs(v, mesh)
+        call = lambda: tuple(spmv_sharded(sop, vs))
+    ref = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip(out, ref))
 
 
 def test_ring_wrapper_rejects_bad_input(cuda):
@@ -745,6 +1003,65 @@ def test_fused_two_pass_h_equals_fused_solve_on_card(cuda):
     assert p1.k == c.k and torch.equal(p1.H, c.H) and torch.equal(p1.history.rel_res, c.rel_res)
 
 
+@pytest.mark.parametrize("step_impl", ["fused", "auto"])
+def test_two_pass_on_card_matches_solve(cuda, step_impl):
+    """solve_two_pass against solve with the same config on the card (the
+    κ = 1e2 slice at n=8192, plain Lanczos): the same steps; the final
+    estimate within 1e-10 relative (the unfused route forms b̃_k = ⟨v_k, b⟩
+    where solve forms ub/β, which moves it by up to κ·eps·‖b‖ more), on the
+    fused route the same traces bit for bit; x within 1e-8 of max|x|; per
+    step pass 1's fused core and pass 2's SpMV, or an SpMV in each pass; a
+    peak memory below solve's (no stored basis)."""
+    op, b = _rd_problem(cuda, 8192, 1e2)
+    cfg = tkt.SolverConfig(kmax=200, tol=1e-8, orth="lanczos", step_impl=step_impl)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ref = tkt.solve(op, b, cfg)
+    torch.cuda.synchronize()
+    peak_ref = torch.cuda.max_memory_allocated()
+    k, x_ref = ref.niterations, ref.x.factors.cpu()
+    traces = {f: getattr(ref, f).cpu() for f in ("relative_residual", "projected_residual", "expsum_rank")}
+    del ref
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    tp = tkt.solve_two_pass(op, b, cfg)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() < peak_ref
+    assert tp.status == tkt.Status.CONVERGED and tp.niterations == k
+    final, ref_final = float(tp.relative_residual[k]), float(traces["relative_residual"][k])
+    atol = 0.0 if step_impl == "fused" else 1e2 * float(np.finfo(np.float64).eps)   # unit rows: ‖b‖ = 1
+    assert abs(final - ref_final) <= 1e-10 * ref_final + atol
+    if step_impl == "fused":
+        assert all(torch.equal(getattr(tp, f).cpu(), t) for f, t in traces.items())
+    x = tp.x.factors.cpu()
+    assert bool(torch.isfinite(x).all()) and float((x - x_ref).abs().max()) <= 1e-8 * float(x_ref.abs().max())
+    want = {"fused_lanczos": k, "banded_spmv": k} if step_impl == "fused" else {"fused_lanczos": 0,
+                                                                                "banded_spmv": 2 * k}
+    assert {kern: _build.launches[kern] for kern in want} == want
+
+
+def test_solve_refined_on_card(cuda):
+    """solve_refined on config 4's operator (n=2048) and b = B[0] on the card:
+    the residual history decreasing, at least one kron_apply_cp launch per
+    residual besides the inner solves' steps, and its true relative residual
+    the device cross-check's within the check's floor and refine.py's
+    cancellation floor (1e-8·‖b‖)."""
+    from tensorkrylov_tpu_torch.utils.cp import cp_residual_cross_check_device
+
+    op, B = _rd_problem(cuda, 2048, 1e4, R=4)
+    b = B[0].contiguous()
+    _build.launches.clear()
+    res = tkt.solve_refined(op, b, tkt.SolverConfig(kmax=40, tol=1e-8), max_restarts=2, residual_rank=6,
+                            inner_tol=1e-4)
+    torch.cuda.synchronize()
+    h = res.residual_history
+    assert len(h) >= 1 and all(a > c for a, c in zip(h, h[1:]))
+    assert _build.launches["banded_spmv"] - sum(res.inner_iterations) >= len(h)
+    bn = float(torch.prod(torch.linalg.vector_norm(b, dim=1)))
+    xc = cp_residual_cross_check_device(op, res.x.weights, res.x.factors, b)
+    assert abs(res.true_relative_residual - xc.value / bn) <= (xc.floor + 1e-8 * bn) / bn
+
+
 def test_kron_apply_cp_on_card_equals_cpu(cuda):
     """One banded_spmv launch of the (d, t, n) columns; the CP result equals
     the CPU's bit for bit (the SpMV kernel's bits equal its plain version's)."""
@@ -805,6 +1122,7 @@ def test_solve_deflated_on_card_equals_cpu(cuda, storage, n):
     steps = 2 * k - 1 if storage == "twopass" else k
     assert dict(_build.launches) == {"banded_spmv": steps + 1, "tridiag_eigh": len(got.checkpoints), "expsum_sup": 1}
     assert got.cp_residual_floor is not None and got.measured_cp_residual is not None
+    assert (got.boundary_drift_max is not None) == (storage == "segmented")
 
 
 def test_deflated_twopass_replays_full_on_card(cuda):
@@ -833,6 +1151,29 @@ def test_deflated_twopass_replays_full_on_card(cuda):
     assert r_two.pass2_beta_rel_dev <= 1e-14
     xf, xt = r_full.x.factors, r_two.x.factors
     assert float((xf - xt).abs().max()) <= 1e-12 * float(xf.abs().max())
+
+
+def test_deflated_twopass_resume_on_card(cuda, tmp_path):
+    """A twopass deflated solve stopped at checkpoint 32 and resumed from its
+    state cache equals the uninterrupted one bit for bit (bounds and x); the
+    resumed solve launches the SpMV for pass 1's remaining steps, pass 2's
+    k − 1 and the cross-check, the tridiagonal eigensolver once per evaluated
+    checkpoint and the sup error once."""
+    op = tkt.reaction_diffusion(4, 4099, 3e4, device=cuda)
+    b = tkt.random_rhs(4, 4099, seed=3).to(cuda)
+    basis = tkt.deflation_basis(op, 32)
+    cfg = tkt.SolverConfig(kmax=96, tol=1e-10, orth="lanczos")
+    ref = tkt.solve_deflated(op, b, cfg, basis=basis, storage="twopass")
+    cache = str(tmp_path / "state.npz")
+    stopped = tkt.solve_deflated(op, b, cfg, basis=basis, storage="twopass", checkpoints=[16, 32], state_cache=cache)
+    assert stopped.niterations == 32
+    _build.launches.clear()
+    res = tkt.solve_deflated(op, b, cfg, basis=basis, storage="twopass", state_cache=cache)
+    torch.cuda.synchronize()
+    k = ref.niterations
+    assert res.certified_bound == ref.certified_bound and torch.equal(res.x.factors, ref.x.factors)
+    assert dict(_build.launches) == {"banded_spmv": (k - 32) + (k - 1) + 1, "tridiag_eigh": len(res.checkpoints),
+                                     "expsum_sup": 1}
 
 
 def test_gram_dot2_on_card_equals_cpu(cuda):
@@ -874,8 +1215,9 @@ def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
     """storage='df64', final='device' on the card: status, steps and
     checkpoints as on the CPU, the bounds within 1e-9 (cuBLAS and the CPU
     round the GEMMs apart), one banded_spmv launch (the cross-check's A·X)
-    and one of the sup error's kernel, x on the card; a solve stopped at 8 and resumed from its cache equals
-    the uninterrupted one bit for bit."""
+    and one of the sup error's kernel, x on the card, the dense oracle below
+    the bound; a solve stopped at 8 and resumed from its cache equals the
+    uninterrupted one bit for bit, with the same launches."""
     def problem(device):
         op = tkt.laplace(2, 64, shift=30.0, device=device)
         b = tkt.random_rhs(2, 64, seed=5)
@@ -892,9 +1234,13 @@ def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
     assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-9)
     assert got.x.factors.device.type == cuda.type and got.gram_deviation < 1e-12
+    assert tkt.kron_residual_dense(op, got.x, b) <= got.certified_bound[-1]
     cache = str(tmp_path / "state.npz")
     tkt.solve_deflated(op, b, cfg, **{**kw, "checkpoints": [8]}, state_cache=cache)
+    _build.launches.clear()
     resumed = tkt.solve_deflated(op, b, cfg, **kw, state_cache=cache)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
     assert resumed.certified_bound == got.certified_bound and torch.equal(resumed.x.factors, got.x.factors)
 
 
@@ -903,7 +1249,8 @@ def test_solve_block_recorded_on_card_equals_cpu(cuda):
     status, steps and checkpoints as on the CPU, the bounds within 1e-9 up to
     the relation terms, one banded_spmv launch (the rank-R cross-check's A·X)
     and one sup-error launch per checkpoint (its coefficients follow the Ritz
-    λ_min there)."""
+    λ_min there); certified below tol, the cross-check not contradicting the
+    bound."""
     B = np.random.default_rng(1).standard_normal((2, 2, 48))
     cfg = tkt.SolverConfig(kmax=23, tol=1e-8)
     ref = tkt.solve_block_recorded(tkt.laplace(2, 48, shift=2000.0, device="cpu"), B, cfg, m=4)
@@ -917,12 +1264,39 @@ def test_solve_block_recorded_on_card_equals_cpu(cuda):
     slack = max(r.relation_dev_term + r.relation_eta_term + r.relation_r2_term for r in (got, ref))
     for a, r in zip(got.certified_bound, ref.certified_bound):
         assert abs(a - r) <= 1e-9 * r + slack, (a, r, slack)
+    assert got.converged and got.certified_bound[-1] < cfg.tol
+    assert "CONTRADICT" not in _verdict(got, cfg.tol)
 
 
-def _sharded_deflated_problem(device):
+def _verdict(res, tol):
+    """The cross-check's verdict on a certified result's bound."""
+    from tensorkrylov_tpu_torch.experiments.northstar import interpret_cross_check
+
+    return interpret_cross_check(res.measured_cp_residual, res.cp_residual_floor, res.certified_bound[-1], tol)
+
+
+def _small_deflated_problem(device):
     op = tkt.laplace(3, 256, shift=3000.0, device=device)
     b = tkt.random_rhs(3, 256, seed=5)
     return op, (b / torch.linalg.vector_norm(b, dim=1, keepdim=True)).to(device)
+
+
+# the deflated solves' sizes: the problem, SolverConfig's fields, solve_deflated's. 'mid' is the κ = 1e5 mid shape
+# (d=10, n=16384, m=256), 'flagship' the κ = 1e6 cells' solve (d=10, n=131072, m=2048, checkpoints 384/448/512)
+DEFLATED_SIZES = {
+    "small": (_small_deflated_problem, dict(kmax=48, tol=1e-8), dict(m=8, checkpoints=[16, 32, 48])),
+    "mid": (lambda dev: _rd_problem(dev, 16384, 1e5), dict(kmax=384, tol=1e-8), dict(m=256)),
+    "flagship": (lambda dev: _rd_problem(dev, 131072, 1e6), dict(kmax=512, tol=1e-8, orth="lanczos_reorth_auto"),
+                 dict(m=2048, checkpoints=[384, 448, 512])),
+}
+
+
+def _deflated_size(size, device):
+    """DEFLATED_SIZES[size] on device: op, b, the config, and solve_deflated's
+    fields with the deflation basis computed once."""
+    problem, cfg, kw = DEFLATED_SIZES[size]
+    op, b = problem(device)
+    return op, b, tkt.SolverConfig(**cfg), dict(kw, basis=tkt.deflation_basis(op, kw["m"]))
 
 
 def test_sharded_deflated_twopass_ring_on_card(cuda):
@@ -932,10 +1306,10 @@ def test_sharded_deflated_twopass_ring_on_card(cuda):
     sums round apart and the recurrence amplifies it, 1e-7 on the CPU), x
     gathered on the card within 1e-10; one ring launch per SpMV of both
     passes (k + k − 1), one banded_spmv launch (the cross-check's A·X), one
-    tridiag_eigh launch per checkpoint and one sup-error launch on the lead."""
-    op, b = _sharded_deflated_problem(cuda)
-    cfg = tkt.SolverConfig(kmax=48, tol=1e-8)
-    kw = dict(m=8, storage="twopass", checkpoints=[16, 32, 48])
+    tridiag_eigh launch per checkpoint and one sup-error launch on the lead;
+    certified below tol, the cross-check not contradicting the bound."""
+    op, b, cfg, kw = _deflated_size("small", cuda)
+    kw.update(storage="twopass")
     ref = tkt.solve_deflated(op, b, cfg, **kw)
     _build.launches.clear()
     got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), comm="ring", **kw)
@@ -946,24 +1320,31 @@ def test_sharded_deflated_twopass_ring_on_card(cuda):
     assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     assert got.status == tkt.Status.CONVERGED
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
+    assert got.certified_bound[-1] < cfg.tol and "CONTRADICT" not in _verdict(got, cfg.tol)
     assert got.x.factors.device.type == cuda.type
     np.testing.assert_allclose(got.x.factors.cpu().numpy(), ref.x.factors.cpu().numpy(), rtol=0, atol=1e-10)
 
 
-def test_sharded_deflated_df64_gspmd_on_card(cuda):
+@pytest.mark.parametrize("size", ["small", pytest.param("flagship", marks=pytest.mark.slow)])
+def test_sharded_deflated_df64_gspmd_on_card(cuda, size):
     """solve_deflated(storage='df64', final='device') on 4 mode shards of one
     card (comm='gspmd') against the unsharded solve on the card: status and
-    steps equal, the bounds within 1e-6 (the smoke's flagship requirement:
-    the recorded relation's terms and the interim checkpoints' estimates are
-    roundoff records that the pieces' sums and the card's GEMMs move, 3e-8
-    relative at the flagship), the cross-checks within twice the larger
-    floor, one banded_spmv launch (the cross-check's: the pair SpMV is
-    expansion arithmetic in torch ops on each shard's halo-extended slab) and
-    one sup-error launch on the lead."""
-    op, b = _sharded_deflated_problem(cuda)
-    cfg = tkt.SolverConfig(kmax=48, tol=1e-8)
-    kw = dict(m=8, storage="df64", final="device", checkpoints=[16, 32, 48])
+    steps equal, the bounds within 1e-6 (the recorded relation's terms and
+    the interim checkpoints' estimates are roundoff records that the pieces'
+    sums and the card's GEMMs move, 3e-8 relative at the flagship), the
+    cross-checks within twice the larger floor, one banded_spmv launch (the
+    cross-check's: the pair SpMV is expansion arithmetic in torch ops on each
+    shard's halo-extended slab) and one sup-error launch on the lead, as
+    unsharded; both
+    certified below tol on the measured full Gram, their cross-checks not
+    contradicting the bound. At the flagship's size too: the certifying
+    mode of the κ = 1e6 cells' solve."""
+    op, b, cfg, kw = _deflated_size(size, cuda)
+    kw.update(storage="df64", final="device")
+    _build.launches.clear()
     ref = tkt.solve_deflated(op, b, cfg, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
     _build.launches.clear()
     got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), **kw)
     torch.cuda.synchronize()
@@ -973,7 +1354,165 @@ def test_sharded_deflated_df64_gspmd_on_card(cuda):
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
     band = 2 * max(got.cp_residual_floor, ref.cp_residual_floor)
     assert abs(got.measured_cp_residual - ref.measured_cp_residual) <= band
-    assert got.x.factors.device.type == cuda.type and got.gram_source == "measured full Gram"
+    for r in (ref, got):
+        assert r.x.factors.device.type == cuda.type and bool(torch.isfinite(r.x.factors).all())
+        assert r.gram_source == "measured full Gram" and r.certified_bound[-1] < cfg.tol
+        assert "CONTRADICT" not in _verdict(r, cfg.tol)
+
+
+@pytest.mark.parametrize("size", ["small", pytest.param("mid", marks=pytest.mark.slow)])
+def test_sharded_deflated_full_gspmd_on_card(cuda, size):
+    """solve_deflated(storage='full') on 4 mode shards of one card on the
+    gspmd route against the unsharded solve on the card: status, steps and
+    checkpoints equal, the bounds within 1e-9 relative beside 1e-15 (the
+    boundary row rounds to eps·‖y‖); 4 banded_spmv launches per step and one
+    for the cross-check's A·X, one tridiag_eigh launch per checkpoint and one
+    sup-error launch on the lead; the unsharded solve one banded_spmv launch
+    per step and one for the cross-check."""
+    op, b, cfg, kw = _deflated_size(size, cuda)
+    kw.update(storage="full")
+    _build.launches.clear()
+    ref = tkt.solve_deflated(op, b, cfg, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"banded_spmv": ref.niterations + 1, "tridiag_eigh": len(ref.checkpoints),
+                                     "expsum_sup": 1}
+    _build.launches.clear()
+    got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), comm="gspmd", **kw)
+    torch.cuda.synchronize()
+    k = got.niterations
+    assert dict(_build.launches) == {"banded_spmv": 4 * k + 1, "tridiag_eigh": len(got.checkpoints), "expsum_sup": 1}
+    assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
+    np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-9, atol=1e-15)
+
+
+@pytest.mark.slow
+def test_flagship_deflated_full_on_card(cuda):
+    """The κ = 1e6 cells' solve (d=10, n=131072, m=2048) on storage='full':
+    converged and certified below tol, the cross-check not contradicting the
+    bound, at the dense eigh's status and step; one banded_spmv launch per
+    step and one for the cross-check, one tridiag_eigh launch per checkpoint
+    and one sup-error launch; x finite on the card."""
+    op, b, cfg, kw = _deflated_size("flagship", cuda)
+    dense = tkt.solve_deflated(op, b, dataclasses.replace(cfg, eigh_impl="dense"), storage="full", **kw)
+    _build.launches.clear()
+    res = tkt.solve_deflated(op, b, cfg, storage="full", **kw)
+    torch.cuda.synchronize()
+    k = res.niterations
+    assert res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < cfg.tol
+    assert "CONTRADICT" not in _verdict(res, cfg.tol)
+    assert (res.status, k) == (dense.status, dense.niterations)
+    assert dict(_build.launches) == {"banded_spmv": k + 1, "tridiag_eigh": len(res.checkpoints), "expsum_sup": 1}
+    x = res.x.factors
+    assert tuple(x.shape[:2]) == (10, 131072) and x.device.type == cuda.type and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.slow
+def test_mid_shape_deflated_storages_on_card(cuda, tmp_path):
+    """The κ = 1e5 mid shape (d=10, n=16384, m=256, kmax 384). Plain Lanczos:
+    'twopass' at 'full''s status and step with T and b̃ of the two storages'
+    shared step equal bit for bit, the same bounds and estimates, x within
+    1e-12 of max|x|, one banded_spmv launch per step (twopass: 2k − 1) and
+    one for the cross-check; 'segmented' (segment 32) with its drift
+    recorded and a finite bound; 'twopass' stopped at checkpoint 64 and
+    resumed from its state cache equal to the uninterrupted one bit for bit.
+    'df64' (final='device') certified below tol, and a df64 solve stopped at
+    checkpoint 64 and resumed from its cache equal to it bit for bit, each
+    run one banded_spmv launch and one sup-error launch."""
+    from tensorkrylov_tpu_torch import deflate_light
+    from tensorkrylov_tpu_torch.ops.orth import deflation_project
+
+    op, b, cfg, kw = _deflated_size("mid", cuda)
+    plain = dataclasses.replace(cfg, orth="lanczos")
+
+    def run(config, **fields):
+        _build.launches.clear()
+        res = tkt.solve_deflated(op, b, config, **kw, **fields)
+        torch.cuda.synchronize()
+        return res, dict(_build.launches)
+
+    def launches(res, spmvs):
+        return {"banded_spmv": spmvs + 1, "tridiag_eigh": len(res.checkpoints), "expsum_sup": 1}
+
+    (rf, cf), (rt, ct) = run(plain, storage="full"), run(plain, storage="twopass")
+    k = rf.niterations
+    assert (rt.status, rt.niterations) == (rf.status, k)
+    assert rt.certified_bound == rf.certified_bound and rt.relative_residual == rf.relative_residual
+    assert float((rt.x.factors - rf.x.factors).abs().max()) <= 1e-12 * float(rf.x.factors.abs().max())
+    assert cf == launches(rf, k) and ct == launches(rt, 2 * k - 1)
+    U = torch.tensor(kw["basis"].U, device=cuda)
+    b_perp = deflation_project(b, U)
+    full, light = deflate_light._init_state(b_perp, k + 1), deflate_light._init_state(b_perp, k + 1)
+    V = torch.zeros((k + 1, 10, 16384), dtype=torch.float64, device=cuda)
+    V[0] = full.vp
+    deflate_light._advance(op, full, b_perp, U, 1, k + 1, V=V)
+    deflate_light._advance(op, light, b_perp, U, 1, k + 1, measure_leak=True)
+    assert all(torch.equal(getattr(full, f), getattr(light, f)) for f in ("dg", "od", "btil"))
+    del U, b_perp, V, full, light
+    seg, cs = run(cfg, storage="segmented", segment=32)
+    assert seg.boundary_drift_max is not None and np.isfinite(seg.certified_bound[-1])
+    assert cs == launches(seg, seg.niterations)
+    cache = str(tmp_path / "twopass.npz")
+    run(plain, storage="twopass", checkpoints=[32, 64], state_cache=cache)
+    res, counts = run(plain, storage="twopass", state_cache=cache)
+    assert res.certified_bound == rt.certified_bound and torch.equal(res.x.factors, rt.x.factors)
+    assert counts == launches(res, (k - 64) + (k - 1))
+    del rf, rt, res
+    df64 = dict(storage="df64", final="device", checkpoints=[64, 128, 256, 384])
+    ref, c_ref = run(cfg, **df64)
+    assert ref.status == tkt.Status.CONVERGED and ref.certified_bound[-1] < cfg.tol
+    cache = str(tmp_path / "df64.npz")
+    _, c_stop = run(cfg, **{**df64, "checkpoints": [64]}, state_cache=cache)
+    res, c_res = run(cfg, **df64, state_cache=cache)
+    assert res.certified_bound == ref.certified_bound and res.relative_residual == ref.relative_residual
+    assert torch.equal(res.x.factors, ref.x.factors) and torch.equal(res.x.weights, ref.x.weights)
+    assert c_ref == c_stop == c_res == {"banded_spmv": 1, "expsum_sup": 1}
+
+
+def test_example_03_on_card(cuda):
+    """examples/03_sharded_torch.py on 4 slots of the card: solve_sharded on
+    the 2 × 2 mesh (gspmd, one banded_spmv launch per shard and step) and
+    the deflated twopass on the ring route (one ring launch per SpMV of both
+    passes, the cross-check's A·X, the sup error), the tridiagonal
+    eigensolver at each check of both; finite answers, the deflated solve
+    converged."""
+    import contextlib
+    import io
+    import os
+    import runpy
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    main = runpy.run_path(os.path.join(repo, "examples", "03_sharded_torch.py"), run_name="example")["main"]
+    _build.launches.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rs, rd = main([])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(rs.x.factors).all()) and bool(torch.isfinite(rd.x.factors).all())
+    assert rd.status == tkt.Status.CONVERGED
+    ks, kd = rs.niterations, rd.niterations
+    assert dict(_build.launches) == {"banded_spmv": 4 * ks + 1, "ring_spmv": 2 * kd - 1,
+                                     "tridiag_eigh": len(_checked(rs)) + len(rd.checkpoints), "expsum_sup": 1}
+
+
+def test_nonsym_scale_on_card(cuda, tmp_path):
+    """The nonsymmetric runner (experiments/nonsym_scale.py) on the card at
+    d=3, n=256, κ = 1e2: converged, its cross-check finite; one banded_spmv
+    launch per Arnoldi step and the device cross-check's A·X, one hess_eig
+    launch per check."""
+    import contextlib
+    import io
+
+    from tensorkrylov_tpu_torch.experiments import nonsym_scale
+
+    argv = ["--d", "3", "--n", "256", "--kappa", "1e2", "--kmax", "128", "--tmax", "401", "--check-every", "8",
+            "--out", str(tmp_path / "nonsym.json")]
+    _build.launches.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        art = nonsym_scale.main(argv)
+    torch.cuda.synchronize()
+    r = art["result"]
+    assert r["converged"] and np.isfinite(r["relative_residual"]) and np.isfinite(r["measured_cp_residual"])
+    checks = sum(1 for k in range(1, r["niterations"] + 1) if k % 8 == 0 or k >= 128)
+    assert dict(_build.launches) == {"banded_spmv": r["niterations"] + 1, "hess_eig": checks}
 
 
 def _sigma_for_kappa(n, kappa):
@@ -983,61 +1522,177 @@ def _sigma_for_kappa(n, kappa):
     return float((lmax - kappa * lmin) / (kappa - 1.0))
 
 
-def _config4_reduced(device, n=2048):
-    """Config 4 (d=10, rank-4 B, κ = 1e4 per factor) at a reduced depth: n=2048."""
-    op = tkt.reaction_diffusion(10, n, _sigma_for_kappa(n, 1e4), device="cpu")
-    B = np.random.default_rng(1234).standard_normal((4, 10, n))
-    B /= np.linalg.norm(B, axis=2, keepdims=True)
-    return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), torch.tensor(B, device=device)
+def _rd_problem(device, n, kappa, R=None):
+    """reaction_diffusion(10, n, σ for κ), made on the CPU and copied, with a
+    unit-row b from random_rhs seed 1234 (the κ = 1e2 slice, the κ = 1e5 mid
+    shape, the κ = 1e6 flagship) or, given R, a unit-row B (R, 10, n) from
+    numpy's seed 1234 (config 4: R = 4, κ = 1e4)."""
+    op = tkt.reaction_diffusion(10, n, _sigma_for_kappa(n, kappa), device="cpu")
+    if R is None:
+        b = tkt.random_rhs(10, n, seed=1234)
+        b = b / torch.linalg.vector_norm(b, dim=1, keepdim=True)
+    else:
+        b = np.random.default_rng(1234).standard_normal((R, 10, n))
+        b = torch.tensor(b / np.linalg.norm(b, axis=2, keepdims=True))
+    return tkt.KroneckerSumOperator(op.bands.to(device), op.offsets), b.to(device)
 
 
-def test_sharded_block_ring_on_card(cuda):
-    """solve_block over 4 mode shards of one card on the ring route, config 4
-    at n=2048: one ring launch per block step (the (d, 4, n_local) block of
-    every shard in one launch), no banded_spmv launch; the unsharded solve's
-    status and steps, the estimates within 1e-8 relative (beside 1e-12)."""
-    op, B = _config4_reduced(cuda)
+def _sharded_block(cuda, comm):
+    """solve_block over 4 mode shards of one card, config 4 at n=2048,
+    against the unsharded solve: its status and steps, the estimates within
+    1e-8 relative (beside 1e-12), x on the card; returns the steps and the
+    launches."""
+    op, B = _rd_problem(cuda, 2048, 1e4, R=4)
     cfg = tkt.SolverConfig(kmax=48, tol=1e-8, check_every=8, orth="lanczos_reorth")
     ref = tkt.solve_block(op, B, cfg)
-    sop = shard_operator(op, make_mesh(devices=[cuda] * 4), "ring")
+    sop = shard_operator(op, make_mesh(devices=[cuda] * 4), comm)
     _build.launches.clear()
     got = tkt.solve_block(sop, shard_rhs(B, sop.mesh, 10), cfg)
     torch.cuda.synchronize()
     k = got.niterations
-    assert dict(_build.launches) == {"ring_spmv": k}
-    assert (got.status, k) == (ref.status, ref.niterations)
-    a, r = got.relative_residual.cpu().numpy(), ref.relative_residual.cpu().numpy()
-    ok = np.isfinite(r)
-    np.testing.assert_allclose(a[ok], r[ok], rtol=1e-8, atol=1e-12)
+    assert (got.status, k) == (ref.status, ref.niterations) and got.status != tkt.Status.BREAKDOWN
+    for f in ("relative_residual", "lambda_min", "lambda_max"):
+        a, r = getattr(got, f).cpu().numpy(), getattr(ref, f).cpu().numpy()
+        ok = np.isfinite(r) & (r != 0)
+        np.testing.assert_allclose(a[ok], r[ok], rtol=1e-8, atol=1e-12, err_msg=f)
+    assert tuple(got.x.factors.shape) == (10, 2048, cfg.tmax * 4)
     assert got.x.factors.device.type == "cuda" and bool(torch.isfinite(got.x.factors).all())
+    return k, dict(_build.launches)
 
 
-def test_sharded_two_pass_gspmd_on_card(cuda):
-    """solve_two_pass over 4 mode shards of one card on the gspmd route, the
-    slice's problem (κ = 1e2) at n=8192: 4
-    banded_spmv launches per SpMV of both passes (4 · 2k), one tridiag_eigh
-    launch per check of pass 1 (k), no ring launch;
-    the unsharded solve's status, steps within one, x within 1e-6 of max|x|,
-    the final estimate within 1e-6 relative beside the v_0 drift's allowance
-    d·√k·(drift of both runs): b̃_k = ⟨v_k, b⟩ carries the plain recurrence's
-    drift (its orthogonality trace), which another sum order redraws."""
-    op = tkt.reaction_diffusion(10, 8192, _sigma_for_kappa(8192, 1e2), device=cuda)
-    b = tkt.random_rhs(10, 8192, seed=1234)
-    b = (b / torch.linalg.vector_norm(b, dim=1, keepdim=True)).to(cuda)
+def test_sharded_block_ring_on_card(cuda):
+    """The ring route: one ring launch per block step (the (d, 4, n_local)
+    block of every shard in one launch), no banded_spmv launch."""
+    k, launches = _sharded_block(cuda, "ring")
+    assert launches == {"ring_spmv": k}
+
+
+def test_sharded_block_gspmd_on_card(cuda):
+    """The gspmd route: 4 banded_spmv launches per block step (one per
+    shard's halo-extended slab), no ring launch."""
+    k, launches = _sharded_block(cuda, "gspmd")
+    assert launches == {"banded_spmv": 4 * k}
+
+
+@pytest.mark.slow
+def test_config4_block_and_recorded_on_card(cuda):
+    """Config 4 at its widths (d=10, n=10240, a rank-4 B, κ = 1e4 a factor):
+    solve_block (kmax 96, check every 8, CGS2, spectral source H) without
+    breakdown, its traces and x finite, one banded_spmv launch per block step
+    and one for the device cross-check; solve_block_recorded (m=512, kmax
+    360) converged and certified below tol, the cross-check not
+    contradicting the bound, one banded_spmv launch and one sup-error launch
+    per checkpoint."""
+    from tensorkrylov_tpu_torch.utils.cp import cp_residual_cross_check_device
+
+    n = 10240
+    op, B = _rd_problem(cuda, n, 1e4, R=4)
+    cfg = tkt.SolverConfig(kmax=96, tol=1e-8, check_every=8, orth="lanczos_reorth", spectral_source="H")
+    _build.launches.clear()
+    res = tkt.solve_block(op, B, cfg)
+    torch.cuda.synchronize()
+    assert res.status != tkt.Status.BREAKDOWN and _build.launches["banded_spmv"] == res.niterations
+    idx = _checked(res)
+    for f in ("relative_residual", "lambda_min", "lambda_max"):
+        assert np.isfinite(getattr(res, f).cpu().numpy()[idx]).all(), f
+    assert bool(torch.isfinite(res.x.factors).all())
+    _build.launches.clear()
+    cp_residual_cross_check_device(op, res.x.weights, res.x.factors, B)
+    torch.cuda.synchronize()
+    assert _build.launches["banded_spmv"] == 1
+    del res
+    lam_min = 10 * (_sigma_for_kappa(n, 1e4) + 4.0 * (n + 1) ** 2 * np.sin(np.pi / (2 * (n + 1))) ** 2)
+    rcfg = tkt.SolverConfig(kmax=360, tol=1e-8)
+    basis = tkt.deflation_basis(op, 512)
+    _build.launches.clear()
+    res = tkt.solve_block_recorded(op, B, rcfg, lam_min=lam_min, basis=basis, final="device")
+    torch.cuda.synchronize()
+    assert res.converged and res.certified_bound[-1] < rcfg.tol
+    assert "CONTRADICT" not in _verdict(res, rcfg.tol)
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": len(res.checkpoints)}
+
+
+def _sharded_two_pass(cuda, comm):
+    """solve_two_pass over 4 mode shards of one card, the slice's problem at
+    n=8192, against the unsharded solve_two_pass: its status, steps within
+    one, x within 1e-6 of max|x|, the final estimate within 1e-6 relative
+    beside the v_0 drift's allowance d·√k·(drift of both runs) (b̃_k = ⟨v_k, b⟩
+    carries the plain recurrence's drift, its orthogonality trace, which
+    another sum order redraws), λ_min and λ_max within 1e-8 (from H alone);
+    returns the steps and the launches."""
+    op, b = _rd_problem(cuda, 8192, 1e2)
     cfg = tkt.SolverConfig(kmax=200, tol=1e-8, orth="lanczos")
     ref = tkt.solve_two_pass(op, b, cfg)
-    sop = shard_operator(op, make_mesh(devices=[cuda] * 4), "gspmd")
+    sop = shard_operator(op, make_mesh(devices=[cuda] * 4), comm)
     _build.launches.clear()
     got = tkt.solve_two_pass(sop, shard_rhs(b, sop.mesh), cfg)
     torch.cuda.synchronize()
     k, kr = got.niterations, ref.niterations
-    assert dict(_build.launches) == {"banded_spmv": 4 * 2 * k, "tridiag_eigh": k}
     assert got.status == ref.status == tkt.Status.CONVERGED and abs(k - kr) <= 1
     drift = float(got.orthogonality[1:k + 1].max()) + float(ref.orthogonality[1:kr + 1].max())
     est, est_ref = float(got.relative_residual[k]), float(ref.relative_residual[kr])
     assert abs(est - est_ref) <= 1e-6 * est_ref + 10 * np.sqrt(max(k, kr)) * drift
     x, xr = got.x.factors, ref.x.factors
-    assert float((x - xr).abs().max()) <= 1e-6 * float(xr.abs().max())
+    assert x.device.type == "cuda" and float((x - xr).abs().max()) <= 1e-6 * float(xr.abs().max())
+    m = min(k, kr) + 1
+    for f in ("lambda_min", "lambda_max"):
+        a, r = getattr(got, f)[:m].cpu().numpy(), getattr(ref, f)[:m].cpu().numpy()
+        ok = np.isfinite(r) & (r != 0)
+        np.testing.assert_allclose(a[ok], r[ok], rtol=1e-8, err_msg=f)
+    return k, dict(_build.launches)
+
+
+def test_sharded_two_pass_gspmd_on_card(cuda):
+    """The gspmd route: 4 banded_spmv launches per SpMV of both passes
+    (4 · 2k), one tridiag_eigh launch per check of pass 1 (k), no ring
+    launch."""
+    k, launches = _sharded_two_pass(cuda, "gspmd")
+    assert launches == {"banded_spmv": 4 * 2 * k, "tridiag_eigh": k}
+
+
+def test_sharded_two_pass_ring_on_card(cuda):
+    """The ring route: one ring launch per SpMV of both passes (2k), one
+    tridiag_eigh launch per check of pass 1 (k), no banded_spmv launch."""
+    k, launches = _sharded_two_pass(cuda, "ring")
+    assert launches == {"ring_spmv": 2 * k, "tridiag_eigh": k}
+
+
+def test_sharded_multi_rhs_on_card(cuda):
+    """solve_multi_rhs, R = 2, on a (rhs=2, factor=1, mode=2) mesh of 4 slots
+    of one card against the unsharded lanes: status of shape (2,), each lane's
+    status, steps and traces (within 1e-8 beside 1e-12); each lane over its
+    group's 2 mode shards on the gspmd route, 2 banded_spmv launches per step
+    and one tridiag_eigh launch per check."""
+    op, b = _rd_problem(cuda, 4096, 1e2)
+    b2 = tkt.random_rhs(10, 4096, seed=1235)
+    B = torch.stack([b, (b2 / torch.linalg.vector_norm(b2, dim=1, keepdim=True)).to(cuda)])
+    cfg = tkt.SolverConfig(kmax=200, tol=1e-8)
+    ref = tkt.solve_multi_rhs(op, B, cfg).results
+    mesh = make_mesh(devices=[cuda] * 4, rhs_parallel=2, factor_parallel=1)
+    _build.launches.clear()
+    mr = tkt.solve_multi_rhs(op, B, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    res, ks = mr.results, mr.results.niterations.tolist()
+    assert mr.converged and tuple(res.status.shape) == (2,)
+    assert res.status.tolist() == ref.status.tolist() and ks == ref.niterations.tolist()
+    for f in ("relative_residual", "lambda_min", "lambda_max"):
+        a, r = getattr(res, f).cpu().numpy(), getattr(ref, f).cpu().numpy()
+        ok = np.isfinite(r) & (r != 0)
+        np.testing.assert_allclose(a[ok], r[ok], rtol=1e-8, atol=1e-12, err_msg=f)
+    assert tuple(mr.x.factors.shape) == (10, 4096, 2 * cfg.tmax) and bool(torch.isfinite(mr.x.factors).all())
+    assert dict(_build.launches) == {"banded_spmv": 2 * sum(ks), "tridiag_eigh": sum(ks)}
+
+
+def test_dryrun_multichip_on_card(cuda):
+    """Every call of the JAX package's multi-chip dry run at its own sizes on
+    8 slots of one card, a (2, 4) and a (2, 2, 2) mesh, each held to what the
+    dry run asserts; both SpMV kernels run."""
+    from tensorkrylov_tpu_torch.experiments import dryrun_multichip
+
+    _build.launches.clear()
+    dryrun_multichip.run([cuda] * 8)
+    torch.cuda.synchronize()
+    assert _build.launches["banded_spmv"] > 0 and _build.launches["ring_spmv"] > 0
 
 
 def _tridiag_blocks(diag, off):
@@ -1107,8 +1762,9 @@ TRIDIAG_CASES = {
 def test_tridiag_kernel_equals_plain(cuda, K, case):
     """The kernel's w and Q (before Newton–Schulz) equal its plain version's
     on the card and on the CPU bit for bit, in f64 with two inverse-iteration
-    solves; one launch per call."""
-    from tensorkrylov_tpu_torch.ops.eigen import masked_eigh_tridiag_reference, tridiag_eigh
+    solves; one launch per call; Q within 1e-13 of orthonormal after
+    Newton–Schulz."""
+    from tensorkrylov_tpu_torch.ops.eigen import masked_eigh_tridiag_mixed, masked_eigh_tridiag_reference, tridiag_eigh
 
     H, k = _tridiag_case(case, K)
     Hc = torch.tensor(H, device=cuda)
@@ -1120,6 +1776,8 @@ def test_tridiag_kernel_equals_plain(cuda, K, case):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     on_cpu = masked_eigh_tridiag_reference(torch.tensor(H), k)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, on_cpu))
+    _, Q = masked_eigh_tridiag_mixed(Hc, k)        # and Newton–Schulz after it: Q orthonormal
+    assert float((Q.transpose(1, 2) @ Q - torch.eye(K, dtype=Q.dtype, device=cuda)).abs().max()) <= 1e-13
 
 
 @pytest.mark.parametrize("K,cases", [(31, ("random_half", "wilkinson21", "repeated_blocks")),
@@ -1227,13 +1885,17 @@ def test_tridiag_wrapper_rejects_bad_input(cuda):
 
 def test_default_solve_on_card_takes_the_tridiagonal_kernel(cuda, monkeypatch):
     """'auto' resolves to 'tridiag_mixed' on the card: one tridiag_eigh launch
-    per check and no dense eigh of H; the dense oracle below 1e-8 and the
-    dense run's trace within 1e-7."""
+    per check and no dense eigh of H; the dense oracle below 1e-8, the dense
+    run's trace within 1e-7 and its λ traces within 1e-12; the dense run
+    launches no tridiag_eigh."""
     from tensorkrylov_tpu_torch import solver
 
     op = tkt.laplace(3, 30, device=cuda)
     b = tkt.random_rhs(3, 30, seed=7, device=cuda)
+    _build.launches.clear()
     dense = tkt.solve(op, b, tkt.SolverConfig(kmax=30, tol=1e-8, eigh_impl="dense"))
+    torch.cuda.synchronize()
+    assert _build.launches["tridiag_eigh"] == 0
     calls = []
     monkeypatch.setattr(solver, "masked_eigh", lambda *a: calls.append(a) or torch.linalg.eigh(a[0]))
     for check_every in (1, 4):
@@ -1246,6 +1908,10 @@ def test_default_solve_on_card_takes_the_tridiagonal_kernel(cuda, monkeypatch):
         assert tkt.kron_residual_dense(op, res.x, b) <= 1e-8
     res = tkt.solve(op, b, tkt.SolverConfig(kmax=30, tol=1e-8))
     _traces_close(res, dense, 1e-7)
+    k = res.niterations
+    for f in ("lambda_min", "lambda_max"):
+        np.testing.assert_allclose(getattr(res, f)[1:k + 1].cpu().numpy(), getattr(dense, f)[1:k + 1].cpu().numpy(),
+                                   rtol=1e-12, err_msg=f)
 
 
 def test_default_deflated_on_card_takes_the_tridiagonal_kernel(cuda):
@@ -1498,3 +2164,126 @@ def test_nonsym_solve_on_card_takes_hess_eig(cuda, monkeypatch, identical):
     assert cpu.niterations == res.niterations and calls == ["cpu"] * checks
     ks = [k for k in range(1, res.niterations + 1) if k % cfg.check_every == 0]
     np.testing.assert_allclose(res.relative_residual[ks].cpu().numpy(), cpu.relative_residual[ks].numpy(), rtol=1e-6)
+
+
+# ---- the entry points a user calls ----------------------------------------
+
+
+def test_bench_on_card(cuda, capsys):
+    """python -m tensorkrylov_tpu_torch.bench: its result line with every key,
+    every rate finite and positive, through the multi-apply kernel."""
+    import json
+
+    from tensorkrylov_tpu_torch import bench
+
+    _build.launches.clear()
+    assert bench.main([]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    rates = ("xla_scan_gnnz_s", "resident_pallas_gnnz_s", "cpu_numpy_gnnz_s", "solver_iters_per_s_f64",
+             "solver_loop_xla_gnnz_s", "solver_loop_resident_gnnz_s", "solve_resident_gnnz_s",
+             "solve_xla_segment_gnnz_s")
+    assert {"metric", "value", "unit", "vs_baseline"} <= set(line)
+    assert set(rates) | {"platform", "spmv_config", "roofline_3350GBps"} <= set(line["extra"])
+    assert all(np.isfinite(line["extra"][r]) and line["extra"][r] > 0 for r in rates)
+    assert _build.launches["resident_spmv"] > 0
+
+
+def test_cli_solve_on_card(cuda, tmp_path, capsys):
+    """python -m tensorkrylov_tpu_torch solve (laplace d=5, n=200, tol 1e-9):
+    exit 0, CONVERGED, one banded_spmv launch per step."""
+    import json
+
+    from tensorkrylov_tpu_torch.__main__ import main as cli
+
+    path = tmp_path / "traces.json"
+    _build.launches.clear()
+    rc = cli(["solve", "--gallery", "laplace", "--d", "5", "--n", "200", "--tol", "1e-9", "--json", str(path)])
+    torch.cuda.synchronize()
+    traces = json.loads(path.read_text())
+    assert rc == 0 and traces["status"] == "CONVERGED" and "CONVERGED" in capsys.readouterr().out
+    assert _build.launches["banded_spmv"] == traces["niterations"]
+
+
+def test_tensorized_system_on_card(cuda):
+    """TensorizedSystem and solve_tensorized_system on the card: converged,
+    the dense oracle below 1e-8, one banded_spmv launch per step."""
+    op = tkt.laplace(3, 30, device=cuda)
+    system = tkt.TensorizedSystem.create(op, tkt.random_rhs(3, 30, seed=7, device=cuda))
+    _build.launches.clear()
+    res = tkt.solve_tensorized_system(system, nmax=30, tol=1e-8)
+    torch.cuda.synchronize()
+    assert res.status == tkt.Status.CONVERGED and _build.launches["banded_spmv"] == res.niterations
+    assert tkt.kron_residual_dense(op, res.x, system.b) <= 1e-8
+
+
+def test_reproduction_on_card(cuda, tmp_path):
+    """The reproduction runner on the card: the reference's SPD configuration
+    (d = 5, 10, 50, 100, n=200, tol 1e-9), each converged below 1e-9 and
+    saved, one banded_spmv launch per step; the nonsymmetric one at d=5 below
+    1e-6."""
+    import json
+
+    from tensorkrylov_tpu_torch.experiments.reproduction import run_reproduction
+
+    dims = (5, 10, 50, 100)
+    _build.launches.clear()
+    spd = run_reproduction(dims, 200, device=cuda, out_dir=str(tmp_path), verbose=False)
+    torch.cuda.synchronize()
+    saved = json.loads((tmp_path / "reproduction_laplace_n200.json").read_text())
+    assert sorted(saved) == sorted(str(d) for d in dims)
+    assert all(spd[d]["status"] == tkt.Status.CONVERGED and spd[d]["final_relative_residual"] < 1e-9 for d in dims)
+    assert _build.launches["banded_spmv"] == sum(spd[d]["niterations"] for d in dims)
+    _build.launches.clear()
+    ns = run_reproduction((5,), 200, symmetric=False, device=cuda, out_dir=str(tmp_path), verbose=False)
+    torch.cuda.synchronize()
+    assert ns[5]["final_relative_residual"] < 1e-6 and _build.launches["banded_spmv"] == ns[5]["niterations"]
+
+
+@pytest.mark.parametrize("n", [4096, pytest.param(131072, marks=pytest.mark.slow)])
+def test_multi_rhs_on_card(cuda, n):
+    """solve_multi_rhs, R = 2, on the κ = 1e2 slice at n=4096 and at its
+    width: lane 0 is solve's trace bit for bit, both lanes converged, x of
+    rank 2·tmax, one banded_spmv launch per step of each lane."""
+    op, b = _rd_problem(cuda, n, 1e2)
+    b2 = tkt.random_rhs(10, n, seed=1235)
+    cfg = tkt.SolverConfig(kmax=200, tol=1e-8)
+    ref = tkt.solve(op, b, cfg)
+    _build.launches.clear()
+    mr = tkt.solve_multi_rhs(op, torch.stack([b, (b2 / torch.linalg.vector_norm(b2, dim=1, keepdim=True)).to(cuda)]),
+                             cfg)
+    torch.cuda.synchronize()
+    x, res = mr
+    assert mr.converged and torch.equal(res.relative_residual[0].cpu(), ref.relative_residual.cpu())
+    assert tuple(x.factors.shape) == (10, n, 2 * cfg.tmax) and bool(torch.isfinite(x.factors).all())
+    assert _build.launches["banded_spmv"] == int(res.niterations.sum())
+
+
+@pytest.mark.parametrize("n", [4096, pytest.param(131072, marks=pytest.mark.slow)])
+def test_solve_resumable_on_card(cuda, tmp_path, n):
+    """solve_resumable on the κ = 1e2 slice at n=4096 and at its width with
+    kmax=40, in chunks with a checkpoint after each, and resumed from a
+    checkpoint written after 14 steps: both equal solve() bit for bit (status, steps, every
+    trace, x); one banded_spmv launch per step taken."""
+    from tensorkrylov_tpu_torch.solver import _segment, _setup
+    from tensorkrylov_tpu_torch.utils.checkpoint import save_carry
+
+    op, b = _rd_problem(cuda, n, 1e2)
+    cfg = tkt.SolverConfig(kmax=40, tol=1e-8)
+    ref = tkt.solve(op, b, cfg)
+    assert ref.status == tkt.Status.CONVERGED
+    ckpt = str(tmp_path / "carry.pt")
+    _build.launches.clear()
+    seg = tkt.solve_resumable(op, b, cfg, chunk=16, checkpoint_path=ckpt)
+    torch.cuda.synchronize()
+    assert _build.launches["banded_spmv"] == ref.niterations
+    p, carry = _setup(op, b, cfg, None)
+    save_carry(ckpt, _segment(p, carry, 14))
+    _build.launches.clear()
+    resumed = tkt.solve_resumable(op, b, cfg, checkpoint_path=ckpt, resume=True, chunk=9)
+    torch.cuda.synchronize()
+    assert _build.launches["banded_spmv"] == ref.niterations - 14
+    fields = ("relative_residual", "projected_residual", "orthogonality", "lambda_min", "lambda_max", "expsum_rank")
+    for got in (seg, resumed):
+        assert (got.status, got.niterations) == (ref.status, ref.niterations)
+        assert all(torch.equal(getattr(got, f), getattr(ref, f)) for f in fields)
+        assert torch.equal(got.x.weights, ref.x.weights) and torch.equal(got.x.factors, ref.x.factors)

@@ -197,7 +197,7 @@ def test_import_leaves_jax_out():
             " tensorkrylov_tpu_torch.utils.cp, tensorkrylov_tpu_torch.experiments.eigenvalue_distribution,"
             " tensorkrylov_tpu_torch.experiments.parameterized_systems, tensorkrylov_tpu_torch.experiments.plotting,"
             " tensorkrylov_tpu_torch.deflate, tensorkrylov_tpu_torch.deflate_light,"
-            " tensorkrylov_tpu_torch.experiments.northstar, tensorkrylov_tpu_torch.experiments.flagship_probe,"
+            " tensorkrylov_tpu_torch.experiments.northstar,"
             " tensorkrylov_tpu_torch.ops.expansion, tensorkrylov_tpu_torch.df64_core,"
             " tensorkrylov_tpu_torch.block_recorded, tensorkrylov_tpu_torch.experiments.config4_block,"
             " tensorkrylov_tpu_torch.experiments.nonsym_scale, tensorkrylov_tpu_torch.experiments.dryrun_multichip;"
