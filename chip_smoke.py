@@ -65,6 +65,8 @@ FLAGSHIP = dict(kappa=1e6, m=2048, checkpoints=[384, 448, 512],   # the κ = 1e6
                 config=dict(kmax=512, tol=1e-8, orth="lanczos_reorth_auto"))
 ARNOLDI = dict(kmax=384, tol=1e-8, orth="arnoldi", tmax=513, check_every=16)  # the Arnoldi cell's solve
 HESS = dict(c=10.0, kappa=1e4, K=385, steps=304, ks=(16, 64, 128, 304), plain_k=16, res_limit=1e-12, w_limit=1e-10)
+GRAM_P = 95               # the deflated cells' cross-check columns: R + 2t = 1 + 2·47 (the coefficients' rank 47)
+F64_INSTR_PER_S = 132 * 64 * 1.98e9   # the f64 pipes issuing one instruction a lane a clock: 16.7e12/s
 
 
 class Failed(Exception):
@@ -614,6 +616,27 @@ def time_hess_eig(tkt, dev):
     return row
 
 
+def time_gram_dot2(tkt, dev):
+    """The deflated cells' compensated Gram of the cross-check's columns,
+    d=10, P=95, n=131072: the kernel gated bit for bit against the plain
+    version on the card, both timed; the bound counts 11 f64 operations a
+    needed product (i <= j; an FMA as two), and issue_floor_ms the kernel's 10
+    f64 instructions a product at one a lane a clock."""
+    from tensorkrylov_tpu_torch.ops import gram_dot2 as gd
+
+    C = torch.randn((D, GRAM_P, N), dtype=torch.float64, device=dev, generator=torch.Generator(dev).manual_seed(13))
+    bits = lambda pair: tuple(t.view(torch.int64) for t in pair)
+    err = gate("gram_dot2", bits(gd._gram_dot2_cuda(C)), bits(gd.gram_dot2_plain(C)))
+    torch.cuda.empty_cache()
+    products = D * N * GRAM_P * (GRAM_P + 1) // 2
+    row = dict(max_abs_err=err, ms=time_one(lambda: gd._gram_dot2_cuda(C), reps=20, warm=3),
+               plain_ms=time_one(lambda: gd.gram_dot2_plain(C), reps=2, warm=1),
+               issue_floor_ms=10 * products / F64_INSTR_PER_S * 1e3,
+               **bound(C.numel() * 8 + 2 * 8 * D * GRAM_P ** 2, 11 * products, torch.float64))
+    emit("gram_dot2", d=D, P=GRAM_P, n=N, **row)
+    return row
+
+
 def main_paths(tkt, dev):
     """Drive each entry that launches the kernels, at its benchmark cell's
     widths (d=10, n=131072), with the launch counts set to 0 just before it
@@ -691,6 +714,9 @@ KERNELS = {
     "hess_eig": dict(timer=time_hess_eig, replaces="none: torch.linalg.eig in ops/expsum.py cp_solve_nonsym_eig "
                                                    "(the JAX package's tensorkrylov_tpu/ops/expsum.py calls "
                                                    "jnp.linalg.eig there)"),
+    "gram_dot2": dict(timer=time_gram_dot2, replaces="none: plain PyTorch in ops/gram_dot2.py gram_dot2_plain (the "
+                                                     "JAX package's tensorkrylov_tpu/utils/cp.py:246-253 forms the "
+                                                     "Gram as an f32-splat pair GEMM)"),
 }
 
 

@@ -67,6 +67,7 @@ _SIGNATURES = {
     "tk_enable_peer_access": [_I, _I],
     "tk_expsum_sup_f64": [_P, _P, _I, ctypes.c_double, ctypes.c_double, _I, _P, _P],
     "tk_hess_eig_f64": [_P, _I, _I, _I] + [_P] * 7,
+    "tk_gram_dot2_f64": [_P] + [_I] * 6 + [_P] * 5,
 }
 # entry points that return a count rather than a cudaError_t
 _COUNTS = ("tk_fused_lanczos_block_elems", "tk_resident_lanczos_block_elems", "tk_ring_spmv_max_shards")

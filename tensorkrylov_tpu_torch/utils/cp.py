@@ -8,11 +8,13 @@ package.
 
 ``cp_residual_cross_check_device`` forms the Gram of the residual's distinct
 columns [B | X | A X] on X's device in native f64, each entry a compensated
-dot product (``_gram_dot2``: an f64 pair carrying it to ~eps², whatever n is),
-with A X from ``ops.banded.spmv``; the host adds each pair in longdouble, and
-the floor charges longdouble eps. An f64 GEMM carries a length-n entry only to
-~√n·eps, and at d=10, n ≥ 16384 its noise in the cancelling pair sum already
-reads above an f64-eps floor where the residual is far below it. The JAX
+dot product (``_gram_dot2``, ``ops/gram_dot2.py``: an f64 pair carrying it to
+~eps², whatever n is; the ``gram_dot2`` kernel on a CUDA tensor, its plain
+version on the CPU), with A X from ``ops.banded.spmv``; the host adds each
+pair in longdouble, and the floor charges longdouble eps. An f64 GEMM
+carries a length-n entry only to ~√n·eps, and at d=10, n ≥ 16384 its noise
+in the cancelling pair sum already reads above an f64-eps floor where the
+residual is far below it. The JAX
 package's f32-pair GEMM, its
 column chunking, its 1e-15 charge and its mesh branch work around the TPU's
 emulated f64 and are not ported.
@@ -26,7 +28,7 @@ import torch
 
 from ..models.gallery import bands_to_dense
 from ..ops.banded import spmv
-from ..ops.expansion import two_prod, two_sum
+from ..ops.gram_dot2 import gram_dot2 as _gram_dot2
 from ..parallel.krylov import spmv_pieces, whole
 from ..parallel.sharding import ShardedOperator, shard_rhs
 from ..types import CPTensor, KroneckerSumOperator
@@ -179,27 +181,6 @@ def cp_residual_cross_check_device(op: KroneckerSumOperator, weights, X_dev, b_d
     hi, lo = _gram_dot2(C)
     G = _host(hi).astype(np.longdouble) + _host(lo).astype(np.longdouble)
     return _cross_check_from_gram(G, _host(weights), d, t, R=R, b_weights=np.ones(R), entry_eps=_LD_EPS)
-
-
-def _gram_dot2(C: torch.Tensor):
-    """G = C Cᵀ per batch for C (d, P, n), as (hi, lo) f64 pairs (d, P, P):
-    each entry a compensated dot product (Ogita, Rump and Oishi's Dot2, its
-    sum a pairwise tree of TwoSums), so hi + lo carries the entry to about
-    eps²·log2(n) of Σ|c_i c_j| whatever n is, where an f64 GEMM carries it
-    to about √n·eps."""
-    d, P, n = C.shape
-    hi = torch.zeros((d, P, P), dtype=C.dtype, device=C.device)
-    lo = torch.zeros_like(hi)
-    for i in range(P):
-        p, e = two_prod(C[:, i:, :], C[:, i:i + 1, :])                 # (d, P - i, n)
-        while p.shape[-1] > 1:
-            if p.shape[-1] % 2:
-                p, e = (torch.nn.functional.pad(t, (0, 1)) for t in (p, e))
-            s, err = two_sum(p[..., 0::2], p[..., 1::2])
-            p, e = s, e[..., 0::2] + e[..., 1::2] + err
-        hi[:, i, i:], lo[:, i, i:] = p[..., 0], e[..., 0]
-        hi[:, i:, i], lo[:, i:, i] = p[..., 0], e[..., 0]
-    return hi, lo
 
 
 def cp_residual_cross_check_host_rankR(bands, offsets, weights, factors, B, b_weights=None) -> ResidualCrossCheck:

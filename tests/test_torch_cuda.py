@@ -786,7 +786,7 @@ def test_two_ranks_on_card_equal_one_controller(cuda):
             assert ref["status"] == tkt.Status.CONVERGED and (got["status"], got["k"]) == (ref["status"], k), name
             assert (got["trace"], got["x"], got["spectrum"]) == (ref["trace"], ref["x"], ref["spectrum"]), name
             if name == "deflated":   # both passes, the cross-check and the sup error on each rank
-                want = {"ring_spmv": 2 * k - 1, "banded_spmv": 1, "expsum_sup": 1}
+                want = {"ring_spmv": 2 * k - 1, "banded_spmv": 1, "expsum_sup": 1, "gram_dot2": 1}
             elif name == "gspmd":
                 want = {"banded_spmv": 2 * k}
             else:
@@ -1120,7 +1120,8 @@ def test_solve_deflated_on_card_equals_cpu(cuda, storage, n):
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=rtol, atol=atol)
     assert tkt.kron_residual_dense(op, got.x, b) <= got.certified_bound[-1] + 1e-14
     steps = 2 * k - 1 if storage == "twopass" else k
-    assert dict(_build.launches) == {"banded_spmv": steps + 1, "tridiag_eigh": len(got.checkpoints), "expsum_sup": 1}
+    assert dict(_build.launches) == {"banded_spmv": steps + 1, "tridiag_eigh": len(got.checkpoints), "expsum_sup": 1,
+                                     "gram_dot2": 1}
     assert got.cp_residual_floor is not None and got.measured_cp_residual is not None
     assert (got.boundary_drift_max is not None) == (storage == "segmented")
 
@@ -1173,20 +1174,66 @@ def test_deflated_twopass_resume_on_card(cuda, tmp_path):
     k = ref.niterations
     assert res.certified_bound == ref.certified_bound and torch.equal(res.x.factors, ref.x.factors)
     assert dict(_build.launches) == {"banded_spmv": (k - 32) + (k - 1) + 1, "tridiag_eigh": len(res.checkpoints),
-                                     "expsum_sup": 1}
+                                     "expsum_sup": 1, "gram_dot2": 1}
 
 
-def test_gram_dot2_on_card_equals_cpu(cuda):
-    """The device cross-check's compensated Gram: every operation a rounded
-    IEEE op in the same tree order on both devices, so the card's (hi, lo)
-    pairs equal the CPU's bit for bit (no product fused into an FMA)."""
+# (d, P, n, signed zeros) of the compensated Gram's card cases: the original log-spaced data; ragged n (1, 2, 3: one
+# chunk shorter than a 64-leaf slab; 4097: a last chunk of one leaf); P = 33 over n = 65536 (2 J tiles, 3 I tiles, 64
+# chunks); a rank-4 block cross-check's P = 4 + 2t (t = 9); a tree whose every level is even (its -0 products stay -0)
+GRAM_CASES = {
+    "logspaced": (3, 7, 40001, False), "n1": (3, 7, 1, True), "n2": (3, 7, 2, True), "n3": (3, 7, 3, True),
+    "n4097": (3, 7, 4097, True), "P33": (2, 33, 65536, False), "block_R4": (3, 4 + 2 * 9, 3001, False),
+    "zeros_n4096": (2, 5, 4096, True),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAM_CASES))
+def test_gram_dot2_on_card_equals_cpu(cuda, case):
+    """The device cross-check's compensated Gram: the gram_dot2 kernel (one
+    call, counted once) sums the plain version's tree, so the card's (hi, lo)
+    pairs equal the CPU's bit for bit, signs of zero included; with signed
+    zeros, mode 0 has a zero row against a negative one (every product -0)."""
     from tensorkrylov_tpu_torch.utils.cp import _gram_dot2
 
+    d, P, n, zeros = GRAM_CASES[case]
     g = torch.Generator().manual_seed(5)
-    C = torch.randn((3, 7, 40001), dtype=torch.float64, generator=g) * torch.logspace(-4, 4, 40001, dtype=torch.float64)
+    C = torch.randn((d, P, n), dtype=torch.float64, generator=g) * torch.logspace(-4, 4, n, dtype=torch.float64)
+    if zeros:
+        C[0, 0] = 0.0
+        C[0, 1] = -C[0, 1].abs()
     hi, lo = _gram_dot2(C)
+    before = _build.launches["gram_dot2"]
     hi_c, lo_c = _gram_dot2(C.to(cuda))
-    assert torch.equal(hi_c.cpu(), hi) and torch.equal(lo_c.cpu(), lo)
+    torch.cuda.synchronize()
+    assert _build.launches["gram_dot2"] == before + 1
+    for got, want in ((hi_c, hi), (lo_c, lo)):
+        assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("R", [1, 4])
+def test_gram_dot2_one_launch_per_cross_check(cuda, R):
+    """cp_residual_cross_check_device on the card launches the Gram kernel
+    once and the SpMV once (A·X), and its value and floor are the CPU's bit
+    for bit, for a rank-1 b (d, n) and a rank-R block B (R, d, n); a CUDA
+    tensor the kernel cannot take raises, with no fallback."""
+    from tensorkrylov_tpu_torch.utils.cp import _gram_dot2, cp_residual_cross_check_device
+
+    rng = np.random.default_rng(R)
+    op = tkt.reaction_diffusion(3, 2000, 0.5, device="cpu")
+    X = torch.tensor(rng.standard_normal((3, 2000, 6)))
+    w = torch.tensor(rng.standard_normal(6))
+    b = torch.tensor(rng.standard_normal((3, 2000) if R == 1 else (R, 3, 2000)))
+    ref = cp_residual_cross_check_device(op, w, X, b)
+    op_c = tkt.KroneckerSumOperator(op.bands.to(cuda), op.offsets)
+    _build.launches.clear()
+    got = cp_residual_cross_check_device(op_c, w.to(cuda), X.to(cuda), b.to(cuda))
+    assert dict(_build.launches) == {"banded_spmv": 1, "gram_dot2": 1}
+    assert (got.value, got.floor) == (ref.value, ref.floor)
+    C = torch.ones((2, 3, 8), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float64"):
+        _gram_dot2(C.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        _gram_dot2(C.transpose(1, 2))
 
 
 def test_expansion_arithmetic_on_card_equals_cpu(cuda):
@@ -1230,7 +1277,7 @@ def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
     _build.launches.clear()
     got = tkt.solve_deflated(op, b, cfg, **kw)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1, "gram_dot2": 1}
     assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-9)
     assert got.x.factors.device.type == cuda.type and got.gram_deviation < 1e-12
@@ -1240,7 +1287,7 @@ def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
     _build.launches.clear()
     resumed = tkt.solve_deflated(op, b, cfg, **kw, state_cache=cache)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1, "gram_dot2": 1}
     assert resumed.certified_bound == got.certified_bound and torch.equal(resumed.x.factors, got.x.factors)
 
 
@@ -1257,7 +1304,7 @@ def test_solve_block_recorded_on_card_equals_cpu(cuda):
     _build.launches.clear()
     got = tkt.solve_block_recorded(tkt.laplace(2, 48, shift=2000.0, device=cuda), B, cfg, m=4)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": len(got.checkpoints)}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": len(got.checkpoints), "gram_dot2": 1}
     assert got.x.factors.device.type == cuda.type
     assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     # the relation terms (dev, η, r2 ∝ ρ²) are roundoff records, which cuBLAS and the CPU round apart
@@ -1316,7 +1363,7 @@ def test_sharded_deflated_twopass_ring_on_card(cuda):
     torch.cuda.synchronize()
     k = got.niterations
     assert dict(_build.launches) == {"ring_spmv": 2 * k - 1, "banded_spmv": 1, "tridiag_eigh": len(got.checkpoints),
-                                     "expsum_sup": 1}
+                                     "expsum_sup": 1, "gram_dot2": 1}
     assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     assert got.status == tkt.Status.CONVERGED
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
@@ -1344,11 +1391,11 @@ def test_sharded_deflated_df64_gspmd_on_card(cuda, size):
     _build.launches.clear()
     ref = tkt.solve_deflated(op, b, cfg, **kw)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1, "gram_dot2": 1}
     _build.launches.clear()
     got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), **kw)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1, "gram_dot2": 1}
     assert (got.status, got.niterations, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     assert got.status == tkt.Status.CONVERGED
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-6)
@@ -1375,12 +1422,13 @@ def test_sharded_deflated_full_gspmd_on_card(cuda, size):
     ref = tkt.solve_deflated(op, b, cfg, **kw)
     torch.cuda.synchronize()
     assert dict(_build.launches) == {"banded_spmv": ref.niterations + 1, "tridiag_eigh": len(ref.checkpoints),
-                                     "expsum_sup": 1}
+                                     "expsum_sup": 1, "gram_dot2": 1}
     _build.launches.clear()
     got = tkt.solve_deflated(op, b, cfg, mesh=make_mesh(devices=[cuda] * 4), comm="gspmd", **kw)
     torch.cuda.synchronize()
     k = got.niterations
-    assert dict(_build.launches) == {"banded_spmv": 4 * k + 1, "tridiag_eigh": len(got.checkpoints), "expsum_sup": 1}
+    assert dict(_build.launches) == {"banded_spmv": 4 * k + 1, "tridiag_eigh": len(got.checkpoints), "expsum_sup": 1,
+                                     "gram_dot2": 1}
     assert (got.status, k, got.checkpoints) == (ref.status, ref.niterations, ref.checkpoints)
     np.testing.assert_allclose(got.certified_bound, ref.certified_bound, rtol=1e-9, atol=1e-15)
 
@@ -1401,7 +1449,8 @@ def test_flagship_deflated_full_on_card(cuda):
     assert res.status == tkt.Status.CONVERGED and res.certified_bound[-1] < cfg.tol
     assert "CONTRADICT" not in _verdict(res, cfg.tol)
     assert (res.status, k) == (dense.status, dense.niterations)
-    assert dict(_build.launches) == {"banded_spmv": k + 1, "tridiag_eigh": len(res.checkpoints), "expsum_sup": 1}
+    assert dict(_build.launches) == {"banded_spmv": k + 1, "tridiag_eigh": len(res.checkpoints), "expsum_sup": 1,
+                                     "gram_dot2": 1}
     x = res.x.factors
     assert tuple(x.shape[:2]) == (10, 131072) and x.device.type == cuda.type and bool(torch.isfinite(x).all())
 
@@ -1431,7 +1480,7 @@ def test_mid_shape_deflated_storages_on_card(cuda, tmp_path):
         return res, dict(_build.launches)
 
     def launches(res, spmvs):
-        return {"banded_spmv": spmvs + 1, "tridiag_eigh": len(res.checkpoints), "expsum_sup": 1}
+        return {"banded_spmv": spmvs + 1, "tridiag_eigh": len(res.checkpoints), "expsum_sup": 1, "gram_dot2": 1}
 
     (rf, cf), (rt, ct) = run(plain, storage="full"), run(plain, storage="twopass")
     k = rf.niterations
@@ -1465,7 +1514,7 @@ def test_mid_shape_deflated_storages_on_card(cuda, tmp_path):
     res, c_res = run(cfg, **df64, state_cache=cache)
     assert res.certified_bound == ref.certified_bound and res.relative_residual == ref.relative_residual
     assert torch.equal(res.x.factors, ref.x.factors) and torch.equal(res.x.weights, ref.x.weights)
-    assert c_ref == c_stop == c_res == {"banded_spmv": 1, "expsum_sup": 1}
+    assert c_ref == c_stop == c_res == {"banded_spmv": 1, "expsum_sup": 1, "gram_dot2": 1}
 
 
 def test_example_03_on_card(cuda):
@@ -1490,7 +1539,8 @@ def test_example_03_on_card(cuda):
     assert rd.status == tkt.Status.CONVERGED
     ks, kd = rs.niterations, rd.niterations
     assert dict(_build.launches) == {"banded_spmv": 4 * ks + 1, "ring_spmv": 2 * kd - 1,
-                                     "tridiag_eigh": len(_checked(rs)) + len(rd.checkpoints), "expsum_sup": 1}
+                                     "tridiag_eigh": len(_checked(rs)) + len(rd.checkpoints), "expsum_sup": 1,
+                                     "gram_dot2": 1}
 
 
 def test_nonsym_scale_on_card(cuda, tmp_path):
@@ -1512,7 +1562,7 @@ def test_nonsym_scale_on_card(cuda, tmp_path):
     r = art["result"]
     assert r["converged"] and np.isfinite(r["relative_residual"]) and np.isfinite(r["measured_cp_residual"])
     checks = sum(1 for k in range(1, r["niterations"] + 1) if k % 8 == 0 or k >= 128)
-    assert dict(_build.launches) == {"banded_spmv": r["niterations"] + 1, "hess_eig": checks}
+    assert dict(_build.launches) == {"banded_spmv": r["niterations"] + 1, "hess_eig": checks, "gram_dot2": 1}
 
 
 def _sigma_for_kappa(n, kappa):
@@ -1599,7 +1649,7 @@ def test_config4_block_and_recorded_on_card(cuda):
     _build.launches.clear()
     cp_residual_cross_check_device(op, res.x.weights, res.x.factors, B)
     torch.cuda.synchronize()
-    assert _build.launches["banded_spmv"] == 1
+    assert dict(_build.launches) == {"banded_spmv": 1, "gram_dot2": 1}
     del res
     lam_min = 10 * (_sigma_for_kappa(n, 1e4) + 4.0 * (n + 1) ** 2 * np.sin(np.pi / (2 * (n + 1))) ** 2)
     rcfg = tkt.SolverConfig(kmax=360, tol=1e-8)
@@ -1609,7 +1659,7 @@ def test_config4_block_and_recorded_on_card(cuda):
     torch.cuda.synchronize()
     assert res.converged and res.certified_bound[-1] < rcfg.tol
     assert "CONTRADICT" not in _verdict(res, rcfg.tol)
-    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": len(res.checkpoints)}
+    assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": len(res.checkpoints), "gram_dot2": 1}
 
 
 def _sharded_two_pass(cuda, comm):
