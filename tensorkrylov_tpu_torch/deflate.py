@@ -41,6 +41,7 @@ pass-2 fallback to the host) is not ported: a failure on the card raises.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -527,14 +528,14 @@ def _save_df64_cache(path: str, st: _Df64State, k_prev: int, n: int, m: int, pro
     tmp = path + ".tmp.npz"
     np.savez(tmp, storage=np.asarray("df64"), n=np.asarray(n), m=np.asarray(m), k_prev=np.asarray(k_prev),
              project_every=np.asarray(project_every), sweep_every=np.asarray(sweep_every),
-             **{name: whole(sop, getattr(st, name)).cpu().numpy() for name in _DF64_FIELDS},
-             Vh_act=Vh.cpu().numpy(), Vl_act=Vl.cpu().numpy(), fingerprint=np.asarray(fingerprint))
+             **{name: host_read(whole(sop, getattr(st, name))).numpy() for name in _DF64_FIELDS},
+             Vh_act=host_read(Vh).numpy(), Vl_act=host_read(Vl).numpy(), fingerprint=np.asarray(fingerprint))
     os.replace(tmp, path)
 
 
 def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoints, tol, coeffs, sup_err, lam_min,
                 lam_max, state_cache, save_state, problem_fp, save_every, advance_budget, project_every, sweep_every,
-                final, certify, verbose, sop=None) -> DeflatedResult:
+                final, certify, verbose, sop, init_span) -> DeflatedResult:
     """storage='df64': the recording recurrence (df64_core.py) in segments of
     S_SEG steps, the cheap evaluation of the recorded relation at interim
     checkpoints and the full one (the Fréchet correction, the measured Gram)
@@ -543,7 +544,10 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
     the gap between b and Ũ c + b⊥ (_split_rounding). With sop, the gspmd
     route's ShardedOperator, Upair and b_perp are its pieces, the recurrence
     and the once-per-solve charges run over them (the shards' padded bands as
-    pairs) and x is gathered to the lead device, op's device."""
+    pairs) and x is gathered to the lead device, op's device; sop None is one
+    card. init_span, a contextlib.ExitStack holding the open
+    'deflated.df64_init' span, is closed once the recurrence's start is
+    built."""
     dev = op.device
     d, n = op.d, op.n
     m = basis.m
@@ -566,6 +570,7 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
     if state_cache is not None and os.path.exists(state_cache):
         k_prev = _load_df64_cache(state_cache, problem_fp, st, n, m, project_every, sweep_every, sop)
     resumed_k_prev = k_prev
+    init_span.close()
 
     def save():
         if state_cache is not None and save_state:
@@ -594,36 +599,38 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
             save()
             if budget_exhausted:
                 break
-        W_np = np.zeros(tuple(st.W.shape), np.float32)
-        W_np[:, :, :ck + 1] = st.W[:, :, :ck + 1].cpu().numpy()
-        C_np = np.zeros(tuple(st.C.shape), np.float32)
-        C_np[:, :, :ck + 1] = st.C[:, :, :ck + 1].cpu().numpy()
-        dg, od, btil, dev_rec = (_host(t) for t in (st.dg, st.od, st.btil, st.dev))
-        dev_rec[:, 1:] += band_charge[:, None]      # each step's A·v_{k-1} applied the bands' pair value
-        dev_rec[:, 1:ck + 1] += _application_rounding(W_np, C_np, ck)
+        with span("deflated.df64_evaluate"):
+            W_np = np.zeros(tuple(st.W.shape), np.float32)
+            W_np[:, :, :ck + 1] = host_read(st.W[:, :, :ck + 1]).numpy()
+            C_np = np.zeros(tuple(st.C.shape), np.float32)
+            C_np[:, :, :ck + 1] = host_read(st.C[:, :, :ck + 1]).numpy()
+            dg, od, btil, dev_rec = (_host(t) for t in (st.dg, st.od, st.btil, st.dev))
+            dev_rec[:, 1:] += band_charge[:, None]      # each step's A·v_{k-1} applied the bands' pair value
+            dev_rec[:, 1:ck + 1] += _application_rounding(W_np, C_np, ck)
 
-        def evaluate(gram_dev, frechet):
-            # the boundary coupling of checkpoint ck is β_ck, recorded in od
-            res = _evaluate_host_recorded(dg, od, btil, od[:, ck], ck, basis.lam, c_np, b_norm, lam_min, omega,
-                                          alpha, t_mask, W_np, C_np, dev_rec, b0_norms, dev0, eps_elem, lam_gersh_f,
-                                          gram_dev, frechet=frechet, e_u=e_u)
-            comp = res[-1]
-            comp["sup"] = sup_err
-            rest = comp["dev_term"] + comp["eta_term"] + comp["r2_term"]
-            # uncorrected y: the measured longdouble estimate (which holds the W, C defect) replaces sup + boundary
-            return res, (sup_err + comp["boundary"] if frechet else res[0]) + rest
+            def evaluate(gram_dev, frechet):
+                # the boundary coupling of checkpoint ck is β_ck, recorded in od
+                res = _evaluate_host_recorded(dg, od, btil, od[:, ck], ck, basis.lam, c_np, b_norm, lam_min, omega,
+                                              alpha, t_mask, W_np, C_np, dev_rec, b0_norms, dev0, eps_elem,
+                                              lam_gersh_f, gram_dev, frechet=frechet, e_u=e_u)
+                comp = res[-1]
+                comp["sup"] = sup_err
+                rest = comp["dev_term"] + comp["eta_term"] + comp["r2_term"]
+                # uncorrected y: the measured longdouble estimate (which holds the W, C defect) replaces
+                # sup + boundary
+                return res, (sup_err + comp["boundary"] if frechet else res[0]) + rest
 
-        # interim checkpoints: the cheap evaluation with the proxy slack max(sweep overlap, leak); where the
-        # bound nears tol or the checkpoint is the last, the Fréchet-corrected one with the measured Gram
-        out, bound = evaluate(max(float(st.sweep_overlap), float(st.leak)), False)
-        if bound < 100.0 * tol or ck == checkpoints[-1]:
-            out, bound = evaluate(_df64_gram_deviation_host(st.V, ck + 1, sop), True)
-            out[-1]["gram_source"] = "measured full Gram"
-        else:
-            out[-1]["gram_source"] = "proxy max(sweep_overlap, leak)"
-        cert = out[-1]
-        rel_hist.append(float(out[0]))
-        bound_hist.append(bound)
+            # interim checkpoints: the cheap evaluation with the proxy slack max(sweep overlap, leak); where the
+            # bound nears tol or the checkpoint is the last, the Fréchet-corrected one with the measured Gram
+            out, bound = evaluate(max(host_read(st.sweep_overlap, float), host_read(st.leak, float)), False)
+            if bound < 100.0 * tol or ck == checkpoints[-1]:
+                out, bound = evaluate(_df64_gram_deviation_host(st.V, ck + 1, sop), True)
+                out[-1]["gram_source"] = "measured full Gram"
+            else:
+                out[-1]["gram_source"] = "proxy max(sweep_overlap, leak)"
+            cert = out[-1]
+            rel_hist.append(float(out[0]))
+            bound_hist.append(bound)
         k_done = ck
         if verbose:
             print(f"  [solve_deflated] k={ck}: estimate {rel_hist[-1]:.3e}, certified bound {bound:.3e} "
@@ -633,49 +640,53 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
             status = int(Status.CONVERGED)
             break
 
-    common = dict(m=m, expsum_sup=sup_err, expsum_rank=int(coeffs.rank), lambda_min=lam_min, lambda_max=lam_max)
+    common = dict(m=m, expsum_sup=sup_err, expsum_rank=host_read(coeffs.rank, int), lambda_min=lam_min,
+                  lambda_max=lam_max)
     if budget_exhausted:
         # a bounded leg: the state is saved at k_prev - 1; no evaluation, no assembly
         return DeflatedResult(x=None, status=int(Status.RUNNING), niterations=k_prev - 1, relative_residual=[],
                               certified_bound=[], checkpoints=[], measured_cp_residual=None, **common)
 
-    # only the active exp-sum columns, and the basis columns 0..k_done-1, carry the solution
-    act = np.flatnonzero(t_mask > 0)
-    _, _, Yu, Yv, weights, _ = out
-    Yu, Yv, weights = Yu[:, :, act], Yv[:, :k_done, act], weights[act]
-    leak, overlap = float(st.leak), float(st.sweep_overlap)
-    measured = measured_floor = None
-    if final == "device":
-        w_dev = torch.from_numpy(weights).to(dev)
-        Yu_d, Yv_d = torch.from_numpy(Yu).to(dev), torch.from_numpy(Yv).to(dev)
-        xf = whole(sop, like(st.V, [_assemble(Ui, Vi, yu, yv, k_done) for Ui, Vi, yu, yv in
-                                    zip(pieces(Upair), pieces(st.V), scatter(sop, Yu_d), scatter(sop, Yv_d))]), axis=1)
-        del st, Upair          # release the basis before the cross-check's columns
-        if certify:
-            check = cp_residual_cross_check_device(op, w_dev, xf, b)
-            measured, measured_floor = check.value / b_norm, check.floor / b_norm
-        x = CPTensor(w_dev, xf)
-    else:
-        V_host = whole(sop, like(st.V, [Vi[:k_done] for Vi in pieces(st.V)]), axis=-1, factor_axis=1).cpu().numpy()
-        del st, Upair
-        U_host = np.asarray(basis.U, np.float64)
-        spec = "nm,dmt->dnt" if U_host.shape[0] == 1 else "dnm,dmt->dnt"
-        xf = np.einsum(spec, U_host[0] if U_host.shape[0] == 1 else U_host, Yu)
-        xf += np.einsum("kdn,dkt->dnt", V_host, Yv)
-        if certify:
-            check = cp_residual_cross_check_host(_host(op.bands), op.offsets, weights, xf, b_np)
-            measured, measured_floor = check.value / b_norm, check.floor / b_norm
-        x = CPTensor(torch.from_numpy(weights), torch.from_numpy(xf))
-    kk = np.arange(btil.shape[1])
-    live = (kk >= 1) & (kk <= k_done)
-    drift = float(np.max(np.abs(btil[:, live]) / (btil[:, :1] + 1e-300)))
-    return DeflatedResult(
-        x=x, status=status, niterations=k_done, relative_residual=rel_hist, certified_bound=bound_hist,
-        checkpoints=list(checkpoints[:len(rel_hist)]), measured_cp_residual=measured, orthogonality_drift=drift,
-        cp_residual_floor=measured_floor, projection_leak=leak, boundary_drift_max=overlap,
-        relation_dev_term=cert["dev_term"], relation_eta_term=cert["eta_term"], relation_r2_term=cert["r2_term"],
-        perturbation_rho=cert["rho"], gram_deviation=cert["gram_dev"], eft_eps_measured=cert["eps_elem"],
-        gram_source=cert["gram_source"], **common)
+    with span("deflated.finish"):
+        # only the active exp-sum columns, and the basis columns 0..k_done-1, carry the solution
+        act = np.flatnonzero(t_mask > 0)
+        _, _, Yu, Yv, weights, _ = out
+        Yu, Yv, weights = Yu[:, :, act], Yv[:, :k_done, act], weights[act]
+        leak, overlap = host_read(st.leak, float), host_read(st.sweep_overlap, float)
+        measured = measured_floor = None
+        if final == "device":
+            w_dev = torch.from_numpy(weights).to(dev)
+            Yu_d, Yv_d = torch.from_numpy(Yu).to(dev), torch.from_numpy(Yv).to(dev)
+            xf = whole(sop, like(st.V, [_assemble(Ui, Vi, yu, yv, k_done) for Ui, Vi, yu, yv in
+                                        zip(pieces(Upair), pieces(st.V), scatter(sop, Yu_d), scatter(sop, Yv_d))]),
+                       axis=1)
+            del st, Upair          # release the basis before the cross-check's columns
+            if certify:
+                check = cp_residual_cross_check_device(op, w_dev, xf, b)
+                measured, measured_floor = check.value / b_norm, check.floor / b_norm
+            x = CPTensor(w_dev, xf)
+        else:
+            V_host = host_read(whole(sop, like(st.V, [Vi[:k_done] for Vi in pieces(st.V)]), axis=-1,
+                                     factor_axis=1)).numpy()
+            del st, Upair
+            U_host = np.asarray(basis.U, np.float64)
+            spec = "nm,dmt->dnt" if U_host.shape[0] == 1 else "dnm,dmt->dnt"
+            xf = np.einsum(spec, U_host[0] if U_host.shape[0] == 1 else U_host, Yu)
+            xf += np.einsum("kdn,dkt->dnt", V_host, Yv)
+            if certify:
+                check = cp_residual_cross_check_host(_host(op.bands), op.offsets, weights, xf, b_np)
+                measured, measured_floor = check.value / b_norm, check.floor / b_norm
+            x = CPTensor(torch.from_numpy(weights), torch.from_numpy(xf))
+        kk = np.arange(btil.shape[1])
+        live = (kk >= 1) & (kk <= k_done)
+        drift = float(np.max(np.abs(btil[:, live]) / (btil[:, :1] + 1e-300)))
+        return DeflatedResult(
+            x=x, status=status, niterations=k_done, relative_residual=rel_hist, certified_bound=bound_hist,
+            checkpoints=list(checkpoints[:len(rel_hist)]), measured_cp_residual=measured, orthogonality_drift=drift,
+            cp_residual_floor=measured_floor, projection_leak=leak, boundary_drift_max=overlap,
+            relation_dev_term=cert["dev_term"], relation_eta_term=cert["eta_term"], relation_r2_term=cert["r2_term"],
+            perturbation_rho=cert["rho"], gram_deviation=cert["gram_dev"], eft_eps_measured=cert["eps_elem"],
+            gram_source=cert["gram_source"], **common)
 
 
 def _resolve_final(final: str, device) -> str:
@@ -772,8 +783,14 @@ def solve_deflated(
     the state), 'deflated.upload' (U to the device and b's split),
     'deflated.step' for each step of either pass, 'deflated.evaluate' for
     each checkpoint, 'deflated.finish' after the last (assembly or pass 2,
-    drift, the cross-check). Storages 'df64' and 'segmented' have no step
-    spans.
+    drift, the cross-check). storage='df64' opens, after the upload,
+    'deflated.df64_init' (U's pair value, b's split charge, the recurrence's
+    start, the bands' rounding and pair split, the measured EFT epsilon, the
+    deflated block's defect), 'deflated.df64_step' for each step,
+    'deflated.df64_evaluate' for each checkpoint evaluated (the host copies
+    of the record, both evaluations of the recorded relation and the
+    measured Gram) and 'deflated.finish' (the assembly and the cross-check,
+    on either final). Storage 'segmented' has no step spans.
     """
     config = config or SolverConfig()
     if isinstance(op, ShardedOperator):
@@ -895,17 +912,21 @@ def solve_deflated(
             c = deflation_coeffs(b_dev, U)
             b_perp = deflation_subtract(b_dev, U, c)
         if storage == "df64":
-            Upair = pair_value(U)       # U's f32-pair value, the recurrence's deflation basis
-            sop, b_cols = None, b_dev[:, :, None]
-            if mesh is not None:        # the gspmd route: U, its pair, b and b⊥ split per shard
-                sop = shard_operator(op.astype(torch.float64), mesh, "gspmd")
-                U, Upair, b_perp = shard_basis(U, mesh, d), shard_basis(Upair, mesh, d), shard_rhs(b_perp, mesh, d)
-                b_cols = [x[:, :, None] for x in shard_rhs(b_dev, mesh, d)]
-            split = _split_rounding(U, Upair, b_cols, c[:, :, None], sop, shared=basis.U.shape[0] == 1)[:, 0]
-            del U, b_dev, b_cols
-            return _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoints, config.tol,
-                               coeffs, sup_err, lam_min, lam_max, state_cache, save_state, problem_fp, save_every,
-                               advance_budget, project_every, sweep_every, final, certify, verbose, sop)
+            with contextlib.ExitStack() as init_span:      # closed by _solve_df64 before its first step
+                init_span.enter_context(span("deflated.df64_init"))
+                Upair = pair_value(U)       # U's f32-pair value, the recurrence's deflation basis
+                sop, b_cols = None, b_dev[:, :, None]
+                if mesh is not None:        # the gspmd route: U, its pair, b and b⊥ split per shard
+                    sop = shard_operator(op.astype(torch.float64), mesh, "gspmd")
+                    U, Upair = shard_basis(U, mesh, d), shard_basis(Upair, mesh, d)
+                    b_perp = shard_rhs(b_perp, mesh, d)
+                    b_cols = [x[:, :, None] for x in shard_rhs(b_dev, mesh, d)]
+                split = _split_rounding(U, Upair, b_cols, c[:, :, None], sop, shared=basis.U.shape[0] == 1)[:, 0]
+                del U, b_dev, b_cols
+                return _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoints, config.tol,
+                                   coeffs, sup_err, lam_min, lam_max, state_cache, save_state, problem_fp, save_every,
+                                   advance_budget, project_every, sweep_every, final, certify, verbose, sop,
+                                   init_span)
         with span("deflated.prepare"):
             del b_dev
             op_c = op.astype(pdt)

@@ -63,6 +63,7 @@ from .ops.orth import _TINY, _project_coeffs, _sqrt_rn, bdot, deflation_coeffs
 from .parallel.halo import halo_slabs, triple_spmv_pairs_sharded
 from .parallel.krylov import like, norms, pieces, psum, scatter
 from .parallel.sharding import shard_rhs
+from .utils.profiling import host_read, span
 
 RECORD_COLS = 16
 
@@ -231,7 +232,7 @@ def _split_rounding(U, Upair, b, c: torch.Tensor, op=None, shared=None) -> np.nd
     absUc = [torch.matmul(u.abs(), ci.abs()) for u, ci in zip(Us, scatter(op, c))]
     nb, nUc = norms(op, bs, dim=1), norms(op, absUc, dim=1)
     nc = torch.linalg.vector_norm(c, dim=1)
-    return (gap * nc + _gamma(Us[0].shape[2] + 1) * (nb + nUc)).cpu().numpy() * (1.0 + 2.0 ** -20)
+    return host_read(gap * nc + _gamma(Us[0].shape[2] + 1) * (nb + nUc)).numpy() * (1.0 + 2.0 ** -20)
 
 
 def _deflation_residual(bands, offsets, U, lam: np.ndarray, eps_elem: float, lam_gersh_f: np.ndarray,
@@ -263,13 +264,13 @@ def _deflation_residual(bands, offsets, U, lam: np.ndarray, eps_elem: float, lam
         bh, bl = ex.pair_from_f64(B)
         rest = B - bh.to(torch.float64) - bl.to(torch.float64)        # exact
         br = rest.to(torch.float32)
-        rests.append((rest - br.to(torch.float64)).abs().cpu().numpy())
+        rests.append(host_read((rest - br.to(torch.float64)).abs()).numpy())
         nl = B.shape[2] - 2 * H
         sq = torch.zeros((s1 - s0, m), dtype=torch.float64, device=B.device)
         for sl in range(s1 - s0):
             s = s0 + sl
             su = 0 if slab.shape[0] == 1 else sl
-            if sl > 0 and su == 0 and torch.equal(B[sl], B[0]) and np.array_equal(lam[s], lam[s0]):
+            if sl > 0 and su == 0 and host_read(B[sl], B[0].equal) and np.array_equal(lam[s], lam[s0]):
                 sq[sl] = sq[0]
                 continue
             for j0 in range(0, m, _RESIDUAL_COLS):
@@ -281,7 +282,7 @@ def _deflation_residual(bands, offsets, U, lam: np.ndarray, eps_elem: float, lam
                 zf = ex.triple_to_f64(ex.triple_sub(z, ex.pair_scale_f64(uh, ul, lj[:, None])))[:, H:H + nl]
                 sq[sl, j0:j0 + uh.shape[0]] = bdot(zf, zf)
         partial.append(sq)
-    out = torch.sqrt(psum(sop, partial)).cpu().numpy()
+    out = host_read(torch.sqrt(psum(sop, partial))).numpy()
     left = _band_norm(rests if sop is not None else rests[0], offsets, sop)
     rounding = 8.0 * eps_elem * (lam_gersh_f[:, None] + np.abs(lam)) + left[:, None]
     return out * (1.0 + 1e-9) + rounding * BAND_CHARGE_SCALE
@@ -423,7 +424,9 @@ def _df64_advance(bands_h, bands_l, offsets, st: _Df64State, b_perp, U, k0: int,
     """Steps k0..k0+S-1; the projection runs on the steps k % project_every
     == 0 and the sweep on k % sweep_every == 0 (a skipped one records zeros)."""
     for k in range(k0, k0 + S):
-        _df64_step(bands_h, bands_l, offsets, st, b_perp, U, k, k % project_every == 0, k % sweep_every == 0, sop)
+        with span("deflated.df64_step"):
+            _df64_step(bands_h, bands_l, offsets, st, b_perp, U, k, k % project_every == 0, k % sweep_every == 0,
+                       sop)
 
 
 def _df64_gram_deviation_host(V, k: int, op=None) -> float:
@@ -432,7 +435,7 @@ def _df64_gram_deviation_host(V, k: int, op=None) -> float:
     Grams)."""
     G = psum(op, [torch.bmm(Vi[:k].transpose(0, 1), Vi[:k].permute(1, 2, 0)) for Vi in pieces(V)])
     G.diagonal(dim1=1, dim2=2).sub_(1.0)
-    return float(G.abs().max())
+    return host_read(G.abs().max(), float)
 
 
 def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
