@@ -54,9 +54,9 @@ import torch
 from .coeffs.tables import BHTables, load_tables, select_bh
 from .deflate_light import (_advance, _advance_store, _boundary_reorth, _DeflState, _init_state,
                             _pass2_accumulate, _pass2_host)
-from .df64_core import (BAND_CHARGE_SCALE, _application_rounding, _band_rounding, _deflation_residual, _df64_advance,
-                        _df64_gram_deviation_host, _df64_init, _Df64State, _eft_eps, _evaluate_host_recorded,
-                        _split_rounding, pair_value)
+from .df64_core import (BAND_CHARGE_SCALE, _application_charge, _application_rounding, _band_rounding, _card_factors,
+                        _deflation_residual, _df64_advance, _df64_gram_deviation_host, _df64_init, _Df64State, _eft_eps,
+                        _evaluate_card_recorded, _evaluate_host_recorded, _split_rounding, pair_value)
 from .models.gallery import bands_to_dense
 from .ops.eigen import masked_eigh, masked_eigh_tridiag_mixed
 from .ops import expansion as ex
@@ -600,19 +600,35 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
             if budget_exhausted:
                 break
         with span("deflated.df64_evaluate"):
-            W_np = np.zeros(tuple(st.W.shape), np.float32)
-            W_np[:, :, :ck + 1] = host_read(st.W[:, :, :ck + 1]).numpy()
-            C_np = np.zeros(tuple(st.C.shape), np.float32)
-            C_np[:, :, :ck + 1] = host_read(st.C[:, :, :ck + 1]).numpy()
-            dg, od, btil, dev_rec = (_host(t) for t in (st.dg, st.od, st.btil, st.dev))
+            if _evaluates_on_card(st):
+                # the per-factor algebra where the record is: W and C stay there, the shared pieces once
+                card = _card_factors(st.W, st.C, st.dg, st.od, st.btil, st.dev, ck, basis.lam, c_np, b0_norms,
+                                     lam_min, omega, alpha, t_mask)
+                dg, od, btil, dev_rec = card.dg, card.od, card.btil, card.dev
+                gemm = _application_charge(card.absW, card.absC, m)
+
+                def relation(gram_dev, frechet):
+                    return _evaluate_card_recorded(card, od[:, ck], b_norm, dev_rec, b0_norms, dev0, eps_elem,
+                                                   lam_gersh_f, gram_dev, frechet=frechet, e_u=e_u)
+            else:
+                W_np = np.zeros(tuple(st.W.shape), np.float32)
+                W_np[:, :, :ck + 1] = host_read(st.W[:, :, :ck + 1]).numpy()
+                C_np = np.zeros(tuple(st.C.shape), np.float32)
+                C_np[:, :, :ck + 1] = host_read(st.C[:, :, :ck + 1]).numpy()
+                dg, od, btil = (_host(t) for t in (st.dg, st.od, st.btil))
+                dev_rec = _host(st.dev).copy()      # charged below; of a CPU record _host is a view of st.dev
+                gemm = _application_rounding(W_np, C_np, ck)
+
+                def relation(gram_dev, frechet):
+                    return _evaluate_host_recorded(dg, od, btil, od[:, ck], ck, basis.lam, c_np, b_norm, lam_min,
+                                                   omega, alpha, t_mask, W_np, C_np, dev_rec, b0_norms, dev0,
+                                                   eps_elem, lam_gersh_f, gram_dev, frechet=frechet, e_u=e_u)
             dev_rec[:, 1:] += band_charge[:, None]      # each step's A·v_{k-1} applied the bands' pair value
-            dev_rec[:, 1:ck + 1] += _application_rounding(W_np, C_np, ck)
+            dev_rec[:, 1:ck + 1] += gemm
 
             def evaluate(gram_dev, frechet):
                 # the boundary coupling of checkpoint ck is β_ck, recorded in od
-                res = _evaluate_host_recorded(dg, od, btil, od[:, ck], ck, basis.lam, c_np, b_norm, lam_min, omega,
-                                              alpha, t_mask, W_np, C_np, dev_rec, b0_norms, dev0, eps_elem,
-                                              lam_gersh_f, gram_dev, frechet=frechet, e_u=e_u)
+                res = relation(gram_dev, frechet)
                 comp = res[-1]
                 comp["sup"] = sup_err
                 rest = comp["dev_term"] + comp["eta_term"] + comp["r2_term"]
@@ -631,6 +647,7 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
             cert = out[-1]
             rel_hist.append(float(out[0]))
             bound_hist.append(bound)
+            card = relation = None          # the card route's pieces are not kept past their checkpoint
         k_done = ck
         if verbose:
             print(f"  [solve_deflated] k={ck}: estimate {rel_hist[-1]:.3e}, certified bound {bound:.3e} "
@@ -651,12 +668,14 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
         # only the active exp-sum columns, and the basis columns 0..k_done-1, carry the solution
         act = np.flatnonzero(t_mask > 0)
         _, _, Yu, Yv, weights, _ = out
-        Yu, Yv, weights = Yu[:, :, act], Yv[:, :k_done, act], weights[act]
+        weights = weights[act]
+        if not torch.is_tensor(Yu):     # the host route's arrays span every exp-sum term and basis column
+            Yu, Yv = torch.from_numpy(Yu[:, :, act]), torch.from_numpy(Yv[:, :k_done, act])
         leak, overlap = host_read(st.leak, float), host_read(st.sweep_overlap, float)
         measured = measured_floor = None
         if final == "device":
             w_dev = torch.from_numpy(weights).to(dev)
-            Yu_d, Yv_d = torch.from_numpy(Yu).to(dev), torch.from_numpy(Yv).to(dev)
+            Yu_d, Yv_d = Yu.to(dev), Yv.to(dev)      # the card route's are there already
             xf = whole(sop, like(st.V, [_assemble(Ui, Vi, yu, yv, k_done) for Ui, Vi, yu, yv in
                                         zip(pieces(Upair), pieces(st.V), scatter(sop, Yu_d), scatter(sop, Yv_d))]),
                        axis=1)
@@ -669,6 +688,7 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
             V_host = host_read(whole(sop, like(st.V, [Vi[:k_done] for Vi in pieces(st.V)]), axis=-1,
                                      factor_axis=1)).numpy()
             del st, Upair
+            Yu, Yv = (y.numpy() if y.device.type == "cpu" else host_read(y).numpy() for y in (Yu, Yv))
             U_host = np.asarray(basis.U, np.float64)
             spec = "nm,dmt->dnt" if U_host.shape[0] == 1 else "dnm,dmt->dnt"
             xf = np.einsum(spec, U_host[0] if U_host.shape[0] == 1 else U_host, Yu)
@@ -687,6 +707,14 @@ def _solve_df64(op, b, b_np, b_norm, basis, Upair, c, b_perp, split, K, checkpoi
             relation_dev_term=cert["dev_term"], relation_eta_term=cert["eta_term"], relation_r2_term=cert["r2_term"],
             perturbation_rho=cert["rho"], gram_deviation=cert["gram_dev"], eft_eps_measured=cert["eps_elem"],
             gram_source=cert["gram_source"], **common)
+
+
+def _evaluates_on_card(st) -> bool:
+    """Where the recorded relation is evaluated: on the record's device when
+    it is a CUDA device (df64_core._card_factors, _evaluate_card_recorded:
+    W and C stay there), else in the host's numpy
+    (df64_core._evaluate_host_recorded, the JAX package's function)."""
+    return st.W.device.type == "cuda"
 
 
 def _resolve_final(final: str, device) -> str:
@@ -787,10 +815,13 @@ def solve_deflated(
     'deflated.df64_init' (U's pair value, b's split charge, the recurrence's
     start, the bands' rounding and pair split, the measured EFT epsilon, the
     deflated block's defect), 'deflated.df64_step' for each step,
-    'deflated.df64_evaluate' for each checkpoint evaluated (the host copies
-    of the record, both evaluations of the recorded relation and the
-    measured Gram) and 'deflated.finish' (the assembly and the cross-check,
-    on either final). Storage 'segmented' has no step spans.
+    'deflated.df64_evaluate' for each checkpoint evaluated (the record's
+    host copies, both evaluations of the recorded relation and the measured
+    Gram; with the record on a CUDA device, its child
+    'deflated.df64_evaluate.card' over the checkpoint's shared per-factor
+    work and over each evaluation's device work and read) and
+    'deflated.finish' (the assembly and the cross-check, on either final).
+    Storage 'segmented' has no step spans.
     """
     config = config or SolverConfig()
     if isinstance(op, ShardedOperator):

@@ -1,8 +1,13 @@
 """storage='df64': the noise-recording expansion Lanczos, counterpart of
 ``tensorkrylov_tpu/df64_core.py``.
 
-The recurrence, its start, the full-Gram evidence and the host evaluation of
-the recorded relation live here; ``deflate.solve_deflated`` drives them.
+The recurrence, its start, the full-Gram evidence and the two evaluations of
+the recorded relation live here: in the host's numpy
+(``_evaluate_host_recorded``, the JAX package's function) and, for a record
+on a CUDA device, the per-factor f64 algebra on that device with only the
+longdouble products on the host (``_card_factors``,
+``_evaluate_card_recorded``, sharing ``_recorded_tail``); ``deflate.solve_deflated``
+drives them.
 
 The recurrence runs in f32 expansion arithmetic (``ops/expansion.py``: a
 Triple inside the step) and carries v_{k-1}, v_{k-2} and the bands as f32
@@ -208,7 +213,13 @@ def _application_rounding(W: np.ndarray, C: np.ndarray, k: int) -> np.ndarray:
     within 2^-23 of the applied value: the factor 1 + 2^-20). (d, k)."""
     absW = np.abs(np.asarray(W[:, :, :k], np.float64)).sum(axis=1)
     absC = np.abs(np.asarray(C[:, :, :k], np.float64)).sum(axis=1)
-    return (_gamma(np.arange(1, k + 1)) * absW + _gamma(C.shape[1]) * absC) * (1.0 + 2.0 ** -20)
+    return _application_charge(absW, absC, C.shape[1])
+
+
+def _application_charge(absW: np.ndarray, absC: np.ndarray, m: int) -> np.ndarray:
+    """_application_rounding from the (d, k) column sums ‖w_j‖₁ of |W| and
+    ‖c_j‖₁ of |C| (m rows)."""
+    return (_gamma(np.arange(1, absW.shape[1] + 1)) * absW + _gamma(m) * absC) * (1.0 + 2.0 ** -20)
 
 
 def _split_rounding(U, Upair, b, c: torch.Tensor, op=None, shared=None) -> np.ndarray:
@@ -469,7 +480,6 @@ def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
     All Gram contractions run in longdouble."""
     from scipy.linalg import eigh_tridiagonal
 
-    ld = np.longdouble
     d, K = dg.shape
     m = lam.shape[1]
     tmax = omega.shape[0]
@@ -537,19 +547,76 @@ def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
         Zv_k[s] = (Tf + Ws) @ Yv_k[s]
         Zu_k[s] = lam[s][:, None] * Yu_k[s] + Cs @ Yv_k[s]
 
-    # ---- longdouble Gram algebra over the joint factors ----
+    # ---- the Gram algebra over the joint factors (longdouble on the host) ----
     Y = np.concatenate([Yu_k, Yv_k], axis=1)                    # (d, m+k, t)
     Z = np.concatenate([Zu_k, Zv_k], axis=1)
+    bt = _joint_rhs(c, b0_norms, k)
+    Gy = np.einsum("dpi,dpj->dij", Y, Y)
+    Gz = np.einsum("dpi,dpj->dij", Z, Z)
+    Xg = np.einsum("dpi,dpj->dij", Y, Z)
+    yb = np.einsum("dpi,dp->di", Y, bt)
+    zb = np.einsum("dpi,dp->di", Z, bt)
+
+    # the triangle bounds' contractions |Y_s|ᵀ b_s of each per-step (or per-column) bound b
+    absW1 = np.abs(np.asarray(W[:, :, :k], np.float64)).sum(axis=1)  # (d, k)
+    absC1 = np.abs(np.asarray(Cm[:, :, :k], np.float64)).sum(axis=1)
+    eta_hat = _eta_hat(eps_elem, lam_gersh_f, dg, od, k, absW1, absC1)
+    dev_b = dev[:, 1 : k + 1]                                   # (d, k)
+
+    def tri(bmat, Yf=Yv_k):
+        return np.stack([np.abs(Yf[s]).T @ bmat[s] for s in range(d)])
+
+    rel, brs, components = _recorded_tail(
+        Gy, Gz, Xg, yb, zb, bt, Yv_k[:, k - 1, :], beta, w_t, gam, tri(dev_b), tri(eta_hat),
+        None if e_u is None else tri(e_u, Yu_k), rho, k, b_norm, b0_norms, dev0, gram_dev, eps_elem, lam_gersh_f)
+
+    Yv = np.zeros((d, K, tmax))
+    Yu = np.zeros((d, m, tmax))
+    Yv[:, :k, act] = Yv_k
+    Yu[:, :, act] = Yu_k
+    weights = np.zeros((tmax,))
+    weights[act] = w_t
+    return rel, brs, Yu, Yv, weights, components
+
+
+def _joint_rhs(c: np.ndarray, b0_norms: np.ndarray, k: int) -> np.ndarray:
+    """The projected right-hand side over the joint factor [U_s | V_s]: c_s
+    and β₀e₀ (d, m + k)."""
+    d, m = c.shape
     bt = np.zeros((d, m + k))
     bt[:, :m] = c
     bt[:, m] = b0_norms                                         # β₀ e₀
-    Gy = np.einsum("dpi,dpj->dij", Y, Y).astype(ld)
-    Gz = np.einsum("dpi,dpj->dij", Z, Z).astype(ld)
-    Xg = np.einsum("dpi,dpj->dij", Y, Z).astype(ld)
-    yb = np.einsum("dpi,dp->di", Y, bt).astype(ld)
-    zb = np.einsum("dpi,dp->di", Z, bt).astype(ld)
+    return bt
+
+
+def _eta_hat(eps_elem, lam_gersh_f, dg, od, k, absW1, absC1) -> np.ndarray:
+    """The η model: per factor and step 1..k, a bound on the expansion
+    arithmetic's elementwise rounding, 8·eps_elem·(λ_g + |α| + β_{k-1} + β_k),
+    plus 2^-24(‖w‖₁ + ‖c‖₁), the f32 rounding of the recorded W and C, from
+    their (d, k) column sums. (d, k)."""
+    kk = np.arange(1, k + 1)
+    return (8.0 * eps_elem
+            * (lam_gersh_f[:, None] + np.abs(dg[:, :k]) + od[:, kk - 1]
+               + od[:, kk])
+            + 2.0 ** -24 * (absW1 + absC1))
+
+
+def _recorded_tail(Gy, Gz, Xg, yb, zb, bt, yr, beta, w_t, gam, D_dev, D_eta, D_eu, rho, k, b_norm, b0_norms, dev0,
+                   gram_dev, eps_elem, lam_gersh_f):
+    """The host tail of either evaluation of the recorded relation, in
+    longdouble and f64: from the joint factors' f64 Grams Gy = YᵀY, Gz = ZᵀZ,
+    Xg = YᵀZ (d, t, t), yb = Yᵀb̃ and zb = Zᵀb̃ (d, t), the joint RHS bt
+    (_joint_rhs), the last basis row yr = Yv[:, k-1] (d, t) and the triangle
+    contractions D = |Y_s|ᵀb_s (d, t) of the commit deviations, the η model
+    and (or None) the deflated block's defect, the d³ product loop, the
+    boundary, the compressed residual and the relation terms. Returns (rel,
+    boundary_rel_sq, components)."""
+    ld = np.longdouble
+    d = Gy.shape[0]
+    Gy, Gz, Xg, yb, zb = (np.asarray(x).astype(ld) for x in (Gy, Gz, Xg, yb, zb))
     b2 = np.prod(np.einsum("dp,dp->d", bt, bt).astype(ld))
     wl = np.asarray(w_t, ld)
+    t = wl.size
 
     hy2 = ld(0.0)
     for s in range(d):
@@ -573,7 +640,7 @@ def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
         ip += wl @ P
     r_comp_sq = hy2 - 2.0 * ip + b2
 
-    yr = Yv_k[:, k - 1, :].astype(ld)
+    yr = np.asarray(yr).astype(ld)
     boundary = ld(0.0)
     for s in range(d):
         E = np.ones((t, t), ld)
@@ -589,14 +656,6 @@ def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
     #   dev[s, k]                     measured commit deviation (exact)
     #   8*eps_elem*(lam_g + |a| + b)  expansion elementwise rounding
     #   2^-24*(||w||_1 + ||c||_1)     f32 rounding of the RECORDED W, C
-    kk = np.arange(1, k + 1)
-    absW1 = np.abs(np.asarray(W[:, :, :k], np.float64)).sum(axis=1)  # (d, k)
-    absC1 = np.abs(np.asarray(Cm[:, :, :k], np.float64)).sum(axis=1)
-    eta_hat = (8.0 * eps_elem
-               * (lam_gersh_f[:, None] + np.abs(dg[:, :k]) + od[:, kk - 1]
-                  + od[:, kk])
-               + 2.0 ** -24 * (absW1 + absC1))                  # (d, k)
-    dev_b = dev[:, 1 : k + 1]                                   # (d, k)
     # RHS-side representation term: b⊥_s = β₀ v₀ + dev0_s (host split,
     # eps64-grade) — charged relative to each factor's own b⊥ norm
     b0_term = float(np.sum(dev0 / np.maximum(b0_norms, 1e-300)))
@@ -611,17 +670,16 @@ def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
             if r != s:
                 off_prod[s] *= ynorm[r] * slack
 
-    def tri_term(bmat, Yf=Yv_k):
+    def tri_term(D):
         tot = 0.0
         for s in range(d):
-            Dsi = np.abs(Yf[s]).T @ bmat[s]                     # (t,) via (k,t)ᵀ(k,)
-            tot += float(np.sum(np.abs(w_t) * Dsi * off_prod[s]))
+            tot += float(np.sum(np.abs(w_t) * D[s] * off_prod[s]))
         return tot
 
-    dev_term = tri_term(dev_b) * slack / b_norm + b0_term
-    if e_u is not None:
-        dev_term += tri_term(e_u, Yu_k) * slack / b_norm
-    eta_term = tri_term(eta_hat) * slack / b_norm
+    dev_term = tri_term(D_dev) * slack / b_norm + b0_term
+    if D_eu is not None:
+        dev_term += tri_term(D_eu) * slack / b_norm
+    eta_term = tri_term(D_eta) * slack / b_norm
     # Second-order Frechet remainder: per factor s the multiplier is
     # lam_max_s + sum_{s''!=s}(1/(e*gam_t) + smoothing slack), with the
     # heat-kernel smoothing bound ||A_s R_s^t|| <=
@@ -646,13 +704,6 @@ def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
 
     rel = float(np.sqrt(boundary + max(float(r_comp_sq), 0.0))) / b_norm
     brs = boundary / (b_norm * b_norm)
-
-    Yv = np.zeros((d, K, tmax))
-    Yu = np.zeros((d, m, tmax))
-    Yv[:, :k, act] = Yv_k
-    Yu[:, :, act] = Yu_k
-    weights = np.zeros((tmax,))
-    weights[act] = w_t
     components = {
         "boundary": float(np.sqrt(max(boundary, 0.0))) / b_norm,
         "dev_term": dev_term,
@@ -662,4 +713,299 @@ def _evaluate_host_recorded(dg, od, btil, beta, k, lam, c, b_norm, lam_min,
         "gram_dev": float(gram_dev),
         "eps_elem": float(eps_elem),
     }
-    return rel, brs, Yu, Yv, weights, components
+    return rel, brs, components
+
+
+# ---- the card route: the per-factor f64 algebra on the record's device ----
+
+# the eigensolver's assumed backward error for ρ's λ_max, in units of k·u·‖Ĝ‖₂ (_rho_from_gram)
+RHO_EIG_ERR = 16.0
+
+
+def _rho_from_gram(lam_hat: np.ndarray, fro2: np.ndarray, m: int, k: int) -> float:
+    """An upper bound on ρ = max_s ‖[C_s; W_s]‖₂ from each factor's f64 Gram
+    Ĝ_s = fl(C_sᵀC_s + W_sᵀW_s): its eigensolver's largest eigenvalue λ̂_s
+    and its trace F̂_s² (d,), in place of the (m + k, k) SVD.
+
+    With A = [C_s; W_s] and G = AᵀA, each entry of Ĝ is an f64 sum of m + k
+    products, so |Ĝ − G| ≤ γ_{m+k}|A|ᵀ|A| in any order of summation (Higham,
+    Lemma 3.5) and ‖Ĝ − G‖₂ ≤ γ_{m+k}‖A‖_F² =: e; the eigensolver reads one
+    triangle, whose every entry obeys this. By Weyl's inequality σ_max² =
+    λ_max(G) ≤ λ_max(Ĝ) + e. The eigensolver is taken to be backward stable,
+    |λ̂ − λ_max(Ĝ)| ≤ p·u·‖Ĝ‖₂ with p = RHO_EIG_ERR·k, and ‖Ĝ‖₂ ≤ σ_max² + e, so
+
+        σ_max² ≤ (λ̂ + e(1 + pu)) / (1 − pu).
+
+    ‖A‖_F² ≤ F̂²(1 + 2^-30) (F̂² sums nonnegative terms, within γ_{m+2k} <
+    2^-31 below widths of 2^21), and ρ takes the factor 1 + 2^-50 for the few
+    roundings of this arithmetic. The margin over the SVD's σ_max is about
+    (e/σ² + pu)/2 relative, at most γ_{m+k}·k/2 + 8ku (‖A‖_F² ≤ k·σ²): about
+    5e-11 at m = 2048, k = 384, and near u·(m + k)/2 for a perturbation of
+    rank one."""
+    u = 2.0 ** -53
+    p = RHO_EIG_ERR * k * u
+    e = _gamma(m + k) * np.maximum(fro2, 0.0) * (1.0 + 2.0 ** -30)
+    sq = (np.maximum(lam_hat, 0.0) + e * (1.0 + p)) / (1.0 - p)
+    return float(np.sqrt(sq).max()) * (1.0 + 2.0 ** -50)
+
+
+# slices of each joint factor in _gram_slices
+GRAM_SLICES = 3
+
+
+def _gram_slices(J: torch.Tensor):
+    """J (d, n, P) f64 split by columns into GRAM_SLICES slices (Ozaki's
+    error-free splitting), for Grams that an f64 GEMM forms exactly. Slice a
+    is (r + σ) − σ of the rest r, σ = 1.5·2^(e_a + s), s = ⌈(52 + ⌈log2 n⌉)/2⌉,
+    e_1 the exponent with the column's largest entry below c = 2^(e_1) and
+    e_{a+1} = e_a + s − 53; with δ = 2^(s − 53), slice a's entries are
+    multiples of 2c·δ^a and below c·δ^(a−1)(1 + δ), so a product of two
+    slices sums n ≤ 2^(2s − 52) products that are all multiples of one unit
+    and fit 53 bits together: exact, in any order (in f64's normal range).
+    The slices leave a rest below c·δ³ an entry."""
+    n = J.shape[1]
+    s = (52 + (n - 1).bit_length() + 1) // 2
+    e = torch.frexp(J.abs().amax(dim=1, keepdim=True)).exponent.to(torch.int64)   # column max < 2^e
+    out, rest = [], J
+    for _ in range(GRAM_SLICES):
+        sigma = 1.5 * ((e + s + 1023) << 52).view(torch.float64)                   # 1.5·2^(e + s), exactly
+        part = (rest + sigma) - sigma
+        out.append(part)
+        rest = rest - part
+        e = e + s - 53
+    return out
+
+
+def _exact_gram_parts(J: torch.Tensor) -> torch.Tensor:
+    """The four exact f64 products J₁ᵀJ₁, J₁ᵀJ₂, J₂ᵀJ₂, J₁ᵀJ₃ of J's slices
+    (_gram_slices), (d, 4, P, P). JᵀJ = J₁ᵀJ₁ + (J₁ᵀJ₂ + J₂ᵀJ₁) + J₂ᵀJ₂ +
+    (J₁ᵀJ₃ + J₃ᵀJ₁) + E, the terms left out and the rest's, |E_ij| ≤
+    5·n·δ³·c_i·c_j (_gram_slices' δ and column bounds c): 2^-49 of c_i·c_j
+    at n = 2432, where one f64 GEMM is within n·u·Σ_p|J_pi||J_pj|, up to
+    2^-30 of it. Summed on the host in longdouble (_gram_sum)."""
+    J1, J2, J3 = _gram_slices(J)
+    J1t = J1.transpose(1, 2)
+    return torch.stack([torch.bmm(J1t, J1), torch.bmm(J1t, J2), torch.bmm(J2.transpose(1, 2), J2),
+                        torch.bmm(J1t, J3)], dim=1)
+
+
+def _gram_sum(parts: np.ndarray) -> np.ndarray:
+    """_exact_gram_parts' (d, 4, P, P) summed in longdouble, the small terms
+    first."""
+    ld = np.longdouble
+    g11, g12, g22, g13 = (parts[:, i].astype(ld) for i in range(4))
+    sw = lambda x: np.swapaxes(x, 1, 2)
+    return ((g13 + sw(g13)) + g22) + (g12 + sw(g12)) + g11
+
+
+def _pairs_by_row(mask: np.ndarray):
+    """The True entries of a 2-D mask by row: (rows (R,), cols (R, L), valid
+    (R, L)), each row's columns ascending and padded with its last one (valid
+    0.0); None for no entry."""
+    rows, cols = np.nonzero(mask)
+    if rows.size == 0:
+        return None
+    first, start, count = np.unique(rows, return_index=True, return_counts=True)
+    j = np.arange(count.max())
+    take = start[:, None] + np.minimum(j, count[:, None] - 1)
+    return first, cols[take], (j < count[:, None]).astype(np.float64)
+
+
+def _upload(device, *arrays):
+    """The host arrays on device as views of one f64 buffer, moved in one copy
+    (integer arrays come back as int64)."""
+    arrays = [np.asarray(a) for a in arrays]
+    buf = torch.from_numpy(np.concatenate([a.astype(np.float64).ravel() for a in arrays])).to(device)
+    out, o = [], 0
+    for a in arrays:
+        v = buf[o:o + a.size].view(a.shape)
+        out.append(v.long() if np.issubdtype(a.dtype, np.integer) else v)
+        o += a.size
+    return out
+
+
+def _sinhc_patch(dY, G, x_row, x_col, e_row, e_col, gam, rows, cols, valid) -> None:
+    """dY[i] += Σ_l G[i, l]·(−γ√(e_i e_l)(1 + h²/6)), h = γ(x_i − x_l)/2, over
+    the degenerate pairs (i, l) of the divided differences: the sinhc limit
+    of (e_i − e_l)/(x_i − x_l) that the host route adds pair by pair, here in
+    one masked pass (_pairs_by_row's rows, cols and valid; rows distinct)."""
+    h = 0.5 * gam * (x_row[rows][:, None, None] - x_col[cols][:, :, None])           # (R, L, t)
+    f = -gam * torch.sqrt(e_row[rows][:, None, :] * e_col[cols]) * (1.0 + h * h / 6.0)
+    dY[rows] += ((G[rows[:, None], cols] * valid)[:, :, None] * f).sum(dim=1)
+
+
+@dataclasses.dataclass
+class _CardFactors:
+    """The card route's pieces of one checkpoint k (_card_factors), shared by
+    its cheap and Fréchet evaluations. On the host: the record's dg, od, btil
+    and dev (d, K), the column sums absW, absC of |W| and |C| over steps 1..k
+    (d, k), ρ, T_s's eigenvalues T (d, k), λ (d, m), the joint RHS bt (d,
+    m + k), the exp-sum's weights (tmax,) and its active terms' γ and
+    weights w_t (t,). On the record's device: the record W, C, dg_t and od_t, and (as
+    _evaluate_host_recorded names them) Q (d, k, k), T_t, lam_t, g, gam_t,
+    ex (d, k, t), exu (d, m, t), Yv0 (d, k, t), Yu0 (d, m, t) and bt_t."""
+
+    k: int
+    dg: np.ndarray
+    od: np.ndarray
+    btil: np.ndarray
+    dev: np.ndarray
+    absW: np.ndarray
+    absC: np.ndarray
+    rho: float
+    T: np.ndarray
+    lam: np.ndarray
+    bt: np.ndarray
+    weights: np.ndarray
+    gam: np.ndarray
+    w_t: np.ndarray
+    W: torch.Tensor
+    C: torch.Tensor
+    dg_t: torch.Tensor
+    od_t: torch.Tensor
+    Q: torch.Tensor
+    T_t: torch.Tensor
+    lam_t: torch.Tensor
+    g: torch.Tensor
+    gam_t: torch.Tensor
+    ex: torch.Tensor
+    exu: torch.Tensor
+    Yv0: torch.Tensor
+    Yu0: torch.Tensor
+    bt_t: torch.Tensor
+
+
+def _card_factors(W, C, dg, od, btil, dev, k, lam, c, b0_norms, lam_min, omega, alpha, t_mask) -> _CardFactors:
+    """The card route's work at checkpoint k that both evaluations share, on
+    the device of the record (W (d, Kp, Kp) and C (d, m, Kp) f32; dg, od,
+    btil and dev (d, K) f64), which never leaves it: ρ from each factor's k×k
+    Gram (_rho_from_gram; one wait, for the eigensolver), the column sums of
+    |W| and |C|, and one read of those with the record's scalars; T_s's
+    eigendecomposition on the host, scipy's eigh_tridiagonal as in the host
+    route; one upload of Q and the small host arrays; then g, the
+    exponentials and the uncorrected Yv0 and Yu0. The (m, k) products run a
+    factor at a time. Opens 'deflated.df64_evaluate.card'."""
+    from scipy.linalg import eigh_tridiagonal
+
+    f64 = torch.float64
+    d, m = lam.shape
+    K = dg.shape[1]
+    act = np.flatnonzero(t_mask > 0)
+    gam = alpha[act] / lam_min                                  # (t,)
+    w_t = omega[act] / lam_min
+    weights = np.zeros((omega.shape[0],))
+    weights[act] = w_t
+    with span("deflated.df64_evaluate.card"):
+        grams, absC = [], []
+        for s in range(d):
+            Ws, Cs = W[s, :k, :k].to(f64), C[s, :, :k].to(f64)
+            grams.append(Cs.T @ Cs + Ws.T @ Ws)
+            absC.append(Cs.abs().sum(dim=0))
+        G = torch.stack(grams)
+        lam_hat = host_read(G, torch.linalg.eigvalsh)[:, -1]
+        parts = (dg, od, btil, dev, W[:, :, :k].to(f64).abs().sum(dim=1), torch.stack(absC), lam_hat[:, None],
+                 G.diagonal(dim1=1, dim2=2).sum(dim=1)[:, None])
+        del grams, G
+        rec = host_read(torch.cat(parts, dim=1)).numpy()
+        dg_h, od_h, btil_h, dev_h = (rec[:, i * K:(i + 1) * K].copy() for i in range(4))
+        absW_h, absC_h = rec[:, 4 * K:4 * K + k].copy(), rec[:, 4 * K + k:4 * K + 2 * k].copy()
+        rho = _rho_from_gram(rec[:, -2], rec[:, -1], m, k)
+
+        eig = [eigh_tridiagonal(dg_h[s, :k], od_h[s, 1:k]) for s in range(d)]
+        T = np.stack([w for w, _ in eig])
+        bt = _joint_rhs(c, b0_norms, k)
+        Q, T_t, lam_t, gam_t, b0_t, c_t, bt_t = _upload(W.device, np.stack([v for _, v in eig]), T, lam, gam,
+                                                         b0_norms, c, bt)
+        g = Q[:, 0, :] * b0_t[:, None]                          # Qᵀ(β₀e₀)
+        ex = torch.exp(-torch.clamp(T_t[:, :, None] * gam_t, -700.0, 700.0))
+        Yv0 = torch.bmm(Q, ex * g[:, :, None])
+        exu = torch.exp(-torch.clamp(lam_t[:, :, None] * gam_t, -700.0, 700.0))
+        Yu0 = exu * c_t[:, :, None]
+    return _CardFactors(k=k, dg=dg_h, od=od_h, btil=btil_h, dev=dev_h, absW=absW_h, absC=absC_h, rho=rho, T=T,
+                        lam=np.asarray(lam, np.float64), bt=bt, weights=weights, gam=gam, w_t=w_t, W=W,
+                        C=C, dg_t=dg, od_t=od, Q=Q, T_t=T_t, lam_t=lam_t, g=g, gam_t=gam_t, ex=ex, exu=exu, Yv0=Yv0,
+                        Yu0=Yu0, bt_t=bt_t)
+
+
+def _evaluate_card_recorded(f: _CardFactors, beta, b_norm, dev, b0_norms, dev0, eps_elem, lam_gersh_f, gram_dev,
+                            frechet: bool = True, e_u=None):
+    """_evaluate_host_recorded's evaluation on the record's device, from the
+    checkpoint's shared pieces f (_card_factors): beta (d,) the boundary
+    coupling, dev (d, K) the per-step charges, the rest as the host route
+    takes them. With frechet, the Fréchet increments as the host route forms
+    them (GEMM-separated divided differences, the degenerate pairs, found on
+    the host from T and λ, patched in one masked pass: _sinhc_patch), a
+    factor at a time; then Z = H̃Y; the joint Grams YᵀY, ZᵀZ, YᵀZ, Yᵀb̃ and
+    Zᵀb̃ from one Gram of [Y | Z | b̃] in exact slices (_exact_gram_parts),
+    the last basis row and the triangle contractions |Y_s|ᵀb_s, read in one
+    copy; the slices' sum in longdouble, the d³ product loop, the boundary
+    and the relation terms on the host (_recorded_tail). Opens
+    'deflated.df64_evaluate.card' over the device work and its read.
+
+    Returns the host route's (rel, boundary_rel_sq, Yu, Yv, weights,
+    components), but Yu (d, m, t) and Yv (d, k, t) are the active exp-sum
+    terms' columns, on the record's device. The certificate's terms differ
+    from the host route's in the last places (the device's GEMMs and exp,
+    the summation order, ρ's margin). The estimate rel differs more: its
+    compressed part hy2 − 2·ip + b2 cancels, and the host route's f64 Grams
+    leave it a floor near √eps·‖b̃‖ that the exact Grams lower to about
+    2^-30·‖b̃‖."""
+    f64 = torch.float64
+    k = f.k
+    d, m = f.lam.shape
+    t = f.gam.size
+    host = [dev[:, 1:k + 1], _eta_hat(eps_elem, lam_gersh_f, f.dg, f.od, k, f.absW, f.absC)]
+    if e_u is not None:
+        host.append(e_u)
+    thr = 1e-8 * (np.abs(f.T).max(axis=1) + 1.0)               # the host route's 1e-8·scale_T, per factor
+    pairs = []
+    if frechet:
+        pairs = [(_pairs_by_row(np.abs(f.T[s][:, None] - f.T[s][None, :]) < thr[s]),
+                  _pairs_by_row(np.abs(f.lam[s][:, None] - f.T[s][None, :]) < thr[s])) for s in range(d)]
+    with span("deflated.df64_evaluate.card"):
+        up = _upload(f.Q.device, *host, *(a for side in pairs for p in side if p is not None for a in p))
+        bounds, rest = up[:len(host)], iter(up[len(host):])
+        Yv, Yu = f.Yv0, f.Yu0
+        if frechet:
+            dYv, dYu = torch.empty_like(Yv), torch.empty_like(Yu)
+            for s, (pv, pu) in enumerate(pairs):
+                Q, T, g, ex, exu, lam_s = f.Q[s], f.T_t[s], f.g[s], f.ex[s], f.exu[s], f.lam_t[s]
+                Ws, Cs = f.W[s, :k, :k].to(f64), f.C[s, :, :k].to(f64)
+                Gw = (Q.T @ Ws @ Q) * g[None, :]
+                dT = T[:, None] - T[None, :]
+                deg = dT.abs() < float(thr[s])                # incl. the diagonal
+                M = torch.where(deg, 0.0, Gw) / torch.where(deg, 1.0, dT)
+                dYv_c = ex * M.sum(dim=1)[:, None] - M @ ex
+                _sinhc_patch(dYv_c, Gw, T, T, ex, ex, f.gam_t, next(rest), next(rest), next(rest))
+                dYv[s] = Q @ dYv_c
+                Gu = (Cs @ Q) * g[None, :]
+                dU = lam_s[:, None] - T[None, :]
+                degU = dU.abs() < float(thr[s])
+                MU = torch.where(degU, 0.0, Gu) / torch.where(degU, 1.0, dU)
+                dYu[s] = exu * MU.sum(dim=1)[:, None] - MU @ ex
+                if pu is not None:
+                    _sinhc_patch(dYu[s], Gu, lam_s, T, exu, ex, f.gam_t, next(rest), next(rest), next(rest))
+            Yv, Yu = Yv + dYv, Yu + dYu
+        # Z = H~ Y with the full recorded relation
+        Tf = (torch.diag_embed(f.dg_t[:, :k]) + torch.diag_embed(f.od_t[:, 1:k], offset=-1)
+              + torch.diag_embed(f.od_t[:, 1:k], offset=1))
+        Zv = torch.bmm(Tf + f.W[:, :k, :k].to(f64), Yv)
+        Zu = f.lam_t[:, :, None] * Yu
+        for s in range(d):
+            Zu[s] += f.C[s, :, :k].to(f64) @ Yv[s]
+        # the joint factors' Grams YᵀY, ZᵀZ, YᵀZ, Yᵀb̃ and Zᵀb̃ from one exact Gram of [Y | Z | b̃]
+        J = torch.cat([torch.cat([Yu, Yv], dim=1), torch.cat([Zu, Zv], dim=1), f.bt_t[:, :, None]], dim=2)
+        aYv = Yv.abs().transpose(1, 2)
+        parts = [_exact_gram_parts(J), Yv[:, k - 1, :], torch.bmm(aYv, bounds[0][:, :, None]),
+                 torch.bmm(aYv, bounds[1][:, :, None])]
+        if e_u is not None:
+            parts.append(torch.bmm(Yu.abs().transpose(1, 2), bounds[2][:, :, None]))
+        out = host_read(torch.cat([p.reshape(d, -1) for p in parts], dim=1)).numpy()
+    P = 2 * t + 1
+    G = _gram_sum(out[:, :4 * P * P].reshape(d, 4, P, P))
+    Gy, Gz, Xg, yb, zb = G[:, :t, :t], G[:, t:2 * t, t:2 * t], G[:, :t, t:2 * t], G[:, :t, 2 * t], G[:, t:2 * t, 2 * t]
+    yr, D_dev, D_eta, *D_eu = (out[:, 4 * P * P + i * t:4 * P * P + (i + 1) * t] for i in range(len(parts) - 1))
+    rel, brs, components = _recorded_tail(Gy, Gz, Xg, yb, zb, f.bt, yr, beta, f.w_t, f.gam, D_dev, D_eta,
+                                          D_eu[0] if D_eu else None, f.rho, k, b_norm, b0_norms, dev0, gram_dev,
+                                          eps_elem, lam_gersh_f)
+    return rel, brs, Yu, Yv, f.weights.copy(), components

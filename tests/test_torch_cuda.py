@@ -1258,13 +1258,45 @@ def test_expansion_arithmetic_on_card_equals_cpu(cuda):
         assert torch.equal(a.cpu(), c)
 
 
-def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
+def _df64_traced(monkeypatch, op, b, cfg, kw):
+    """A traced df64 solve: (result, solve record, whether a read inside
+    'deflated.df64_evaluate' touched the storage of the record's W or C)."""
+    from tensorkrylov_tpu_torch import df64_core
+    from tensorkrylov_tpu_torch.utils import profiling
+
+    states, storages = [], []
+    real_init, real_read = deflate._df64_init, profiling.host_read
+
+    def init(*a, **k):
+        out = real_init(*a, **k)
+        states.append(out[0])
+        return out
+
+    def read(x, *a):
+        if isinstance(x, torch.Tensor) and profiling._STACK[-1].name.startswith("deflated.df64_evaluate"):
+            storages.append(x.untyped_storage().data_ptr())
+        return real_read(x, *a)
+
+    monkeypatch.setattr(deflate, "_df64_init", init)
+    for module in (deflate, df64_core):
+        monkeypatch.setattr(module, "host_read", read)
+    with profiling.tracing():
+        res = tkt.solve_deflated(op, b, cfg, **kw)
+    (st,) = states
+    touched = bool({x.untyped_storage().data_ptr() for x in (st.W, st.C)} & set(storages))
+    return res, profiling.solve_records()[-1], touched
+
+
+def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path, monkeypatch):
     """storage='df64', final='device' on the card: status, steps and
     checkpoints as on the CPU, the bounds within 1e-9 (cuBLAS and the CPU
     round the GEMMs apart), one banded_spmv launch (the cross-check's A·X)
     and one of the sup error's kernel, x on the card, the dense oracle below
     the bound; a solve stopped at 8 and resumed from its cache equals the
-    uninterrupted one bit for bit, with the same launches."""
+    uninterrupted one bit for bit, with the same launches. The recorded
+    relation is evaluated on the card: a traced solve, bit-equal, opens
+    'deflated.df64_evaluate.card' under each evaluation span and reads
+    neither W nor C to the host."""
     def problem(device):
         op = tkt.laplace(2, 64, shift=30.0, device=device)
         b = tkt.random_rhs(2, 64, seed=5)
@@ -1289,6 +1321,10 @@ def test_solve_deflated_df64_on_card_equals_cpu(cuda, tmp_path):
     torch.cuda.synchronize()
     assert dict(_build.launches) == {"banded_spmv": 1, "expsum_sup": 1, "gram_dot2": 1}
     assert resumed.certified_bound == got.certified_bound and torch.equal(resumed.x.factors, got.x.factors)
+    traced, rec, touched = _df64_traced(monkeypatch, op, b, cfg, kw)
+    assert traced.certified_bound == got.certified_bound and not touched
+    cards = [s for s in rec.spans if s.name == "deflated.df64_evaluate.card"]
+    assert cards and all(s.parent.name == "deflated.df64_evaluate" and s.device_ms is not None for s in cards)
 
 
 def test_solve_block_recorded_on_card_equals_cpu(cuda):

@@ -345,6 +345,146 @@ def test_evaluate_host_recorded_equals_jax(frechet):
         np.testing.assert_array_equal(a, r)
 
 
+# ---- the card route (df64_core._card_factors, _evaluate_card_recorded) on CPU f64 tensors ----
+
+def _coincident_inputs():
+    """_perturbed_inputs' widths with degenerate pairs in both divided
+    differences: each T_s two equal uncoupled blocks (every eigenvalue
+    double), λ_s holding one of T_s's eigenvalues exactly and another within
+    1e-12 of one, a recorded C beside W and a nonzero boundary coupling."""
+    from scipy.linalg import eigh_tridiagonal
+
+    rng = np.random.default_rng(5)
+    d, k, m, Kp = 2, 12, 3, 16
+    dg, od = np.zeros((d, k + 1)), np.zeros((d, k + 1))
+    half = 5.0 + rng.standard_normal((d, k // 2))
+    dg[:, :k] = np.concatenate([half, half], axis=1)
+    off = 0.5 * np.abs(rng.standard_normal((d, k // 2 - 1)))
+    od[:, 1:k] = np.concatenate([off, np.zeros((d, 1)), off], axis=1)
+    od[:, k] = 0.2
+    T = np.stack([eigh_tridiagonal(dg[s, :k], od[s, 1:k])[0] for s in range(d)])
+    lam = np.stack([[0.7, T[s, 2], T[s, 7] * (1.0 + 1e-12)] for s in range(d)])
+    c = rng.standard_normal((d, m)) * 0.3
+    lam_min = float(lam[:, 0].sum())
+    lam_tot_max = float(lam[:, -1].sum() + 2 * (dg.max() + 2 * od.max()))
+    kappa = lam_tot_max / lam_min
+    co = select_bh(torch.tensor(kappa, dtype=torch.float64), 1e-10 / kappa, load_tables())
+    omega, alpha, t_mask = (t.numpy() for t in (co.omega, co.alpha, co.t_mask))
+    W = np.zeros((d, Kp, Kp), np.float32)
+    W[:, :k, :k] = (rng.standard_normal((d, k, k)) * 1e-4).astype(np.float32)
+    C = np.zeros((d, m, Kp), np.float32)
+    C[:, :, :k] = (rng.standard_normal((d, m, k)) * 1e-4).astype(np.float32)
+    return (dg, od, np.zeros((d, k + 1)), od[:, k].copy(), k, lam, c, 1.0, lam_min, omega, alpha, t_mask, W, C,
+            np.zeros((d, k + 1)), np.ones(d), np.zeros(d), 1e-20, np.full(d, lam_tot_max / d), 0.0)
+
+
+def _twin_inputs(case):
+    """The host route's arguments and a deflated block's defect e_u: the JAX
+    comparison's roundoff-scale C (where the case has none), nonzero dev,
+    dev0 and Gram deviation."""
+    args = list(_perturbed_inputs() if case == "perturbed" else _coincident_inputs())
+    rng = np.random.default_rng(12)
+    if case == "perturbed":
+        args[13] = (rng.standard_normal(args[13].shape) * 1e-9).astype(np.float32)     # C
+    args[14] = np.abs(rng.standard_normal(args[14].shape)) * 1e-14                     # dev
+    args[16] = np.full(2, 1e-16)                                                       # dev0
+    args[19] = 1e-14                                                                   # gram_dev
+    return args, np.abs(rng.standard_normal(args[5].shape)) * 1e-13
+
+
+@pytest.mark.parametrize("frechet", [True, False])
+@pytest.mark.parametrize("case", ["perturbed", "coincident"])
+def test_card_route_is_the_host_evaluation(monkeypatch, case, frechet):
+    """The card route's torch code on CPU f64 tensors against the host
+    route: the certificate's terms and ρ to 1e-10, Yu and Yv to 1e-10 beside
+    1e-14 of their largest entry; ρ not below the SVD's σ_max (the host
+    route's ρ); the coincident case reaches both sinhc patches with pairs off
+    the diagonal. A checkpoint's cheap and Fréchet calls share one
+    eigendecomposition a factor and one eigensolver call for ρ."""
+    import scipy.linalg
+
+    args, e_u = _twin_inputs(case)
+    (dg, od, btil, beta, k, lam, c, b_norm, lam_min, omega, alpha, t_mask, W, C, dev, b0, dev0, eps_elem, lam_g,
+     gram_dev) = args
+    calls = {"eigh_tridiagonal": 0, "eigvalsh": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(scipy.linalg, "eigh_tridiagonal", counted("eigh_tridiagonal", scipy.linalg.eigh_tridiagonal))
+    monkeypatch.setattr(torch.linalg, "eigvalsh", counted("eigvalsh", torch.linalg.eigvalsh))
+    patches = []      # (side, degenerate pairs) of each sinhc patch
+    real_patch = df64_core._sinhc_patch
+
+    def patch(dY, G, x_row, x_col, e_row, e_col, gam, rows, cols, valid):
+        patches.append(("V" if x_row is x_col else "U", int(valid.sum())))
+        return real_patch(dY, G, x_row, x_col, e_row, e_col, gam, rows, cols, valid)
+
+    monkeypatch.setattr(df64_core, "_sinhc_patch", patch)
+    f = df64_core._card_factors(*(torch.from_numpy(np.ascontiguousarray(x)) for x in (W, C, dg, od, btil, dev)), k,
+                                lam, c, b0, lam_min, omega, alpha, t_mask)
+    rest = (b_norm, dev, b0, dev0, eps_elem, lam_g, gram_dev)
+    cheap = df64_core._evaluate_card_recorded(f, beta, *rest, frechet=False, e_u=e_u)
+    fre = df64_core._evaluate_card_recorded(f, beta, *rest, frechet=True, e_u=e_u)
+    assert calls == {"eigh_tridiagonal": 2, "eigvalsh": 1}
+    got = fre if frechet else cheap
+    ref = df64_core._evaluate_host_recorded(*args, frechet=frechet, e_u=e_u)
+    for key in ("boundary", "dev_term", "eta_term", "r2_term", "rho"):
+        np.testing.assert_allclose(got[5][key], ref[5][key], rtol=1e-10, atol=0, err_msg=key)
+    assert got[5]["rho"] >= ref[5]["rho"] > 0.0
+    act = np.flatnonzero(t_mask > 0)
+    for mine, host in ((got[2], ref[2][:, :, act]), (got[3], ref[3][:, :k, act])):
+        assert mine.shape == host.shape
+        np.testing.assert_allclose(mine.numpy(), host, rtol=1e-10, atol=1e-14 * np.abs(host).max())
+    np.testing.assert_array_equal(got[4], ref[4])
+    if case == "coincident":
+        # per factor the V patch holds the diagonal and each double eigenvalue's two pairs, the U patch λ_s's
+        # two coincidences with a double eigenvalue; the last row of Yv is reached through W alone (T_s's blocks
+        # are uncoupled)
+        assert (got[5]["boundary"] > 0.0) is frechet
+        assert patches == [("V", 2 * k), ("U", 4)] * 2
+    else:
+        assert patches == [("V", k)] * 2
+
+
+def test_exact_gram_parts_are_exact():
+    """_exact_gram_parts' products of the slices are exact, by rational
+    arithmetic, on columns of moderate and of wide dynamic range and a zero
+    column; their longdouble sum is JᵀJ within 5·n·δ³·c_i·c_j plus
+    2^-61·Σ_p|J_pi||J_pj| (its rounding), which the f64 GEMM's result misses
+    (it is rounded to 2^-53 of the entry)."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(4)
+    n, P = 300, 5
+    J = rng.standard_normal((1, n, P)) * np.exp(rng.uniform(-3.0, 3.0, (1, n, P)))
+    J[0, :, 3] *= np.exp(rng.uniform(-20.0, 20.0, n))
+    J[0, :, 4] = 0.0
+    Jt = torch.from_numpy(J)
+    slices = [x[0].numpy() for x in df64_core._gram_slices(Jt)]
+    parts = df64_core._exact_gram_parts(Jt)[0].numpy()
+    rat = lambda x: Fraction(*x.as_integer_ratio())
+    for (a, b), part in zip(((0, 0), (0, 1), (1, 1), (0, 2)), parts):
+        for i in range(P):
+            for j in range(P):
+                assert rat(part[i, j]) == sum(rat(x) * rat(y) for x, y in zip(slices[a][:, i], slices[b][:, j]))
+    got, gemm = df64_core._gram_sum(parts[None])[0], J[0].T @ J[0]
+    s = (52 + (n - 1).bit_length() + 1) // 2
+    c = 2.0 ** np.frexp(np.abs(J[0]).max(axis=0))[1]
+    scale = np.abs(J[0]).T @ np.abs(J[0])
+    missed = 0
+    for i in range(P):
+        for j in range(P):
+            exact = sum(rat(x) * rat(y) for x, y in zip(J[0, :, i], J[0, :, j]))
+            bound = Fraction(5 * n * c[i] * c[j]) * Fraction(2) ** (3 * (s - 53)) + Fraction(scale[i, j]) / 2 ** 61
+            assert abs(rat(got[i, j]) - exact) <= bound, (i, j)
+            missed += abs(rat(gemm[i, j]) - exact) > bound
+    assert missed > P
+
+
 def test_jax_written_cache_resumes_in_the_port(tmp_path):
     """A cache the JAX package wrote at checkpoint 8 loads in the port, which
     resumes to the JAX uninterrupted run's status and checkpoints, and its

@@ -123,13 +123,16 @@ def _full(x):
 
 
 @pytest.mark.parametrize("seed", [3, 4, 5])
-def test_the_certificate_bounds_the_true_residual(problem, seed):
+def test_the_certificate_bounds_the_true_residual(problem, seed, monkeypatch):
     """Each df64 answer's certified bound is at least the reference's true
     ‖A x − b‖/‖b‖ of it, and x agrees with storage='full''s answer within
     the forward error both residuals allow: ‖x − x*‖/‖x*‖ ≤ κ(A)·r for an
     answer of true residual r, and κ(A) = κ for a sum of identical factors
     (its extreme eigenvalues are d times the factor's), so the two answers
-    differ by at most κ·(r_df64 + r_full) relative to x* (≈ x_full)."""
+    differ by at most κ·(r_df64 + r_full) relative to x* (≈ x_full). The
+    card route's evaluation (run here on the CPU record) certifies the same
+    steps and checkpoints, each of its answers' bounds above the true
+    residual and within 1e-9 of the host route's."""
     cfg, ref, op, config, kwargs = problem
     b = rhs(seed)
     offsets, bands = ref.factor_bands(cfg["operator"], CPU)
@@ -142,6 +145,15 @@ def test_the_certificate_bounds_the_true_residual(problem, seed):
     true_full = residual.relative_residual(offsets, bands, ful.x.weights, ful.x.factors, b)
     x, x_full = _full(res.x), _full(ful.x)
     assert np.linalg.norm(x - x_full) <= KAPPA * (true_df64 + true_full) * np.linalg.norm(x_full)
+
+    monkeypatch.setattr(tkt.deflate, "_evaluates_on_card", lambda st: True)
+    card = tkt.solve_deflated(op, b, config, **kwargs)
+    assert (card.status, card.niterations, card.checkpoints, card.gram_source) == (
+        res.status, res.niterations, res.checkpoints, res.gram_source)
+    true_card = residual.relative_residual(offsets, bands, card.x.weights, card.x.factors, b)
+    assert true_card <= card.certified_bound[-1] < config.tol
+    np.testing.assert_allclose(card.certified_bound, res.certified_bound, rtol=1e-9)
+    assert card.perturbation_rho >= res.perturbation_rho
 
 
 def _traced(op, b, config, **kwargs):
@@ -211,6 +223,71 @@ def test_a_traced_solve_opens_each_df64_span_and_counts_its_reads(problem, final
     by_hand = (READS["deflated.prepare"] + READS["deflated.df64_init"] + sum(map(_evaluate_reads, gram))
                + READS["deflated.finish"][final] + 1)
     assert rec.root.host_reads == by_hand
+
+
+def _record_reads(monkeypatch, route):
+    """Solve the tiny cell traced on the given evaluation route ('card' taken
+    on the CPU record by patching the route's device test): (result, solve
+    record, the record's W and C, the storages of the tensors read inside
+    'deflated.df64_evaluate', the calls of the card route's shared helper
+    and of its evaluation)."""
+    monkeypatch.setattr(tkt.deflate, "_evaluates_on_card", lambda st: route == "card")
+    states, storages, calls = [], [], {"_card_factors": 0, "_evaluate_card_recorded": 0}
+    real_init, real_read = tkt.deflate._df64_init, profiling.host_read
+
+    def init(*a, **kw):
+        out = real_init(*a, **kw)
+        states.append(out[0])
+        return out
+
+    def read(x, *a):
+        if isinstance(x, torch.Tensor) and profiling._STACK[-1].name.startswith("deflated.df64_evaluate"):
+            storages.append(x.untyped_storage().data_ptr())
+        return real_read(x, *a)
+
+    def counted(name):
+        fn = getattr(tkt.deflate, name)
+
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tkt.deflate, "_df64_init", init)
+    for module in (tkt.deflate, tkt.df64_core):
+        monkeypatch.setattr(module, "host_read", read)
+    for name in calls:
+        monkeypatch.setattr(tkt.deflate, name, counted(name))
+    return states, storages, calls
+
+
+def test_the_card_route_keeps_the_record_and_shares_its_factors(problem, monkeypatch):
+    """The card route, taken on the CPU record: a traced solve opens
+    'deflated.df64_evaluate.card' under each 'deflated.df64_evaluate', once
+    for the checkpoint's shared pieces and once an evaluation; the shared
+    pieces are computed once a checkpoint (three, for five evaluations); no
+    read inside the evaluation touches W's or C's storage, where the host
+    route's do; each evaluate span reads the eigensolver's wait and the
+    record's one copy, one read an evaluation, the overlap and the leak, and
+    the measured Gram's max where it decides."""
+    cfg, ref, op, config, kwargs = problem
+    b = rhs(6)
+    for route in ("host", "card"):
+        states, storages, calls = _record_reads(monkeypatch, route)
+        res, rec = _traced(op, b, config, **kwargs)
+        (st,) = states
+        touched = {x.untyped_storage().data_ptr() for x in (st.W, st.C)} & set(storages)
+        assert res.status == 1 and res.checkpoints == CHECKPOINTS
+        if route == "host":
+            assert len(touched) == 2 and calls == {"_card_factors": 0, "_evaluate_card_recorded": 0}
+            continue
+        assert not touched
+        assert calls == {"_card_factors": len(CHECKPOINTS), "_evaluate_card_recorded": 5}
+        evaluates = [s for s in rec.spans if s.name == "deflated.df64_evaluate"]
+        cards = [s for s in rec.spans if s.name == "deflated.df64_evaluate.card"]
+        assert all(s.parent in evaluates for s in cards)
+        assert [sum(s.parent is e for s in cards) for e in evaluates] == [2, 3, 3]
+        assert [e.host_reads for e in evaluates] == [2 + 1 + 2, 2 + 2 + 2 + 1, 2 + 2 + 2 + 1]
 
 
 def test_spans_change_no_bit():
